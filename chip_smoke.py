@@ -1,0 +1,620 @@
+"""Chip smoke test of the PyTorch/CUDA port (run on a machine with one H100).
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
+kernel against its plain PyTorch version at the main path's shapes, checks
+greedy-token parity of the reduced model between the card (kernels) and
+the CPU (plain versions), serves full-width qwen2-0.5b in CIM sim mode
+through the kernels with the bf16 and the int8 KV cache, and times each
+kernel against its bound. Every phase prints one JSON line; any failure
+exits non-zero. The last line is the device record.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and bf16 / int8
+# tensor-core operations/s; bounds are stated against them
+HBM_BPS = 3.35e12
+BF16_OPS = 989e12
+INT8_OPS = 1979e12
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def row_check(out, ref):
+    """Attention outputs against the plain version, row by row (a row is
+    one query head's output vector): each element within 2^-6 times the
+    largest |ref| of its row. Returns (max abs err, max err / row scale,
+    share of rows out of tolerance); a lens==0 row must match exactly."""
+    scale = ref.abs().amax(-1, keepdim=True)
+    err = (out - ref).abs()
+    bad = (err > 2 ** -6 * scale).any(-1)
+    rel = (err / scale.clamp(min=1e-30)).max().item()
+    return err.max().item(), rel, bad.float().mean().item()
+
+
+def wall_ms(fn, reps: int) -> float:
+    """Mean ms per ``fn()`` between CUDA events after one warm-up. For a
+    few small launches this is the host's enqueue rate, not device time."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def busy_ms(events, reps: int) -> float:
+    """Device-busy ms per repetition: the union of the CUDA kernel and copy
+    intervals that torch.profiler recorded."""
+    import torch
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, -1e30
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3 / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time of ``fn()`` (ms, after one warm-up): what the card spends
+    on it, without the host's launch gaps between small kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return busy_ms(prof.events(), reps)
+
+
+# ------------------------------------------------------------ phase 1
+def phase_device():
+    import torch
+    from repro_torch.kernels import _build
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(smi, flush=True)
+    t0 = time.perf_counter()
+    _build.library()
+    emit("device", smi=smi, torch=torch.__version__,
+         cuda=torch.version.cuda,
+         build_s=time.perf_counter() - t0, nvcc_s=_build.build_seconds)
+
+
+# ------------------------------------------------------------ phase 2
+def phase_kernels(cfg):
+    """Each kernel against its plain version on the card, main-path shapes."""
+    import torch
+    from repro_torch.core import quant
+    from repro_torch.core.cim import output_noise_std_int_per_tile
+    from repro_torch.core.sac import paper_sac
+    from repro_torch.kernels.cim_matmul import (cim_matmul_fused,
+                                                cim_matmul_fused_plain)
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    from repro_torch.kernels.flash_attention import (flash_gqa_attention,
+                                                     flash_gqa_plain)
+    from repro_torch.models.attention import _kv_quant
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    pol = paper_sac()
+    worst = {}
+    # kernel 1: sigma = 0 gives the integer part, which must match exactly
+    # (every tile sum is an integer below 2^24 and so is the f32 total);
+    # with noise, Box-Muller's logf/cosf differ from the CPU's by ulps:
+    # tolerance 1e-6 * tiles * max|y| + 1e-5 * sigma
+    n_cases, rel1 = 0, 0.0
+    for spec in (pol.attn, pol.mlp):
+        for k in (896, 4864):
+            sigma = output_noise_std_int_per_tile(spec, k)
+            for n in (128, 896, 4864):
+                w = torch.randn((k, n), generator=g, device=dev)
+                wq = quant.quantize(w, quant.abs_max_scale(w, spec.w_bits),
+                                    spec.w_bits).to(torch.int8)
+                for m in (1, 4, 8, 32):
+                    x = torch.randn((m, k), generator=g, device=dev
+                                    ).to(torch.bfloat16)
+                    xs = 4.0 * torch.sqrt(torch.mean(
+                        x.float() ** 2)) / quant.qmax(spec.in_bits)
+                    qp = torch.stack([xs, torch.ones_like(xs)])
+                    ex = cim_matmul_fused(x, wq, qp, None, 0.0, spec.in_bits)
+                    ep = cim_matmul_fused_plain(x, wq, qp, None, 0.0,
+                                                spec.in_bits)
+                    if not torch.equal(ex, ep):
+                        fail(f"cim_matmul_fused integer part differs at "
+                             f"M={m} K={k} N={n} bits={spec.in_bits}: "
+                             f"{(ex - ep).abs().max().item()}")
+                    seed = (0x12345678 + m, 0x9ABCDEF0 + n)
+                    yk = cim_matmul_fused(x, wq, qp, seed, sigma,
+                                          spec.in_bits)
+                    yp = cim_matmul_fused_plain(x, wq, qp, seed, sigma,
+                                                spec.in_bits)
+                    err = (yk - yp).abs().max().item()
+                    tiles = -(-k // 1024)
+                    tol = 1e-6 * tiles * yp.abs().max().item() + 1e-5 * sigma
+                    if not err <= tol:
+                        fail(f"cim_matmul_fused noisy M={m} K={k} N={n}: "
+                             f"err {err} > tol {tol}")
+                    worst["cim_matmul_fused"] = max(
+                        worst.get("cim_matmul_fused", 0.0), err)
+                    rel1 = max(rel1, err / yp.abs().max().item())
+                    n_cases += 1
+    emit("kernel_check", kernel="cim_matmul_fused", cases=n_cases,
+         integer_part="exact", max_abs_err=worst["cim_matmul_fused"],
+         max_rel_err=rel1,
+         tol="1e-6*tiles*max|y| + 1e-5*sigma")
+
+    # kernels 2 and 3: bf16 cache (bf16 q) and int8 cache (bf16 q); the
+    # kernel rounds p to bf16 before p@V on a bf16 cache as the reference
+    # kernel does, and both write bf16: tolerance 2^-6 * max|ref row| per
+    # query head (row_check). Its reach is checked on the plain version: a
+    # result that drops the last 32 live keys (a skipped tail block) must
+    # fail it in every long row.
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    t = 320
+    for int8 in (False, True):
+        kf = torch.randn((4, t, kv, hd), generator=g, device=dev)
+        vf = torch.randn((4, t, kv, hd), generator=g, device=dev)
+        if int8:
+            kc, ks = _kv_quant(kf)
+            vc, vs = _kv_quant(vf)
+        else:
+            kc, vc, ks, vs = kf.bfloat16(), vf.bfloat16(), None, None
+        q = torch.randn((4, h, hd), generator=g, device=dev).bfloat16()
+        lens = torch.tensor([0, 1, 77, t], dtype=torch.int32, device=dev)
+        ok = decode_attention(q, kc, vc, lens, ks, vs).float()
+        op = decode_attention_plain(q, kc, vc, lens, ks, vs).float()
+        err, rel, bad = row_check(ok, op)
+        if bad or ok[0].abs().max().item() != 0.0:
+            fail(f"decode_attention int8={int8}: {bad:.3f} of the rows out "
+                 f"of tolerance (max err {err}, max err/row {rel}) or "
+                 f"lens==0 row nonzero")
+        short = decode_attention_plain(q, kc, vc, (lens - 32).clamp(min=1),
+                                       ks, vs).float()
+        reach = row_check(short[2:], op[2:])[2]
+        if reach < 1.0:
+            fail(f"decode_attention tolerance too loose: dropping the last "
+                 f"32 keys fails only {reach:.3f} of the long rows")
+        worst[("decode", int8)] = err
+        emit("kernel_check", kernel="decode_attention", int8_cache=int8,
+             lens=lens.tolist(), max_abs_err=err, max_err_over_row_max=rel,
+             tol="2^-6*max|ref row|", tail_block_dropped_rows_failing=reach)
+        qf = torch.randn((1, 32, h, hd), generator=g, device=dev).bfloat16()
+        kvs = (kc[:1], vc[:1], None if ks is None else ks[:1],
+               None if vs is None else vs[:1])
+        rel, reach = 0.0, 1.0
+        for start in (0, 32, 96, 256):
+            st = torch.tensor([start], dtype=torch.int32, device=dev)
+            fk, counts = flash_gqa_attention(qf, kvs[0], kvs[1], st, *kvs[2:],
+                                             return_block_counts=True)
+            fk = fk.float()
+            # causal pruning witness: q block i visits the key blocks up to
+            # its frontier start + 8 (i + 1) - 1, in blocks of 32 keys
+            want = [[-(-(start + 8 * (i + 1)) // 32) for i in range(4)]] * kv
+            if counts[0].tolist() != want:
+                fail(f"flash_gqa start={start}: block counts "
+                     f"{counts[0].tolist()} != {want}")
+            fp = flash_gqa_plain(qf, kvs[0], kvs[1], st, *kvs[2:]).float()
+            err, r, bad = row_check(fk, fp)
+            if bad:
+                fail(f"flash_gqa int8={int8} start={start}: {bad:.3f} of "
+                     f"the rows out of tolerance (max err {err}, max "
+                     f"err/row {r})")
+            if start:
+                # the frontier 32 keys earlier: each query loses its last
+                # 32 visible keys
+                short = flash_gqa_plain(qf, kvs[0], kvs[1], st - 32,
+                                        *kvs[2:]).float()
+                reach = min(reach, row_check(short, fp)[2])
+            worst[("flash", int8)] = max(worst.get(("flash", int8), 0), err)
+            rel = max(rel, r)
+        if reach < 1.0:
+            fail(f"flash_gqa tolerance too loose: dropping the last 32 "
+                 f"visible keys fails only {reach:.3f} of the rows")
+        emit("kernel_check", kernel="flash_gqa", int8_cache=int8,
+             starts=[0, 32, 96, 256], max_abs_err=worst[("flash", int8)],
+             max_err_over_row_max=rel, tol="2^-6*max|ref row|",
+             block_counts="exact", tail_block_dropped_rows_failing=reach)
+    return worst
+
+
+# ------------------------------------------------------------ phase 3
+def phase_parity():
+    """Reduced model: greedy tokens on the card through the kernels equal
+    the CPU's through the plain versions, with the same parameters."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.deploy import init_params
+    from repro_torch.serving.engine import Engine, Request
+
+    base = get_config("qwen2-0.5b").reduced()
+    cfg = dataclasses.replace(base, cim=dataclasses.replace(
+        base.cim, mode="sim", use_kernel=True))
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (40, 90, 57)]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        eng = Engine(cfg, params, max_slots=2, max_len=128,
+                     attn_impl="kernel", device=dev)
+        outs[dev] = eng.generate([Request(prompt=p, max_new_tokens=8,
+                                          rid=f"p{i}")
+                                  for i, p in enumerate(prompts)])
+    if outs["cuda"] != outs["cpu"]:
+        fail(f"reduced-model tokens differ: cuda {outs['cuda']} vs cpu "
+             f"{outs['cpu']}")
+    emit("token_parity", requests=len(prompts), new_tokens=8,
+         equal=True, tokens=outs["cuda"])
+
+
+# ------------------------------------------------------------ phase 4
+def full_config(int8: bool):
+    from repro_torch.configs.registry import get_config
+    cfg = get_config("qwen2-0.5b")
+    return dataclasses.replace(cfg, kv_cache_int8=int8, cim=dataclasses.replace(
+        cfg.cim, mode="sim", use_kernel=True))
+
+
+def phase_serve(params, int8: bool):
+    """Full-width qwen2-0.5b, sim mode, through the kernels; the launch
+    counts are zeroed just before the run and read just after."""
+    import torch
+    from repro_torch.kernels.cim_matmul import cim_matmul_fused
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_gqa_attention
+    from repro_torch.core import prng
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import Ctx
+    from repro_torch.serving.engine import Engine, Request
+
+    cfg = full_config(int8)
+    eng = Engine(cfg, params, max_slots=4, max_len=320, attn_impl="kernel",
+                 record_ttft=True, record_steps=True, device="cuda")
+    rng = np.random.default_rng(5)
+    lens = (60, 300, 137, 95, 211, 64)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n),
+                    max_new_tokens=16, rid=f"r{i}")
+            for i, n in enumerate(lens)]
+    kernels = (cim_matmul_fused, decode_attention, flash_gqa_attention)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k.__name__: k.launches for k in kernels}
+    bad = [o for o in outs if not isinstance(o, list) or len(o) != 16
+           or not all(0 <= t < cfg.vocab_size for t in o)]
+    if bad:
+        fail(f"int8={int8}: failed, short or out-of-range requests: {bad}")
+    # the model's output on one chunk: finite logits of the expected shape
+    ctx = Ctx.make(cfg, prng.PRNGKey(11), mode="sim")
+    tokens = torch.from_numpy(reqs[0].prompt[:32]).cuda()[None]
+    logits, _ = tf.forward(eng.params, {"tokens": tokens}, cfg, ctx,
+                           tf.init_caches(cfg, 1, 32, "cuda"))
+    if (tuple(logits.shape) != (1, 32, cfg.vocab_size)
+            or not bool(torch.isfinite(logits).all())):
+        fail(f"int8={int8}: logits {tuple(logits.shape)} not finite")
+    n_chunks = sum(e["chunks"] for e in eng.step_log)
+    n_decode = sum(e["decode"] for e in eng.step_log)
+    L = cfg.n_layers
+    expect = {"cim_matmul_fused": 7 * L * (n_chunks + n_decode),
+              "decode_attention": L * n_decode,
+              "flash_gqa_attention": L * n_chunks}
+    for name, n in expect.items():
+        if counts[name] < n or n == 0:
+            fail(f"int8={int8}: {name} launched {counts[name]} times, "
+                 f"expected {n}")
+    dec = [e["s"] for e in eng.step_log if e["decode"] and not e["chunks"]]
+    toks = sum(len(o) for o in outs)
+    emit("serve_full_width", arch=cfg.name, kv_cache_int8=int8,
+         requests=len(reqs), prompt_lens=list(lens), new_tokens=16,
+         slots=4, tokens=toks, wall_s=wall, session_tok_per_s=toks / wall,
+         chunks=n_chunks, decode_steps=n_decode,
+         pure_decode_step_ms_mean=1e3 * float(np.mean(dec)),
+         ttft_ms_mean=1e3 * float(np.mean(eng.ttft_s)),
+         ttft_ms_max=1e3 * float(np.max(eng.ttft_s)),
+         launches=counts, expected_at_least=expect, logits_finite=True)
+    return counts, n_decode, n_chunks
+
+
+def phase_profile(params):
+    """Where a pure decode step's time goes at full width: the device's
+    busy share (union of kernel intervals over the host wall clock) and
+    device time by kernel, from torch.profiler over three steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.engine import Engine, Request
+
+    cfg = full_config(False)
+    eng = Engine(cfg, params, max_slots=4, max_len=320, attn_impl="kernel",
+                 device="cuda")
+    rng = np.random.default_rng(6)
+    for i in range(4):
+        eng.submit(Request(prompt=rng.integers(0, cfg.vocab_size, 128),
+                           max_new_tokens=32))
+    for _ in range(6):          # 4 chunks per prompt, then pure decode
+        eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        eng.step()
+    torch.cuda.synchronize()
+    plain_wall = (time.perf_counter() - t0) / 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / 3
+    by_name, n_kernels = {}, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n_kernels += 1
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 3e3)
+    busy = busy_ms(prof.events(), 3) if n_kernels else None
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    emit("profile_decode_step", arch=cfg.name, slots=4, cache="bf16",
+         step_ms=1e3 * plain_wall, profiled_step_ms=1e3 * wall,
+         device_busy_ms=busy,
+         device_busy_share_of_step=None if busy is None
+         else busy / (1e3 * plain_wall),
+         device_launches=n_kernels // 3,
+         top_device_ms=[[n[:80], ms] for n, ms in top])
+
+
+# ------------------------------------------------------------ phase 5
+def phase_times(params, cfg):
+    """Kernel, plain and library device times (torch.profiler) at the main
+    path's shapes, per decode step or per prefill chunk of all 24 layers;
+    ``wall_ms`` is the kernel's event-timed rate, which the host's launch
+    overhead bounds for these small grids."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import prng
+    from repro_torch.core.deploy import deploy
+    from repro_torch.core.cim import output_noise_std_int_per_tile
+    from repro_torch.core.sac import paper_sac
+    from repro_torch.kernels.cim_matmul import (cim_matmul_fused,
+                                                cim_matmul_fused_plain)
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    from repro_torch.kernels.flash_attention import (flash_gqa_attention,
+                                                     flash_gqa_plain)
+    from repro_torch.models.attention import _kv_quant
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    pol = paper_sac()
+    dp = deploy(cfg, params)
+    blocks = dp["blocks"]
+    L, m = cfg.n_layers, 4
+    # one decode step's CIM work: 7 projections x 24 layers at M = 4 slots;
+    # the planes (358 MB) exceed the 50 MB L2, so each launch streams cold
+    calls = []
+    for i in range(L):
+        for grp, name, spec in (("attn", "q", pol.attn), ("attn", "k", pol.attn),
+                                ("attn", "v", pol.attn), ("attn", "o", pol.attn),
+                                ("mlp", "gate", pol.mlp), ("mlp", "up", pol.mlp),
+                                ("mlp", "down", pol.mlp)):
+            wq = blocks[grp][name][f"wq{spec.w_bits}"][i]
+            k, n = wq.shape
+            x = torch.randn((m, k), generator=g, device=dev).bfloat16()
+            xs = (4.0 * torch.sqrt(torch.mean(x.float() ** 2))
+                  / (2 ** (spec.in_bits - 1) - 1))
+            qp = torch.stack([xs, xs * 1e-2])
+            calls.append((x, wq, qp, output_noise_std_int_per_tile(spec, k),
+                          spec.in_bits))
+    seed = prng.seed_from_key(prng.PRNGKey(9))
+
+    def run_k():
+        for x, wq, qp, s, b in calls:
+            cim_matmul_fused(x, wq, qp, seed, s, b)
+
+    def run_p():
+        for x, wq, qp, s, b in calls:
+            cim_matmul_fused_plain(x, wq, qp, seed, s, b)
+
+    bytes1 = sum(wq.numel() + x.numel() * 2 + 8 + x.shape[0] * wq.shape[1] * 4
+                 for x, wq, *_ in calls)
+    ops1 = sum(2 * x.shape[0] * wq.shape[0] * wq.shape[1]
+               for x, wq, *_ in calls)
+    k_ms = device_ms(run_k, 10)
+    p_ms = device_ms(run_p, 2)
+    bound1 = 1e3 * max(bytes1 / HBM_BPS, ops1 / INT8_OPS)
+    res = {"cim_matmul_fused": dict(
+        ms=k_ms, wall_ms=wall_ms(run_k, 10), plain_ms=p_ms, bound_ms=bound1,
+        bound_by="bytes" if bytes1 / HBM_BPS >= ops1 / INT8_OPS
+        else "operations", library_ms=None,
+        unit="one decode step: 7 projections x 24 layers, M=4",
+        launches_per_decode_step=7 * L, bound_us=1e3 * bound1)}
+    emit("time", kernel="cim_matmul_fused", **res["cim_matmul_fused"],
+         bytes=bytes1, ops=ops1)
+
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    t = 320
+    lens = torch.tensor([300, 137, 95, 211], dtype=torch.int32, device=dev)
+    for int8 in (False, True):
+        caches = []
+        for _ in range(L):
+            kf = torch.randn((4, t, kv, hd), generator=g, device=dev)
+            vf = torch.randn((4, t, kv, hd), generator=g, device=dev)
+            if int8:
+                (kc, ks), (vc, vs) = _kv_quant(kf), _kv_quant(vf)
+            else:
+                kc, vc, ks, vs = kf.bfloat16(), vf.bfloat16(), None, None
+            caches.append((kc, vc, ks, vs))
+        q = torch.randn((4, h, hd), generator=g, device=dev).bfloat16()
+        esz = 1 if int8 else 2
+        live = int(lens.sum())
+        bytes2 = L * (2 * live * kv * hd * esz + (2 * live * kv * 4 if int8
+                                                  else 0) + 2 * q.numel() * 2)
+        ops2 = L * 4 * live * (h // kv) * kv * hd
+        def run_d():
+            for c in caches:
+                decode_attention(q, *c[:2], lens, *c[2:])
+
+        d_k, d_w = device_ms(run_d, 10), wall_ms(run_d, 10)
+        d_p = device_ms(lambda: [decode_attention_plain(q, *c[:2], lens,
+                                                        *c[2:])
+                                 for c in caches], 3)
+        d_lib = None
+        if not int8:
+            mask = (torch.arange(t, device=dev)[None, :] < lens[:, None]
+                    )[:, None, None, :]
+            d_lib = device_ms(lambda: [F.scaled_dot_product_attention(
+                q[:, :, None], c[0].transpose(1, 2), c[1].transpose(1, 2),
+                attn_mask=mask, enable_gqa=True) for c in caches], 10)
+        name = "decode_attention" + ("[int8]" if int8 else "")
+        res[name] = dict(ms=d_k, wall_ms=d_w, plain_ms=d_p, library_ms=d_lib,
+                         bound_ms=1e3 * max(bytes2 / HBM_BPS, ops2 / BF16_OPS),
+                         bound_by="bytes" if bytes2 / HBM_BPS >= ops2 / BF16_OPS
+                         else "operations",
+                         unit="one decode step: 24 layers, B=4, lens "
+                              + str(lens.tolist()),
+                         launches_per_decode_step=L,
+                         bound_us=1e6 * max(bytes2 / HBM_BPS,
+                                            ops2 / BF16_OPS))
+        emit("time", kernel=name, **res[name], bytes=bytes2, ops=ops2)
+
+        # one prefill chunk: 32 queries at start 128 against slot 0's cache
+        s, start = 32, 128
+        qf = torch.randn((1, s, h, hd), generator=g, device=dev).bfloat16()
+        st = torch.tensor([start], dtype=torch.int32, device=dev)
+        one = [(c[0][:1], c[1][:1], None if c[2] is None else c[2][:1],
+                None if c[3] is None else c[3][:1]) for c in caches]
+        keys = start + s
+        bytes3 = L * (2 * keys * kv * hd * esz + (2 * keys * kv * 4 if int8
+                                                  else 0) + 2 * qf.numel() * 2)
+        # causal: query i sees start + i + 1 keys
+        ops3 = L * 4 * h * hd * sum(start + i + 1 for i in range(s))
+        def run_f():
+            for c in one:
+                flash_gqa_attention(qf, c[0], c[1], st, c[2], c[3])
+
+        f_k, f_w = device_ms(run_f, 10), wall_ms(run_f, 10)
+        f_p = device_ms(lambda: [flash_gqa_plain(qf, c[0], c[1], st, c[2],
+                                                 c[3]) for c in one], 3)
+        f_lib = None
+        if not int8:
+            qi = torch.arange(s, device=dev)[:, None] + start
+            kj = torch.arange(t, device=dev)[None, :]
+            fmask = ((kj <= qi) & (kj < start + s))[None, None]
+            f_lib = device_ms(lambda: [F.scaled_dot_product_attention(
+                qf.transpose(1, 2), c[0].transpose(1, 2),
+                c[1].transpose(1, 2), attn_mask=fmask, enable_gqa=True)
+                for c in one], 10)
+        name = "flash_gqa" + ("[int8]" if int8 else "")
+        res[name] = dict(ms=f_k, wall_ms=f_w, plain_ms=f_p, library_ms=f_lib,
+                         bound_ms=1e3 * max(bytes3 / HBM_BPS, ops3 / BF16_OPS),
+                         bound_by="bytes" if bytes3 / HBM_BPS >= ops3 / BF16_OPS
+                         else "operations",
+                         unit="one prefill chunk: 24 layers, S=32, start=128",
+                         launches_per_decode_step=0, launches_per_chunk=L,
+                         bound_us=1e6 * max(bytes3 / HBM_BPS,
+                                            ops3 / BF16_OPS))
+        emit("time", kernel=name, **res[name], bytes=bytes3, ops=ops3)
+    return res
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 2
+    import repro_torch  # noqa: F401  (fails outside a checkout)
+    from repro_torch.core.deploy import init_params
+    from repro_torch.kernels.cim_matmul import cim_matmul_fused
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_gqa_attention
+
+    phase_device()
+    cfg = full_config(False)
+    errs = phase_kernels(cfg)
+    phase_parity()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    if not all(bool(torch.isfinite(v).all()) for v in
+               (params["embed"]["e"], params["blocks"]["mlp"]["down"]["w"])):
+        fail("non-finite parameters")
+    runs = {int8: phase_serve(params, int8)[0] for int8 in (False, True)}
+    phase_profile(params)
+    times = phase_times(params, cfg)
+    src = {"cim_matmul_fused": ("src/repro_torch/csrc/cim_matmul.cu",
+                                "src/repro/kernels/cim_matmul.py:340",
+                                cim_matmul_fused, "cim_matmul_fused"),
+           "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
+                                "src/repro/kernels/decode_attention.py:185",
+                                decode_attention, ("decode", False)),
+           "decode_attention[int8]": (
+               "src/repro_torch/csrc/decode_attention.cu",
+               "src/repro/kernels/decode_attention.py:185",
+               decode_attention, ("decode", True)),
+           "flash_gqa": ("src/repro_torch/csrc/flash_gqa.cu",
+                         "src/repro/kernels/flash_attention.py:409",
+                         flash_gqa_attention, ("flash", False)),
+           "flash_gqa[int8]": ("src/repro_torch/csrc/flash_gqa.cu",
+                               "src/repro/kernels/flash_attention.py:409",
+                               flash_gqa_attention, ("flash", True))}
+    line = []
+    for name, (path, tpu, fn, ekey) in src.items():
+        t = times[name]
+        # launches of the main-path run this entry's times describe (both
+        # cache runs for the CIM kernel, which they share)
+        n = (runs[False][fn.__name__] + runs[True][fn.__name__]
+             if ekey == "cim_matmul_fused" else runs[ekey[1]][fn.__name__])
+        line.append({"name": name, "route": "cuda", "source": path,
+                     "replaces": tpu, "launches": n,
+                     "max_abs_err": errs[ekey], "ms": t["ms"],
+                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                     "bound_by": t["bound_by"],
+                     "library_ms": t["library_ms"]})
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi)
+    print(json.dumps({"kernels": line}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,76 @@
+"""Config schema of the port (a copy of the dense part of the JAX
+package's ``configs/base.py``; the port imports nothing of that package).
+
+One ``ModelConfig`` describes an architecture; ``reduced()`` builds the
+same-family tiny config the CPU tests use.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class CIMModelConfig:
+    """How the macro executes the model's linears (off = ideal digital)."""
+
+    mode: str = "off"            # "off" | "sim" (this slice serves no "qat")
+    policy: str = "paper_sac"    # SAC policy name (core/sac.py)
+    act_clip_sigmas: float = 4.0  # activation scale = clip at k*rms
+    use_kernel: bool = False      # deployed sim-mode matmuls through the
+                                  # fused-act-quant CIM kernel; the port's
+                                  # only sim path, so sim requires True
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                  # "dense" is the only family of this slice
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0            # 0 -> d_model // n_heads
+    qkv_bias: bool = False
+    use_rope: bool = True
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    max_seq_len: int = 8192
+    dtype: str = "bfloat16"
+    attn_impl: str = "einsum"    # "einsum" (dense masked-softmax reference)
+                                 # | "kernel" (decode + flash GQA kernels)
+    kv_cache_int8: bool = False  # int8 GQA cache, per (token, kv head) scale
+    cim: CIMModelConfig = CIMModelConfig()
+
+    @property
+    def hd(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // self.n_heads if self.n_heads else 0
+
+    def param_count(self) -> int:
+        """Parameter count of the dense family (embeddings + blocks)."""
+        d, f, v, hd = self.d_model, self.d_ff, self.vocab_size, self.hd
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        qkv = d * hd * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * hd * d
+        return emb + self.n_layers * (qkv + 3 * d * f)
+
+    def reduced(self) -> "ModelConfig":
+        """Same-family tiny config for CPU tests (the JAX package's values)."""
+        return dataclasses.replace(
+            self,
+            name=self.name + "-smoke",
+            n_layers=min(self.n_layers, 2),
+            d_model=256,
+            n_heads=4,
+            n_kv_heads=(min(self.n_kv_heads, 2)
+                        if self.n_kv_heads < self.n_heads else 4),
+            head_dim=64,
+            d_ff=512,
+            vocab_size=512,
+            max_seq_len=128,
+            dtype="float32",
+        )

@@ -1,0 +1,24 @@
+"""--arch <id> registry of the archs the port can build."""
+
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from repro_torch.configs.base import ModelConfig
+
+_MODULES: Dict[str, str] = {
+    "qwen2-0.5b": "repro_torch.configs.qwen2_0_5b",
+}
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in _MODULES:
+        raise KeyError(
+            f"arch {name!r} is not ported to PyTorch yet; the port builds "
+            f"{sorted(_MODULES)} (ROADMAP.md lists the other families)")
+    return importlib.import_module(_MODULES[name]).CONFIG
+
+
+def list_archs() -> List[str]:
+    return sorted(_MODULES)

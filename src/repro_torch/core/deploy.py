@@ -1,0 +1,154 @@
+"""Deploy pass: pre-quantize every CIM-routed weight once per SAC policy.
+
+Twin of the single-device part of ``src/repro/core/deploy.py``: the macro
+is weight-stationary, so every CIM-routed dense dict ``{"w": (..., K, N)}``
+gets a resident plane ``wq<bits>`` (int8) and its per-slice scale
+``ws<bits>`` (in the config dtype), keyed by the deployed bit-width. No
+guard checksum, fault masking or tensor-parallel placement in this slice.
+
+Also the parameter bridge of the port:
+
+  * ``params_from_jax(tree)`` turns the JAX params tree, already converted
+    to numpy arrays by the caller (the port never imports JAX), into torch
+    tensors of the same structure;
+  * ``init_params(cfg, generator, device)`` initialises the dense family
+    natively (the card has no JAX): the JAX initialiser's distributions —
+    N(0, 1/d_in) weights, zero biases, unit norms, N(0, 0.02^2) embeddings
+    — drawn from a ``torch.Generator``, equal in law, not in bits.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import quant
+from repro_torch.core.sac import Policy, get_policy
+
+_KEY_ROLE = {
+    "q": "attn_qkv", "k": "attn_qkv", "v": "attn_qkv", "o": "attn_out",
+    "gate": "mlp_in", "up": "mlp_in", "down": "mlp_out",
+    "router": "router", "head": "head",
+}
+
+
+def dtype_of(cfg: ModelConfig) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.dtype]
+
+
+def _role_for(name: Optional[str], parent: Optional[str]) -> Optional[str]:
+    role = _KEY_ROLE.get(name)
+    if parent == "cross" and role in ("attn_qkv", "attn_out"):
+        return "cross_qkv" if role == "attn_qkv" else "cross_out"
+    return role
+
+
+def quantize_plane(w: torch.Tensor, bits: int, reduce_axes: int):
+    """Abs-max symmetric quantization over the trailing ``reduce_axes`` axes,
+    one scale per leading slice (the scale keeps w's dtype)."""
+    axes = tuple(range(w.ndim - reduce_axes, w.ndim))
+    ws = quant.abs_max_scale(w, bits, axis=axes)
+    wq = quant.quantize(w.to(torch.float32), ws, bits).to(quant.storage_dtype(bits))
+    return wq, ws.reshape(w.shape[:w.ndim - reduce_axes])
+
+
+def deploy(cfg: ModelConfig, params: Any,
+           policy: Optional[Policy] = None) -> Any:
+    """A new params tree with the pre-quantized planes attached (the f32
+    ``w`` stays, as in the reference)."""
+    if policy is None:
+        policy = get_policy(cfg.cim.policy)
+    if policy is None:
+        return params
+    dtype = dtype_of(cfg)
+
+    def walk(node, name, parent):
+        if not isinstance(node, dict):
+            return node
+        if "w" in node and not isinstance(node["w"], dict):
+            role = _role_for(name, parent)
+            spec = policy.spec_for_role(role) if role is not None else None
+            if spec is None:
+                return dict(node)
+            wq, ws = quantize_plane(node["w"].to(dtype), spec.w_bits,
+                                    reduce_axes=2)
+            return dict(node, **{f"wq{spec.w_bits}": wq,
+                                 f"ws{spec.w_bits}": ws})
+        return {k: walk(v, k, name) for k, v in node.items()}
+
+    return walk(params, None, None)
+
+
+_PLANE_KEY = re.compile(r"(^wq|_q)\d+$")
+
+
+def plane_summary(params: Any) -> dict:
+    """Count deployed planes and their int8 vs f32 footprint (bytes)."""
+    n = int8_bytes = f32_bytes = 0
+
+    def walk(node):
+        nonlocal n, int8_bytes, f32_bytes
+        for key, leaf in node.items():
+            if isinstance(leaf, dict):
+                walk(leaf)
+            elif isinstance(leaf, torch.Tensor) and _PLANE_KEY.search(key):
+                n += 1
+                int8_bytes += leaf.numel() * leaf.element_size()
+                f32_bytes += leaf.numel() * 4
+
+    walk(params)
+    return {"planes": n, "int8_bytes": int8_bytes, "f32_bytes": f32_bytes}
+
+
+def _to_torch(a: np.ndarray) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":      # ml_dtypes: no numpy->torch route
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(a).copy())
+
+
+def params_from_jax(tree: Any, device="cpu") -> Any:
+    """The JAX params tree (leaves already numpy arrays) as torch tensors."""
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, device) for k, v in tree.items()}
+    return _to_torch(tree).to(device)
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device="cuda") -> Any:
+    """Random dense-family params, stacked over layers like the reference."""
+    from repro_torch import resolve_device
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} is not ported")
+    dev = resolve_device(device)
+    dt = dtype_of(cfg)
+    L, d, f, h, kv, hd = (cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.n_heads,
+                          cfg.n_kv_heads, cfg.hd)
+
+    def normal(*shape, std):
+        x = torch.randn(shape, generator=generator, device=dev,
+                        dtype=torch.float32)
+        return (x * std).to(dt)
+
+    def dense(d_in, d_out, bias=False):
+        p = {"w": normal(L, d_in, d_out, std=d_in ** -0.5)}
+        if bias:
+            p["b"] = torch.zeros((L, d_out), dtype=dt, device=dev)
+        return p
+
+    ones = lambda: {"g": torch.ones((L, d), dtype=dt, device=dev)}  # noqa: E731
+    blocks = {
+        "attn": {"q": dense(d, h * hd, cfg.qkv_bias),
+                 "k": dense(d, kv * hd, cfg.qkv_bias),
+                 "v": dense(d, kv * hd, cfg.qkv_bias),
+                 "o": dense(h * hd, d)},
+        "mlp": {"gate": dense(d, f), "up": dense(d, f), "down": dense(f, d)},
+        "n1": ones(), "n2": ones(),
+    }
+    return {"embed": {"e": normal(cfg.vocab_size, d, std=0.02)},
+            "final_norm": {"g": torch.ones((d,), dtype=dt, device=dev)},
+            "blocks": blocks}

@@ -1,0 +1,37 @@
+"""Symmetric quantizers of the CR-CIM co-design (twin of ``core/quant.py``).
+
+Weights are signed ``w_bits`` integers with one scale per weight plane;
+activations signed ``in_bits`` integers with one per-tensor scale. Rounding
+is half to even (``torch.round``, like ``jnp.round``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def qmax(bits: int) -> int:
+    """Largest magnitude of a signed ``bits`` integer (symmetric)."""
+    return 2 ** (bits - 1) - 1
+
+
+def storage_dtype(bits: int) -> torch.dtype:
+    """Narrowest signed dtype that holds ``bits``-bit values (int8 wraps
+    above 8 bits)."""
+    return torch.int8 if bits <= 8 else torch.int16
+
+
+def abs_max_scale(x: torch.Tensor, bits: int, axis=None,
+                  eps: float = 1e-8) -> torch.Tensor:
+    """Symmetric scale mapping max|x| to qmax(bits), in x's dtype."""
+    if axis is None:
+        amax = x.abs().amax()
+    else:
+        amax = x.abs().amax(dim=axis, keepdim=True)
+    return torch.clamp_min(amax, eps) / qmax(bits)
+
+
+def quantize(x: torch.Tensor, scale: torch.Tensor, bits: int) -> torch.Tensor:
+    """Quantize to signed integers in [-qmax, qmax] (int32)."""
+    q = qmax(bits)
+    return torch.clamp(torch.round(x / scale), -q, q).to(torch.int32)

@@ -1,0 +1,172 @@
+"""GQA attention against the per-sequence slot cache.
+
+Twin of the GQA part of ``src/repro/models/attention.py``. The cache is a
+dict ``{"k": (B, T, KV, D), "v": ..., "len": (B,)}`` (int8 ``k``/``v`` plus
+``ks``/``vs`` (B, T, KV, 1) f32 scales with ``kv_cache_int8``); ``len`` is
+per sequence, so ragged slots share one batch. Unlike the functional
+reference, the cache is updated **in place** (``row_update`` scatters into
+the given tensors) and ``gqa_attention`` returns the same dict: the engine
+keeps one cache for its lifetime and never copies it.
+
+Two implementations, selected by ``cfg.attn_impl``:
+
+  * ``"einsum"`` — dense masked softmax over the whole cache (the reference
+    path; plain tensor code);
+  * ``"kernel"`` — decode (S == 1) through the length-aware decode kernel,
+    prefill (S > 1) through the GQA flash kernel with per-row start
+    offsets (``kernels/decode_attention.py``, ``kernels/flash_attention.py``).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_gqa_attention
+from repro_torch.models.layers import Ctx, Params, apply_rope, dense
+
+NEG_INF = -1e30
+
+
+def init_gqa_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                   device="cpu") -> Dict[str, Any]:
+    kv, hd = cfg.n_kv_heads, cfg.hd
+    z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=device)  # noqa: E731
+    cache = {"len": z((batch,), torch.int32)}
+    if cfg.kv_cache_int8:
+        cache.update(k=z((batch, max_len, kv, hd), torch.int8),
+                     v=z((batch, max_len, kv, hd), torch.int8),
+                     ks=z((batch, max_len, kv, 1), torch.float32),
+                     vs=z((batch, max_len, kv, 1), torch.float32))
+    else:
+        cache.update(k=z((batch, max_len, kv, hd), dtype),
+                     v=z((batch, max_len, kv, hd), dtype))
+    return cache
+
+
+def _kv_quant(x: torch.Tensor):
+    """Per (batch, pos, kv-head) symmetric int8: (int8 vals, f32 scale)."""
+    xf = x.to(torch.float32)
+    scale = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True) / 127.0, 1e-8)
+    q = torch.clamp(torch.round(xf / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _sdpa(q, k, v, mask) -> torch.Tensor:
+    """q: (B,S,H,D); k,v: (B,T,KV,D); mask: (B,1,S,T) or None -> (B,S,H,D)."""
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    qr = q.reshape(b, s, kvh, h // kvh, d)
+    logits = torch.einsum("bskgd,btkd->bkgst", qr, k).to(torch.float32)
+    logits = logits / math.sqrt(d)
+    if mask is not None:
+        logits = torch.where(mask[:, :, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    return out.reshape(b, s, h, d)
+
+
+def _sdpa_int8(q, kq, ks, vq, vs, mask) -> torch.Tensor:
+    """Int8-KV attention: the per-key scales fold into the logits (k side)
+    and the probabilities (v side), as in the reference."""
+    b, s, h, d = q.shape
+    kvh = kq.shape[2]
+    qr = q.reshape(b, s, kvh, h // kvh, d)
+    ks_t = ks[..., 0].permute(0, 2, 1)[:, :, None, None, :]    # (B,KV,1,1,T)
+    vs_t = vs[..., 0].permute(0, 2, 1)[:, :, None, None, :]
+    logits = torch.einsum("bskgd,btkd->bkgst", qr, kq.to(q.dtype))
+    logits = logits.to(torch.float32) * ks_t / math.sqrt(d)
+    if mask is not None:
+        logits = torch.where(mask[:, :, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1) * vs_t
+    out = torch.einsum("bkgst,btkd->bskgd", probs.to(q.dtype),
+                       vq.to(q.dtype))
+    return out.reshape(b, s, h, d)
+
+
+def _causal_mask(s: int, t: int, device=None) -> torch.Tensor:
+    qi = torch.arange(s, device=device)[:, None]
+    kj = torch.arange(t, device=device)[None, :]
+    return (kj <= qi)[None, None]
+
+
+def row_update(cache_arr: torch.Tensor, update: torch.Tensor,
+               starts: torch.Tensor) -> torch.Tensor:
+    """In-place per-row write: row b of ``update`` lands at ``starts[b]``
+    along axis 1. A start that would run past the end is clamped back, as
+    ``dynamic_update_slice`` does in the reference."""
+    b, s = update.shape[:2]
+    t = cache_arr.shape[1]
+    st = torch.clamp(starts.to(torch.int64), 0, t - s)
+    pos = st[:, None] + torch.arange(s, device=update.device)[None, :]
+    rows = torch.arange(b, device=update.device)[:, None]
+    cache_arr[rows, pos] = update.to(cache_arr.dtype)
+    return cache_arr
+
+
+def _cached_mask(start: torch.Tensor, s: int, t: int) -> torch.Tensor:
+    """(B, 1, s, t): query i of row b (absolute position start[b] + i) sees
+    key j iff j <= start[b] + i and j < start[b] + s (recycled slots keep
+    stale keys past the written prefix; they are never exposed)."""
+    qi = torch.arange(s, device=start.device)[None, :] + start[:, None]
+    kj = torch.arange(t, device=start.device)
+    mask = (kj[None, None, :] <= qi[:, :, None]) & \
+           (kj[None, None, :] < (start + s)[:, None, None])
+    return mask[:, None]
+
+
+def gqa_attention(ctx: Ctx, p: Params, x: torch.Tensor,
+                  positions: torch.Tensor,
+                  cache: Optional[Dict[str, Any]] = None
+                  ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
+    """Causal self-attention; with ``cache`` acts as prefill (S>1) or
+    decode (S==1) and writes the new keys into the cache in place."""
+    cfg = ctx.cfg
+    b, s, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = dense(ctx, p["q"], x, "attn_qkv").reshape(b, s, h, hd)
+    k = dense(ctx, p["k"], x, "attn_qkv").reshape(b, s, kv, hd)
+    v = dense(ctx, p["v"], x, "attn_qkv").reshape(b, s, kv, hd)
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+
+    impl = cfg.attn_impl
+    if impl not in ("einsum", "kernel"):
+        raise ValueError(f"attn_impl must be 'einsum' or 'kernel', "
+                         f"got {impl!r}")
+    if cache is None:
+        out = _sdpa(q, k, v, _causal_mask(s, s, x.device))
+    else:
+        start = cache["len"].clone()             # (B,) per-sequence lengths
+        int8_cache = "ks" in cache
+        if int8_cache:
+            kq, ks_ = _kv_quant(k)
+            vq, vs_ = _kv_quant(v)
+            row_update(cache["k"], kq, start)
+            row_update(cache["v"], vq, start)
+            row_update(cache["ks"], ks_, start)
+            row_update(cache["vs"], vs_, start)
+        else:
+            row_update(cache["k"], k, start)
+            row_update(cache["v"], v, start)
+        cache["len"].copy_(start + s)
+        ck, cv = cache["k"], cache["v"]
+        cks, cvs = cache.get("ks"), cache.get("vs")
+        t = ck.shape[1]
+        if impl == "kernel" and s == 1:
+            # lens counts the freshly written key
+            out = decode_attention(q[:, 0], ck, cv, start + 1,
+                                   ks=cks, vs=cvs)[:, None]
+        elif impl == "kernel":
+            out = flash_gqa_attention(q, ck, cv, start=start, ks=cks, vs=cvs)
+        elif int8_cache:
+            out = _sdpa_int8(q, ck, cks, cv, cvs, _cached_mask(start, s, t))
+        else:
+            out = _sdpa(q, ck, cv, _cached_mask(start, s, t))
+    out = out.reshape(b, s, h * hd)
+    return dense(ctx, p["o"], out, "attn_out"), cache

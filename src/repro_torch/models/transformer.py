@@ -1,0 +1,132 @@
+"""Decoder-LM assembly for the dense family (GQA + SwiGLU pre-norm blocks).
+
+Twin of the dense part of ``src/repro/models/transformer.py``. The layer
+stack is a Python loop over the layers (the reference scans over stacked
+parameters); layer ``i`` keys its CIM noise off
+``fold_in(ctx.key, i)`` exactly as the reference's scan body does.
+
+Caches are stacked over layers like the reference's:
+``{"k": (L, B, T, KV, D), "v": ..., ["ks", "vs": (L, B, T, KV, 1)],
+"len": (L, B)}``. ``forward`` writes the new keys in place and returns
+the same dict; ``take_slot`` returns views of one slot row, so a forward
+on a slot's views updates the engine's cache without a copy.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import prng
+from repro_torch.core.deploy import dtype_of
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import Ctx, Params, embed, rmsnorm, swiglu, \
+    unembed
+
+_NOT_PORTED = "is not ported yet; ROADMAP.md lists it as later work"
+
+
+def _dense_block(ctx: Ctx, p: Params, x, positions, cache):
+    h, new_cache = attn.gqa_attention(
+        ctx, p["attn"], rmsnorm(p["n1"], x, ctx.cfg.norm_eps), positions,
+        cache)
+    x = x + h
+    x = x + swiglu(ctx, p["mlp"], rmsnorm(p["n2"], x, ctx.cfg.norm_eps))
+    return x, new_cache
+
+
+def _index(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+# --------------------------------------------------------------------------
+# caches
+# --------------------------------------------------------------------------
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int,
+                device="cpu") -> Dict[str, torch.Tensor]:
+    """Stacked per-layer decoding caches (leading 'layers' axis)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} {_NOT_PORTED}")
+    one = attn.init_gqa_cache(cfg, batch, max_len, dtype_of(cfg), device)
+    return {k: v[None].repeat((cfg.n_layers,) + (1,) * v.ndim)
+            for k, v in one.items()}
+
+
+def take_slot(caches, slot: int) -> Dict[str, torch.Tensor]:
+    """Batch-1 views of one slot row of the stacked slot cache."""
+    return {k: v[:, slot:slot + 1] for k, v in caches.items()}
+
+
+def put_slot(caches, slot_caches, slot: int):
+    """Write a batch-1 slot cache back into row ``slot`` (the inverse of
+    ``take_slot``; a no-op copy when ``slot_caches`` are its views)."""
+    for k, v in caches.items():
+        v[:, slot:slot + 1].copy_(slot_caches[k])
+    return caches
+
+
+def set_cache_lens(caches, value) -> Dict[str, torch.Tensor]:
+    """Overwrite every per-sequence 'len' with ``value`` (broadcast), in
+    place."""
+    caches["len"].copy_(torch.as_tensor(value).to(caches["len"].dtype)
+                        .expand_as(caches["len"]))
+    return caches
+
+
+def mask_cache_advance(new_caches, old_lens: torch.Tensor,
+                       active: torch.Tensor):
+    """Freeze inactive slots after a fused decode step: their ``len`` goes
+    back to ``old_lens`` (L, B). Their K/V writes landed past the frozen
+    length, where the per-row mask never looks and the next prefill
+    rewrites."""
+    new_caches["len"].copy_(torch.where(active[None, :], new_caches["len"],
+                                        old_lens))
+    return new_caches
+
+
+def cache_len(caches) -> torch.Tensor:
+    """Per-sequence lengths (B,) already written into the cache."""
+    return caches["len"][0]
+
+
+# --------------------------------------------------------------------------
+# forward
+# --------------------------------------------------------------------------
+
+
+def _run_blocks(ctx: Ctx, blocks: Params, x, positions, caches):
+    base_key = ctx.key if ctx.key is not None else prng.PRNGKey(0)
+    for i in range(ctx.cfg.n_layers):
+        lctx = dataclasses.replace(ctx, key=prng.fold_in(base_key, i),
+                                   counter=0)
+        layer_cache = None if caches is None else _index(caches, i)
+        x, _ = _dense_block(lctx, _index(blocks, i), x, positions,
+                            layer_cache)
+    return x, caches
+
+
+def forward(params: Params, batch: Dict[str, Any], cfg: ModelConfig,
+            ctx: Optional[Ctx] = None, caches=None
+            ) -> Tuple[torch.Tensor, Any]:
+    """Forward to logits. train: caches=None; prefill/decode: the stacked
+    cache, updated in place."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} {_NOT_PORTED}")
+    ctx = ctx or Ctx.make(cfg)
+    x = embed(params["embed"], batch["tokens"], dtype_of(cfg))
+    b, s, _ = x.shape
+    steps = torch.arange(s, device=x.device)[None]
+    if caches is None:
+        positions = steps.expand(b, s)
+    else:
+        positions = cache_len(caches)[:, None] + steps
+    x, caches = _run_blocks(ctx, params["blocks"], x, positions, caches)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return unembed(ctx, params["embed"], x), caches

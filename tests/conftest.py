@@ -20,6 +20,12 @@ except ImportError:
     sys.modules["hypothesis.strategies"] = _hypothesis_stub.strategies
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (the PyTorch port's kernels); "
+                   "skips on a CPU-only host")
+
+
 # Per-test wall-clock guard (CI sets REPRO_TEST_TIMEOUT, seconds): a wedged
 # scheduler loop (the failure class the §16 front-end suite exists to
 # catch) must fail ONE test with a traceback, not eat the whole job
