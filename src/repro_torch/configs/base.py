@@ -43,6 +43,12 @@ class ModelConfig:
     attn_impl: str = "einsum"    # "einsum" (dense masked-softmax reference)
                                  # | "kernel" (decode + flash GQA kernels)
     kv_cache_int8: bool = False  # int8 GQA cache, per (token, kv head) scale
+    fuse_layer: bool = False      # decode-shaped dense blocks run as ONE
+                                  # kernel launch per layer (megakernel:
+                                  # QKV + rope + length-aware attention +
+                                  # O + SwiGLU, kernels/fused_step.py);
+                                  # requires mode off, or sim with deployed
+                                  # planes (in-kernel cim_matmul_fused math)
     cim: CIMModelConfig = CIMModelConfig()
 
     @property

@@ -40,6 +40,7 @@ _SIGNATURES = {
                          _F, _P],
     "flash_gqa": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                   _I, _F, _P],
+    "fused_dense_layer": [_P, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -10,6 +10,10 @@ Caches are stacked over layers like the reference's:
 "len": (L, B)}``. ``forward`` writes the new keys in place and returns
 the same dict; ``take_slot`` returns views of one slot row, so a forward
 on a slot's views updates the engine's cache without a copy.
+
+With ``cfg.fuse_layer`` a decode-shaped dense block runs as one launch of
+the per-layer megakernel (``kernels/fused_step.py``), routed exactly where
+the reference routes it (``_use_fused_layer``).
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import prng
 from repro_torch.core.deploy import dtype_of
+from repro_torch.kernels.fused_step import fused_dense_layer
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import Ctx, Params, embed, rmsnorm, swiglu, \
     unembed
@@ -29,7 +34,27 @@ from repro_torch.models.layers import Ctx, Params, embed, rmsnorm, swiglu, \
 _NOT_PORTED = "is not ported yet; ROADMAP.md lists it as later work"
 
 
+def _use_fused_layer(ctx: Ctx, p: Params, x, cache) -> bool:
+    """Route a decode-shaped dense block through the per-layer megakernel
+    (``kernels/fused_step.py``): single-token cached decode of a float32
+    model with rope, in ideal-digital ("off") mode or in sim mode on
+    deployed planes with a key and a clip-fitted activation scale."""
+    cfg = ctx.cfg
+    if not (cfg.fuse_layer and cache is not None and x.shape[1] == 1):
+        return False
+    if not cfg.use_rope or x.dtype != torch.float32:
+        return False
+    if ctx.mode == "off":
+        return True
+    spec = ctx.spec_for("attn_qkv")
+    return (ctx.mode == "sim" and ctx.key is not None
+            and cfg.cim.act_clip_sigmas > 0
+            and f"wq{spec.w_bits}" in p["attn"]["q"])
+
+
 def _dense_block(ctx: Ctx, p: Params, x, positions, cache):
+    if _use_fused_layer(ctx, p, x, cache):
+        return fused_dense_layer(ctx, p, x, cache)
     h, new_cache = attn.gqa_attention(
         ctx, p["attn"], rmsnorm(p["n1"], x, ctx.cfg.norm_eps), positions,
         cache)

@@ -20,15 +20,19 @@ The PRNG contract replays the reference bit for bit:
     take the arg-max, ties to the first index.
 
 Sim mode deploys the weights once into int8 planes at construction.
+``fuse_layer=True`` runs every decode step as one megakernel launch per
+layer (``kernels/fused_step.py``); it needs a float32 model with rope, and
+unlike the reference (which then silently runs unfused) the engine raises
+``ValueError`` for a config that could never take the fused route.
 Emitted tokens stay on the device until drained (every ``DRAIN_EVERY``
 pending entries and at the end of ``generate``).
 
 Not in this slice (they raise ``NotImplementedError``, see ROADMAP.md):
 the ABFT guard, the degradation ladder, fault and drift injection,
 calibration, replica failover, the whole-prompt path (``chunk_size=0``),
-the per-layer megakernel (``fuse_layer``), ``LoopEngine`` and the
-per-slot re-probing of a failed batch decode (a decode error propagates; a
-failed prefill chunk fails its request only, as in the reference).
+``LoopEngine`` and the per-slot re-probing of a failed batch decode (a
+decode error propagates; a failed prefill chunk fails its request only, as
+in the reference).
 """
 
 from __future__ import annotations
@@ -130,7 +134,7 @@ class Engine:
                  seed: int = 0, attn_impl: Optional[str] = None,
                  chunk_size: Optional[int] = None,
                  record_ttft: bool = False, record_steps: bool = False,
-                 device="cuda", **unported):
+                 fuse_layer: bool = False, device="cuda", **unported):
         if unported:
             raise NotImplementedError(
                 f"Engine options {sorted(unported)} are not ported yet; "
@@ -152,6 +156,13 @@ class Engine:
             raise NotImplementedError(
                 "sim mode runs the CIM kernel (cim.use_kernel=True); the "
                 "behavioural sim path is not ported (ROADMAP.md)")
+        if fuse_layer:
+            if cfg.dtype != "float32" or not cfg.use_rope:
+                raise ValueError(
+                    f"fuse_layer=True needs a float32 model with rope (the "
+                    f"megakernel's route); {cfg.name} has dtype "
+                    f"{cfg.dtype!r}, use_rope={cfg.use_rope}")
+            cfg = dataclasses.replace(cfg, fuse_layer=True)
         if chunk_size is None:
             chunk_size = DEFAULT_CHUNK_SIZE
         if chunk_size <= 0:

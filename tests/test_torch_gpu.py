@@ -10,7 +10,11 @@ Tolerances: the CIM kernel's integer part (sigma = 0) is exact; with
 noise, 1e-6 * tiles * max|y| + 1e-5 * sigma (Box-Muller's logf/cosf
 ulps). Attention on a bf16 cache or with bf16 queries writes bf16 and
 rounds p to bf16 before p @ V as the reference kernel does: 2^-6 of the
-output's scale.
+output's scale. The fused layer against its plain version on the kernel's
+activation scales: each output row within 2^-10 of its max |value| (a
+quantized activation that float order puts in the next bucket moves it by
+less), each attention-output row within 2^-12, the written f32 cache rows
+within 1e-6 relative, int8 codes equal or one apart.
 """
 
 import dataclasses
@@ -28,7 +32,14 @@ from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain)
 from repro_torch.kernels.flash_attention import (flash_gqa_attention,
                                                  flash_gqa_plain)
+from repro_torch.core import prng
+from repro_torch.core.deploy import deploy
+from repro_torch.kernels import fused_step
+from repro_torch.kernels.fused_step import (fused_dense_layer,
+                                            fused_dense_layer_plain)
+from repro_torch.models import transformer as tf
 from repro_torch.models.attention import _kv_quant
+from repro_torch.models.layers import Ctx
 from repro_torch.serving.engine import Engine, Request
 
 pytestmark = pytest.mark.gpu
@@ -99,4 +110,119 @@ def test_reduced_model_tokens_card_equal_cpu(cuda):
                    device=dev).generate(
         [Request(prompt=p, max_new_tokens=8) for p in prompts])
         for dev in (cuda, "cpu")]
+    assert outs[0] == outs[1]
+
+
+OLD_LENS = (0, 5, 60, 100)
+
+
+def _fused_case(dev, mode, int8):
+    base = get_config("qwen2-0.5b").reduced()
+    cfg = dataclasses.replace(base, kv_cache_int8=int8, cim=dataclasses.replace(
+        base.cim, mode=mode, use_kernel=True))
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(2), dev)
+    if mode == "sim":
+        params = deploy(cfg, params)
+    layer = tf._index(params["blocks"], 1)
+    g = torch.Generator(device=dev).manual_seed(3)
+    b, t, kv, hd = len(OLD_LENS), 128, cfg.n_kv_heads, cfg.hd
+    x = torch.randn((b, 1, cfg.d_model), generator=g, device=dev)
+    kf = torch.randn((b, t, kv, hd), generator=g, device=dev)
+    vf = torch.randn((b, t, kv, hd), generator=g, device=dev)
+    if int8:
+        (kq, ks), (vq, vs) = _kv_quant(kf), _kv_quant(vf)
+        cache = {"k": kq, "v": vq, "ks": ks, "vs": vs}
+    else:
+        cache = {"k": kf, "v": vf}
+    cache["len"] = torch.tensor(OLD_LENS, dtype=torch.int32, device=dev)
+    kc, kp = {k: v.clone() for k, v in cache.items()}, {}
+    ko, _ = fused_dense_layer(Ctx.make(cfg, prng.PRNGKey(4), mode=mode),
+                              layer, x, kc, probe=kp)
+    torch.cuda.synchronize()
+
+    def plain():
+        pc, pp = {k: v.clone() for k, v in cache.items()}, {}
+        po, _ = fused_dense_layer_plain(
+            Ctx.make(cfg, prng.PRNGKey(4), mode=mode), layer, x, pc,
+            scales=kp["scales"], probe=pp)
+        return po, pc, pp
+    return (ko, kc, kp), plain
+
+
+def _rows_off(a, b, tol):
+    return ((a - b).abs() > tol * b.abs().amax(-1, keepdim=True)).any(-1)
+
+
+def _written(cache, name):
+    at = torch.arange(len(OLD_LENS), device=cache[name].device)
+    pos = torch.tensor(OLD_LENS, device=cache[name].device)
+    return cache[name][at, pos].float()
+
+
+@pytest.mark.parametrize("mode", ["off", "sim"])
+@pytest.mark.parametrize("int8", [False, True])
+def test_fused_layer_kernel_matches_plain(cuda, mode, int8):
+    (ko, kc, kp), plain = _fused_case(cuda, mode, int8)
+    po, pc, pp = plain()
+    assert not _rows_off(ko[:, 0], po[:, 0], 2 ** -10).any()
+    b = ko.shape[0]
+    assert not _rows_off(kp["attn"].view(b, -1, 64),
+                         pp["attn"].view(b, -1, 64), 2 ** -12).any()
+    assert torch.equal(kc["len"], pc["len"])
+    for name in ("k", "v"):
+        a, r = _written(kc, name), _written(pc, name)
+        if int8:
+            assert (a - r).abs().max().item() <= 1
+            assert not _rows_off(_written(kc, name + "s"),
+                                 _written(pc, name + "s"), 1e-6).any()
+        else:
+            assert not _rows_off(a, r, 1e-6).any()
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_fused_layer_tolerance_catches_wrong_variants(cuda, monkeypatch,
+                                                      int8):
+    """Attention without the current token fails the attention check in
+    every row; k and v noise seeds swapped fail the cache-row check in
+    every written row."""
+    (ko, kc, kp), plain = _fused_case(cuda, "sim", int8)
+    attend, layer_cls = (fused_step.decode_attention_plain,
+                         fused_step._Layer)
+    monkeypatch.setattr(fused_step, "decode_attention_plain",
+                        lambda q, k, v, lens, ks=None, vs=None:
+                        attend(q, k, v, lens - 1, ks, vs))
+    _, _, pp = plain()
+    b = ko.shape[0]
+    assert _rows_off(kp["attn"].view(b, -1, 64), pp["attn"].view(b, -1, 64),
+                     2 ** -12).all()
+    monkeypatch.setattr(fused_step, "decode_attention_plain", attend)
+
+    class Swapped(layer_cls):
+        def __init__(self, ctx, p):
+            super().__init__(ctx, p)
+            self.seeds[1], self.seeds[2] = self.seeds[2], self.seeds[1]
+
+    monkeypatch.setattr(fused_step, "_Layer", Swapped)
+    _, pc, _ = plain()
+    for name in ("k", "v"):
+        a, r = _written(kc, name), _written(pc, name)
+        if int8:
+            assert ((a - r).abs() > 1).any(-1).all()
+        else:
+            assert _rows_off(a, r, 1e-6).all()
+
+
+def test_fused_engine_tokens_equal_unfused_on_card(cuda):
+    base = get_config("qwen2-0.5b").reduced()
+    cfg = dataclasses.replace(base, cim=dataclasses.replace(
+        base.cim, mode="sim", use_kernel=True))
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (40, 90, 57)]
+    fused_dense_layer.launches = 0
+    outs = [Engine(cfg, params, max_slots=2, max_len=128, attn_impl="kernel",
+                   fuse_layer=fuse, device=cuda).generate(
+        [Request(prompt=p, max_new_tokens=8) for p in prompts])
+        for fuse in (True, False)]
+    assert fused_dense_layer.launches > 0
     assert outs[0] == outs[1]
