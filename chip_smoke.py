@@ -12,8 +12,13 @@ kernel against its bound. Then the per-layer decode megakernel
 version at full width (with two deliberately wrong plain versions that the
 tolerance must catch), full-width serving with both caches and exact
 launch counts, a profile of one decode step fused and unfused, fused vs
-unfused tokens and logits, and its times. Every phase prints one JSON
-line; any failure exits non-zero. The last line is the device record.
+unfused tokens and logits, and its times. Then the ssm family: the mamba2
+selective-scan decode kernel against its plain version at full width
+(with two deliberately wrong inputs that the tolerance must catch),
+card-vs-CPU greedy tokens of the reduced mamba2 in off and sim mode,
+full-width mamba2-130m serving with exact launch counts, a profile of one
+decode step and the kernel's times. Every phase prints one JSON line; any
+failure exits non-zero. The last line is the device record.
 """
 
 from __future__ import annotations
@@ -1013,6 +1018,260 @@ def phase_times_fused(params32):
     return res
 
 
+# ------------------------------------------------------------ phase 7
+# the ssm family: mamba2-130m, every decode step through ssm_decode_step
+SSM_TOL = 1e-5         # state and y rows: times the row's max |value|
+
+
+def ssm_config(mode="sim"):
+    from repro_torch.configs.registry import get_config
+    cfg = get_config("mamba2-130m")
+    return dataclasses.replace(cfg, cim=dataclasses.replace(
+        cfg.cim, mode=mode, use_kernel=True))
+
+
+def ssm_inputs(cfg, b, window_dtype, seed):
+    """One layer's decode-step operands at ``cfg``'s width: a random window
+    in ``window_dtype``, a random f32 state, conv weights, the model's
+    decay rates, and ragged dt log-uniform in [1e-3, 1e-1] (mamba2's dt
+    range: every row keeps part of its state, so a wrong state shows)."""
+    import torch
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    h, win = d_inner // s.headdim, s.conv_width - 1
+    cd = d_inner + 2 * s.ngroups * s.d_state
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    dt = torch.exp(torch.rand((b, h), generator=g, device="cuda")
+                   * (np.log(0.1) - np.log(1e-3)) + np.log(1e-3))
+    a = -torch.linspace(1.0, 16.0, h, device="cuda")
+    args = [r(b, win, cd).to(window_dtype), r(b, 1, cd).to(window_dtype),
+            0.2 * r(win + 1, cd), 0.1 * r(cd), dt, a, r(h),
+            r(b, h, s.headdim, s.d_state)]
+    return args, (d_inner, s.ngroups, s.d_state)
+
+
+def ssm_rows(out, ref):
+    """(y, window, state) against a plain result, row by row: a state row
+    is one (slot, head, p) over N, a y row one (slot, head) over P. Returns
+    the rows out of SSM_TOL and the max errors."""
+    b, h = ref[2].shape[:2]
+
+    def off(a, r):
+        err = (a - r).abs()
+        return (err > SSM_TOL * r.abs().amax(-1, keepdim=True)).any(-1), err
+
+    bad_s, es = off(out[2], ref[2])
+    bad_y, ey = off(out[0].view(b, h, -1), ref[0].view(b, h, -1))
+    return dict(state=bad_s, y=bad_y, state_err=float(es.max()),
+                y_err=float(ey.max()),
+                y_err_over_row_max=float((ey / ref[0].view(b, h, -1).abs()
+                                          .amax(-1, keepdim=True)).max()))
+
+
+def phase_ssm_check():
+    """The selective-scan kernel against its plain version at full width
+    (B = 4, H = 24, P = 64, N = 128, conv_dim 1792) with a bf16 and an f32
+    window: the new window bit for bit, state and y rows within SSM_TOL of
+    their max; the in-place update (state_out = state) equal to the
+    out-of-place one. Reach: the plain step without the decay (A = 0) and
+    on the wrong slot's state must fail in every state and y row."""
+    import torch
+    from repro_torch.kernels.ssm_scan import (ssm_decode_step,
+                                              ssm_decode_step_plain)
+    cfg = ssm_config()
+    worst = 0.0
+    for wdt in (torch.bfloat16, torch.float32):
+        args, dims = ssm_inputs(cfg, 4, wdt, 31)
+        out = ssm_decode_step(*args, *dims)
+        ref = ssm_decode_step_plain(*args, *dims)
+        res = ssm_rows(out, ref)
+        st = args[7].clone()
+        y2, _, _ = ssm_decode_step(*args[:7], st, *dims, state_out=st)
+        in_place = torch.equal(st, out[2]) and torch.equal(y2, out[0])
+        window_equal = (out[1].dtype == wdt and torch.equal(out[1], ref[1]))
+        bad = {k: float(res[k].float().mean()) for k in ("state", "y")}
+        if (any(bad.values()) or not window_equal or not in_place
+                or not bool(torch.isfinite(out[0]).all())):
+            fail(f"ssm_decode_step window {wdt}: rows out of tolerance "
+                 f"{bad}, window equal {window_equal}, in place {in_place}, "
+                 f"state err {res['state_err']}, y err {res['y_err']}")
+        reach = {}
+        no_decay, wrong_slot = list(args), list(args)
+        no_decay[5] = torch.zeros_like(args[5])
+        wrong_slot[7] = args[7].roll(1, dims=0)
+        for kind, v in (("no_decay", no_decay), ("wrong_slot", wrong_slot)):
+            r = ssm_rows(out, ssm_decode_step_plain(*v, *dims))
+            reach[kind] = {k: float(r[k].float().mean())
+                           for k in ("state", "y")}
+            if min(reach[kind].values()) < 1.0:
+                fail(f"ssm_decode_step tolerance too loose: the {kind} "
+                     f"variant fails only {reach[kind]} of the rows")
+        worst = max(worst, res["state_err"], res["y_err"])
+        emit("ssm_kernel_check", kernel="ssm_decode_step",
+             window_dtype=str(wdt).replace("torch.", ""),
+             shape={"B": 4, "H": args[5].numel(), "P": args[7].shape[2],
+                    "N": args[7].shape[3], "conv_dim": args[0].shape[2]},
+             window_equal=True, in_place_equal=True,
+             state_max_abs_err=res["state_err"], y_max_abs_err=res["y_err"],
+             y_err_over_row_max=res["y_err_over_row_max"],
+             tol=f"state and y rows: {SSM_TOL}*max|row|; window exact",
+             reach=reach)
+    return worst
+
+
+def phase_ssm_parity():
+    """Reduced mamba2: greedy tokens on the card (selective-scan and CIM
+    kernels) equal the CPU's (plain versions), in off and sim mode, with a
+    1-token prompt and a recycled slot."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.deploy import init_params
+    from repro_torch.kernels.ssm_scan import ssm_decode_step
+    from repro_torch.serving.engine import Engine, Request
+
+    base = get_config("mamba2-130m").reduced()
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, base.vocab_size, n) for n in (40, 1, 90, 57)]
+    res = {}
+    for mode in ("off", "sim"):
+        cfg = dataclasses.replace(base, cim=dataclasses.replace(
+            base.cim, mode=mode, use_kernel=True))
+        params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        outs = {}
+        ssm_decode_step.launches = 0
+        for dev in ("cuda", "cpu"):
+            eng = Engine(cfg, params, max_slots=2, max_len=128,
+                         attn_impl="kernel", device=dev)
+            outs[dev] = eng.generate([Request(prompt=p, max_new_tokens=8,
+                                              rid=f"p{i}")
+                                      for i, p in enumerate(prompts)])
+        if outs["cuda"] != outs["cpu"] or ssm_decode_step.launches == 0:
+            fail(f"reduced mamba2 {mode}: tokens differ: cuda "
+                 f"{outs['cuda']} vs cpu {outs['cpu']} (kernel launches "
+                 f"{ssm_decode_step.launches})")
+        res[mode] = outs["cuda"]
+    emit("ssm_token_parity", arch=base.name, requests=len(prompts),
+         prompt_lens=[len(p) for p in prompts], new_tokens=8, equal=True,
+         tokens=res)
+
+
+def phase_serve_ssm(params):
+    """Cell E: full-width mamba2-130m, sim mode, through the CIM and
+    selective-scan kernels, the session of cells A-D. Launch counts must
+    hold exactly: ssm_decode_step 24 per decode step, cim_matmul_fused 2 x
+    24 per chunk and per decode step, no attention kernel."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.kernels.cim_matmul import cim_matmul_fused
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_gqa_attention
+    from repro_torch.kernels.fused_step import fused_dense_layer
+    from repro_torch.kernels.ssm_scan import ssm_decode_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import Ctx
+    from repro_torch.serving.engine import Engine, Request
+
+    cfg = ssm_config()
+    eng = Engine(cfg, params, max_slots=4, max_len=320, attn_impl="kernel",
+                 record_ttft=True, record_steps=True, device="cuda")
+    rng = np.random.default_rng(5)
+    lens = (60, 300, 137, 95, 211, 64)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n),
+                    max_new_tokens=16, rid=f"r{i}")
+            for i, n in enumerate(lens)]
+    kernels = (cim_matmul_fused, decode_attention, flash_gqa_attention,
+               fused_dense_layer, ssm_decode_step)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k.__name__: k.launches for k in kernels}
+    bad = [o for o in outs if not isinstance(o, list) or len(o) != 16
+           or not all(0 <= t < cfg.vocab_size for t in o)]
+    if bad:
+        fail(f"mamba2: failed, short or out-of-range requests: {bad}")
+    ctx = Ctx.make(cfg, prng.PRNGKey(11), mode="sim")
+    tokens = torch.from_numpy(reqs[0].prompt[:32]).cuda()[None]
+    logits, _ = tf.forward(eng.params, {"tokens": tokens}, cfg, ctx,
+                           tf.init_caches(cfg, 1, 32, "cuda"))
+    if (tuple(logits.shape) != (1, 32, cfg.vocab_size)
+            or not bool(torch.isfinite(logits).all())):
+        fail(f"mamba2: logits {tuple(logits.shape)} not finite")
+    n_chunks = sum(e["chunks"] for e in eng.step_log)
+    n_decode = sum(e["decode"] for e in eng.step_log)
+    L = cfg.n_layers
+    expect = {"cim_matmul_fused": 2 * L * (n_chunks + n_decode),
+              "decode_attention": 0, "flash_gqa_attention": 0,
+              "fused_dense_layer": 0, "ssm_decode_step": L * n_decode}
+    if counts != expect or n_decode == 0:
+        fail(f"mamba2: launches {counts} != expected {expect}")
+    dec = [e["s"] for e in eng.step_log if e["decode"] and not e["chunks"]]
+    toks = sum(len(o) for o in outs)
+    emit("serve_ssm_full_width", arch=cfg.name, dtype=cfg.dtype,
+         requests=len(reqs), prompt_lens=list(lens), new_tokens=16, slots=4,
+         tokens=toks, wall_s=wall, session_tok_per_s=toks / wall,
+         chunks=n_chunks, decode_steps=n_decode,
+         pure_decode_step_ms_mean=1e3 * float(np.mean(dec)),
+         ttft_ms_mean=1e3 * float(np.mean(eng.ttft_s)),
+         ttft_ms_max=1e3 * float(np.max(eng.ttft_s)),
+         launches=counts, expected=expect, logits_finite=True)
+    return counts
+
+
+def phase_times_ssm():
+    """Device ms of one decode step's 24 selective-scan launches (full
+    width, B = 4, bf16 window, each layer its own state, updated in place
+    as on the serving path), its plain version's, and the bound: the bytes
+    the step must move (the f32 state read and written once, the window in
+    and out, xbc, the conv weights, dt, A, D and y) over 3.35 TB/s against
+    its f32 operations over the f32 peak. No single PyTorch call computes
+    this step, so there is no library time."""
+    import torch
+    from repro_torch.kernels.ssm_scan import (ssm_decode_step,
+                                              ssm_decode_step_plain)
+    cfg = ssm_config()
+    s, L, b = cfg.ssm, cfg.n_layers, 4
+    layers = [ssm_inputs(cfg, b, torch.bfloat16, 60 + i) for i in range(L)]
+    args, (d_inner, _, n) = layers[0]
+    h, p, win, cd = (args[5].numel(), s.headdim, s.conv_width - 1,
+                     args[0].shape[2])
+    per_layer = (2 * b * h * p * n * 4                 # state in, out
+                 + 2 * b * win * cd * 2 + b * cd * 2   # window in, out; xbc
+                 + (win + 1) * cd * 4 + cd * 4         # conv_w, conv_b
+                 + b * h * 4 + 2 * h * 4               # dt; A, D
+                 + b * d_inner * 4)                    # y
+    nbytes = L * per_layer
+    ops = L * b * h * (5 * p * n + 3 * p + (p + 2 * n) * (2 * (win + 1) + 4))
+
+    def run_k():
+        for a, dims in layers:
+            ssm_decode_step(*a, *dims, state_out=a[7])
+
+    def run_p():
+        for a, dims in layers:
+            ssm_decode_step_plain(*a, *dims)
+
+    k_ms = device_ms(run_k, 10)
+    p_ms = device_ms(run_p, 3)
+    bound = 1e3 * max(nbytes / HBM_BPS, ops / FP32_OPS)
+    res = dict(ms=k_ms, wall_ms=wall_ms(run_k, 10), plain_ms=p_ms,
+               bound_ms=bound,
+               bound_by="bytes" if nbytes / HBM_BPS >= ops / FP32_OPS
+               else "operations", library_ms=None,
+               unit=f"one decode step: {L} layers, B={b}, H={h}, P={p}, "
+                    f"N={n}, bf16 window",
+               launches_per_decode_step=L)
+    emit("time", kernel="ssm_decode_step", **res, bytes=nbytes, f32_ops=ops)
+    return {"ssm_decode_step": res}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1025,6 +1284,7 @@ def main() -> int:
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_gqa_attention
     from repro_torch.kernels.fused_step import fused_dense_layer
+    from repro_torch.kernels.ssm_scan import ssm_decode_step
 
     phase_device()
     cfg = full_config(False)
@@ -1052,6 +1312,15 @@ def main() -> int:
         phase_profile(params32, full_config32(False), fuse_layer=fuse)
     phase_fused_tokens(params32, fused[False][1])
     times.update(phase_times_fused(params32))
+    del params32
+    errs["ssm"] = phase_ssm_check()
+    phase_ssm_parity()
+    params_ssm = init_params(ssm_config(),
+                             torch.Generator(device="cuda").manual_seed(0),
+                             "cuda")
+    runs["ssm"] = phase_serve_ssm(params_ssm)
+    phase_profile(params_ssm, ssm_config())
+    times.update(phase_times_ssm())
     src = {"cim_matmul_fused": ("src/repro_torch/csrc/cim_matmul.cu",
                                 "src/repro/kernels/cim_matmul.py:340",
                                 cim_matmul_fused, "cim_matmul_fused"),
@@ -1074,15 +1343,20 @@ def main() -> int:
            "fused_dense_layer[int8]": (
                "src/repro_torch/csrc/fused_layer.cu",
                "src/repro/kernels/fused_step.py:327",
-               fused_dense_layer, ("fused", True))}
+               fused_dense_layer, ("fused", True)),
+           "ssm_decode_step": ("src/repro_torch/csrc/ssm_scan.cu",
+                               "src/repro/kernels/ssm_scan.py:140",
+                               ssm_decode_step, "ssm")}
     line = []
     for name, (path, tpu, fn, ekey) in src.items():
         t = times[name]
-        # launches of the main-path run this entry's times describe (both
-        # cache runs for the CIM kernel, which they share)
+        # launches of the main-path run this entry's times describe (the
+        # bf16 qwen2 cells A and B and the mamba2 cell E for the CIM
+        # kernel, which they share)
         n = (runs[False][fn.__name__] + runs[True][fn.__name__]
+             + runs["ssm"][fn.__name__]
              if ekey == "cim_matmul_fused" else
-             runs[ekey][fn.__name__] if ekey[0] == "fused"
+             runs[ekey][fn.__name__] if ekey == "ssm" or ekey[0] == "fused"
              else runs[ekey[1]][fn.__name__])
         line.append({"name": name, "route": "cuda", "source": path,
                      "replaces": tpu, "launches": n,

@@ -1,4 +1,4 @@
-"""Config schema of the port (a copy of the dense part of the JAX
+"""Config schema of the port (a copy of the dense and ssm parts of the JAX
 package's ``configs/base.py``; the port imports nothing of that package).
 
 One ``ModelConfig`` describes an architecture; ``reduced()`` builds the
@@ -8,6 +8,7 @@ same-family tiny config the CPU tests use.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,9 +24,21 @@ class CIMModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 / SSD block shape (arXiv:2405.21060)."""
+
+    d_state: int = 128
+    headdim: int = 64
+    expand: int = 2
+    conv_width: int = 4
+    ngroups: int = 1
+    chunk: int = 256             # SSD chunk; prefill pads to a multiple
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # "dense" is the only family of this slice
+    family: str                  # "dense" or "ssm" (the ported families)
     n_layers: int
     d_model: int
     n_heads: int
@@ -50,6 +63,7 @@ class ModelConfig:
                                   # requires mode off, or sim with deployed
                                   # planes (in-kernel cim_matmul_fused math)
     cim: CIMModelConfig = CIMModelConfig()
+    ssm: Optional[SSMConfig] = None
 
     @property
     def hd(self) -> int:
@@ -58,15 +72,23 @@ class ModelConfig:
         return self.d_model // self.n_heads if self.n_heads else 0
 
     def param_count(self) -> int:
-        """Parameter count of the dense family (embeddings + blocks)."""
+        """Approximate parameter count (embeddings + blocks)."""
         d, f, v, hd = self.d_model, self.d_ff, self.vocab_size, self.hd
         emb = v * d * (1 if self.tie_embeddings else 2)
-        qkv = d * hd * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * hd * d
-        return emb + self.n_layers * (qkv + 3 * d * f)
+        if self.family == "ssm":
+            s = self.ssm
+            di = s.expand * d
+            per_layer = (d * (2 * di + 2 * s.ngroups * s.d_state
+                              + di // s.headdim) + di * d)
+        else:
+            qkv = (d * hd * (self.n_heads + 2 * self.n_kv_heads)
+                   + self.n_heads * hd * d)
+            per_layer = qkv + 3 * d * f
+        return emb + self.n_layers * per_layer
 
     def reduced(self) -> "ModelConfig":
         """Same-family tiny config for CPU tests (the JAX package's values)."""
-        return dataclasses.replace(
+        small = dataclasses.replace(
             self,
             name=self.name + "-smoke",
             n_layers=min(self.n_layers, 2),
@@ -80,3 +102,8 @@ class ModelConfig:
             max_seq_len=128,
             dtype="float32",
         )
+        if self.ssm is not None:
+            small = dataclasses.replace(
+                small, ssm=dataclasses.replace(self.ssm, d_state=16,
+                                               headdim=32, chunk=32))
+        return small

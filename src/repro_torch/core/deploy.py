@@ -11,10 +11,12 @@ Also the parameter bridge of the port:
   * ``params_from_jax(tree)`` turns the JAX params tree, already converted
     to numpy arrays by the caller (the port never imports JAX), into torch
     tensors of the same structure;
-  * ``init_params(cfg, generator, device)`` initialises the dense family
-    natively (the card has no JAX): the JAX initialiser's distributions —
-    N(0, 1/d_in) weights, zero biases, unit norms, N(0, 0.02^2) embeddings
-    — drawn from a ``torch.Generator``, equal in law, not in bits.
+  * ``init_params(cfg, generator, device)`` initialises the dense and ssm
+    families natively (the card has no JAX): the JAX initialiser's
+    distributions — N(0, 1/d_in) weights, zero biases, unit norms,
+    N(0, 0.02^2) embeddings; for mamba2 N(0, 0.2^2) conv weights, zero conv
+    bias and dt bias, ``A_log = log(linspace(1, 16, H))`` and unit skip
+    gains — drawn from a ``torch.Generator``, equal in law, not in bits.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from repro_torch.core.sac import Policy, get_policy
 _KEY_ROLE = {
     "q": "attn_qkv", "k": "attn_qkv", "v": "attn_qkv", "o": "attn_out",
     "gate": "mlp_in", "up": "mlp_in", "down": "mlp_out",
+    "in_proj": "ssm_in", "out_proj": "ssm_out",
     "router": "router", "head": "head",
 }
 
@@ -120,35 +123,64 @@ def params_from_jax(tree: Any, device="cpu") -> Any:
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda") -> Any:
-    """Random dense-family params, stacked over layers like the reference."""
+    """Random params of the dense or ssm family, stacked over layers like
+    the reference."""
     from repro_torch import resolve_device
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported")
     dev = resolve_device(device)
     dt = dtype_of(cfg)
-    L, d, f, h, kv, hd = (cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.n_heads,
-                          cfg.n_kv_heads, cfg.hd)
+    L, d = cfg.n_layers, cfg.d_model
 
-    def normal(*shape, std):
+    def normal(*shape, std, dtype=dt):
         x = torch.randn(shape, generator=generator, device=dev,
                         dtype=torch.float32)
-        return (x * std).to(dt)
+        return (x * std).to(dtype)
+
+    def full(shape, value, dtype=dt):
+        return torch.full(shape, value, dtype=dtype, device=dev)
 
     def dense(d_in, d_out, bias=False):
         p = {"w": normal(L, d_in, d_out, std=d_in ** -0.5)}
         if bias:
-            p["b"] = torch.zeros((L, d_out), dtype=dt, device=dev)
+            p["b"] = full((L, d_out), 0.0)
         return p
 
-    ones = lambda: {"g": torch.ones((L, d), dtype=dt, device=dev)}  # noqa: E731
-    blocks = {
-        "attn": {"q": dense(d, h * hd, cfg.qkv_bias),
-                 "k": dense(d, kv * hd, cfg.qkv_bias),
-                 "v": dense(d, kv * hd, cfg.qkv_bias),
-                 "o": dense(h * hd, d)},
-        "mlp": {"gate": dense(d, f), "up": dense(d, f), "down": dense(f, d)},
-        "n1": ones(), "n2": ones(),
-    }
+    def ones(n):
+        return {"g": full((L, n), 1.0)}
+
+    if cfg.family == "ssm":
+        s = cfg.ssm
+        di = s.expand * d
+        h = di // s.headdim
+        conv_dim = di + 2 * s.ngroups * s.d_state
+        f32 = torch.float32
+        a_log = torch.log(torch.linspace(1.0, 16.0, h, dtype=f32,
+                                         device=dev))
+        blocks = {
+            "mamba": {
+                "in_proj": dense(d, 2 * di + 2 * s.ngroups * s.d_state + h),
+                "out_proj": dense(di, d),
+                "conv_w": normal(L, s.conv_width, conv_dim, std=0.2),
+                "conv_b": full((L, conv_dim), 0.0),
+                "A_log": a_log[None].repeat(L, 1),
+                "D": full((L, h), 1.0, f32),
+                "dt_bias": full((L, h), 0.0, f32),
+                "norm_g": full((L, di), 1.0),
+            },
+            "n": ones(d),
+        }
+    else:
+        f, nh, kv, hd = cfg.d_ff, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        blocks = {
+            "attn": {"q": dense(d, nh * hd, cfg.qkv_bias),
+                     "k": dense(d, kv * hd, cfg.qkv_bias),
+                     "v": dense(d, kv * hd, cfg.qkv_bias),
+                     "o": dense(nh * hd, d)},
+            "mlp": {"gate": dense(d, f), "up": dense(d, f),
+                    "down": dense(f, d)},
+            "n1": ones(d), "n2": ones(d),
+        }
     return {"embed": {"e": normal(cfg.vocab_size, d, std=0.02)},
-            "final_norm": {"g": torch.ones((d,), dtype=dt, device=dev)},
+            "final_norm": {"g": full((d,), 1.0)},
             "blocks": blocks}

@@ -41,6 +41,7 @@ _SIGNATURES = {
     "flash_gqa": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                   _I, _F, _P],
     "fused_dense_layer": [_P, _P],
+    "ssm_decode_step": [_P] * 11 + [_I] * 8 + [_P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

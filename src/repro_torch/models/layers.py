@@ -1,6 +1,6 @@
 """Building blocks: CIM-aware dense, norms, RoPE, SwiGLU, embeddings.
 
-Twin of ``src/repro/models/layers.py`` for the dense family. Every matmul
+Twin of ``src/repro/models/layers.py`` for the dense and ssm families. Every matmul
 goes through ``dense()`` with a *role* (attn_qkv / mlp_in / ...) so the SAC
 policy picks the macro operating point per layer. Parameters are plain
 dicts of tensors laid out like the JAX tree.
@@ -42,6 +42,10 @@ class Ctx:
     policy: Optional[Policy] = None
     key: Optional[prng.Key] = None
     counter: int = 0
+    prefill_valid: Optional[torch.Tensor] = None  # (B,) int: real tokens of
+                                                  # a right-padded prefill
+                                                  # chunk (state-carrying
+                                                  # blocks skip the pad)
 
     @classmethod
     def make(cls, cfg: ModelConfig, key: Optional[prng.Key] = None,

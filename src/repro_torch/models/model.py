@@ -1,6 +1,7 @@
 """Public model API: build an arch, get its init and forward.
 
-Twin of ``build`` in ``src/repro/models/model.py`` for the dense family.
+Twin of ``build`` in ``src/repro/models/model.py`` for the dense and ssm
+families.
 ``init(generator, device)`` draws torch-native parameters
 (``core.deploy.init_params``); parameters converted from a JAX tree come
 from ``core.deploy.params_from_jax``.
@@ -27,7 +28,7 @@ class ModelAPI:
 
 
 def build(cfg: ModelConfig) -> ModelAPI:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet; ROADMAP.md lists it "
             "as later work")

@@ -1,15 +1,18 @@
-"""Decoder-LM assembly for the dense family (GQA + SwiGLU pre-norm blocks).
+"""Decoder-LM assembly for the dense family (GQA + SwiGLU pre-norm blocks)
+and the ssm family (pre-norm mamba2 blocks).
 
-Twin of the dense part of ``src/repro/models/transformer.py``. The layer
-stack is a Python loop over the layers (the reference scans over stacked
-parameters); layer ``i`` keys its CIM noise off
+Twin of the dense and ssm parts of ``src/repro/models/transformer.py``.
+The layer stack is a Python loop over the layers (the reference scans over
+stacked parameters); layer ``i`` keys its CIM noise off
 ``fold_in(ctx.key, i)`` exactly as the reference's scan body does.
 
-Caches are stacked over layers like the reference's:
+Caches are stacked over layers like the reference's: dense
 ``{"k": (L, B, T, KV, D), "v": ..., ["ks", "vs": (L, B, T, KV, 1)],
-"len": (L, B)}``. ``forward`` writes the new keys in place and returns
-the same dict; ``take_slot`` returns views of one slot row, so a forward
-on a slot's views updates the engine's cache without a copy.
+"len": (L, B)}``; ssm ``{"conv": (L, B, width-1, conv_dim) in the model
+dtype, "state": (L, B, H, P, N) f32}``, with no length. ``forward``
+writes the new keys (or window and state) in place and returns the same
+dict; ``take_slot`` returns views of one slot row, so a forward on a
+slot's views updates the engine's cache without a copy.
 
 With ``cfg.fuse_layer`` a decode-shaped dense block runs as one launch of
 the per-layer megakernel (``kernels/fused_step.py``), routed exactly where
@@ -19,7 +22,7 @@ the reference routes it (``_use_fused_layer``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -28,6 +31,7 @@ from repro_torch.core import prng
 from repro_torch.core.deploy import dtype_of
 from repro_torch.kernels.fused_step import fused_dense_layer
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import Ctx, Params, embed, rmsnorm, swiglu, \
     unembed
 
@@ -63,6 +67,20 @@ def _dense_block(ctx: Ctx, p: Params, x, positions, cache):
     return x, new_cache
 
 
+def _ssm_block(ctx: Ctx, p: Params, x, positions, cache):
+    h, new_cache = ssm_mod.mamba2_block(
+        ctx, p["mamba"], rmsnorm(p["n"], x, ctx.cfg.norm_eps), cache)
+    return x + h, new_cache
+
+
+_BLOCKS = {"dense": _dense_block, "ssm": _ssm_block}
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in _BLOCKS:
+        raise NotImplementedError(f"family {cfg.family!r} {_NOT_PORTED}")
+
+
 def _index(tree, i: int):
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
@@ -77,9 +95,11 @@ def _index(tree, i: int):
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 device="cpu") -> Dict[str, torch.Tensor]:
     """Stacked per-layer decoding caches (leading 'layers' axis)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} {_NOT_PORTED}")
-    one = attn.init_gqa_cache(cfg, batch, max_len, dtype_of(cfg), device)
+    _check_family(cfg)
+    if cfg.family == "ssm":
+        one = ssm_mod.init_ssm_cache(cfg, batch, dtype_of(cfg), device)
+    else:
+        one = attn.init_gqa_cache(cfg, batch, max_len, dtype_of(cfg), device)
     return {k: v[None].repeat((cfg.n_layers,) + (1,) * v.ndim)
             for k, v in one.items()}
 
@@ -99,25 +119,47 @@ def put_slot(caches, slot_caches, slot: int):
 
 def set_cache_lens(caches, value) -> Dict[str, torch.Tensor]:
     """Overwrite every per-sequence 'len' with ``value`` (broadcast), in
-    place."""
-    caches["len"].copy_(torch.as_tensor(value).to(caches["len"].dtype)
-                        .expand_as(caches["len"]))
+    place; a cache without lengths (ssm) is left as it is."""
+    if "len" in caches:
+        caches["len"].copy_(torch.as_tensor(value).to(caches["len"].dtype)
+                            .expand_as(caches["len"]))
     return caches
 
 
-def mask_cache_advance(new_caches, old_lens: torch.Tensor,
-                       active: torch.Tensor):
-    """Freeze inactive slots after a fused decode step: their ``len`` goes
-    back to ``old_lens`` (L, B). Their K/V writes landed past the frozen
-    length, where the per-row mask never looks and the next prefill
-    rewrites."""
-    new_caches["len"].copy_(torch.where(active[None, :], new_caches["len"],
-                                        old_lens))
+# leaves a decode step must leave unchanged in inactive slots: the length,
+# and the ssm window and state, which every step rolls and decays in place
+# (attention K/V writes land past the frozen length, where no mask looks)
+_FROZEN = ("len", "conv", "state")
+
+
+def freeze_rows(caches, rows: List[int]) -> Dict[str, torch.Tensor]:
+    """Copies of the ``_FROZEN`` leaves of slot rows ``rows``, taken before a
+    batch decode step, for ``mask_cache_advance``."""
+    if not rows:
+        return {}
+    idx = torch.tensor(rows, device=next(iter(caches.values())).device)
+    return {k: v.index_select(1, idx) for k, v in caches.items()
+            if k in _FROZEN}
+
+
+def mask_cache_advance(new_caches, frozen: Dict[str, torch.Tensor],
+                       rows: List[int]):
+    """Freeze inactive slots after a batch decode step: rows ``rows`` of the
+    ``_FROZEN`` leaves go back to the copies ``freeze_rows`` took, as the
+    reference's ``mask_cache_advance`` does."""
+    if rows:
+        idx = torch.tensor(rows, device=next(iter(new_caches.values())).device)
+        for k, old in frozen.items():
+            new_caches[k].index_copy_(1, idx, old)
     return new_caches
 
 
 def cache_len(caches) -> torch.Tensor:
-    """Per-sequence lengths (B,) already written into the cache."""
+    """Per-sequence lengths (B,) already written into the cache (zeros for
+    a state cache, which carries none)."""
+    if "len" not in caches:
+        return torch.zeros((caches["conv"].shape[1],), dtype=torch.int32,
+                           device=caches["conv"].device)
     return caches["len"][0]
 
 
@@ -132,8 +174,8 @@ def _run_blocks(ctx: Ctx, blocks: Params, x, positions, caches):
         lctx = dataclasses.replace(ctx, key=prng.fold_in(base_key, i),
                                    counter=0)
         layer_cache = None if caches is None else _index(caches, i)
-        x, _ = _dense_block(lctx, _index(blocks, i), x, positions,
-                            layer_cache)
+        x, _ = _BLOCKS[ctx.cfg.family](lctx, _index(blocks, i), x,
+                                       positions, layer_cache)
     return x, caches
 
 
@@ -142,8 +184,7 @@ def forward(params: Params, batch: Dict[str, Any], cfg: ModelConfig,
             ) -> Tuple[torch.Tensor, Any]:
     """Forward to logits. train: caches=None; prefill/decode: the stacked
     cache, updated in place."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} {_NOT_PORTED}")
+    _check_family(cfg)
     ctx = ctx or Ctx.make(cfg)
     x = embed(params["embed"], batch["tokens"], dtype_of(cfg))
     b, s, _ = x.shape

@@ -1,13 +1,17 @@
 """Slot-batched continuous-batching serving engine on PyTorch.
 
-Twin of the fused ``Engine`` of ``src/repro/serving/engine.py``. One
-stacked KV cache of batch ``max_slots`` is allocated once (over-allocated
-to a chunk multiple, so a final padded chunk never clamps back onto live
-keys). Each scheduler iteration advances every still-prefilling slot by
-one fixed-shape chunk of ``chunk_size`` tokens, in ascending slot order,
-then runs ONE batch decode step over every slot: idle and prefilling rows
-ride along (their lengths are restored afterwards), as in the reference,
-because sim-mode CIM noise depends on the batch-global activation scale.
+Twin of the fused ``Engine`` of ``src/repro/serving/engine.py`` for the
+dense and ssm families. One stacked cache of batch ``max_slots`` is
+allocated once (a KV cache over-allocated to a chunk multiple, so a final
+padded chunk never clamps back onto live keys; for mamba2 the conv window
+and the f32 state). Each scheduler iteration advances every
+still-prefilling slot by one fixed-shape chunk of ``chunk_size`` tokens,
+in ascending slot order, then runs ONE batch decode step over every slot:
+idle and prefilling rows ride along, as in the reference, because sim-mode
+CIM noise depends on the batch-global activation scale, and their lengths
+(and ssm window and state) are restored afterwards. A prefill chunk tells
+the model how many of its tokens are real (``Ctx.prefill_valid``), so the
+ssm state skips the chunk's right-pad.
 
 The PRNG contract replays the reference bit for bit:
 
@@ -21,7 +25,8 @@ The PRNG contract replays the reference bit for bit:
 
 Sim mode deploys the weights once into int8 planes at construction.
 ``fuse_layer=True`` runs every decode step as one megakernel launch per
-layer (``kernels/fused_step.py``); it needs a float32 model with rope, and
+layer (``kernels/fused_step.py``); it needs a dense float32 model with
+rope, and
 unlike the reference (which then silently runs unfused) the engine raises
 ``ValueError`` for a config that could never take the fused route.
 Emitted tokens stay on the device until drained (every ``DRAIN_EVERY``
@@ -140,7 +145,7 @@ class Engine:
                 f"Engine options {sorted(unported)} are not ported yet; "
                 "ROADMAP.md lists them as later work")
         self.device = resolve_device(device)
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "ssm"):
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (ROADMAP.md)")
         if attn_impl is not None:
@@ -157,11 +162,13 @@ class Engine:
                 "sim mode runs the CIM kernel (cim.use_kernel=True); the "
                 "behavioural sim path is not ported (ROADMAP.md)")
         if fuse_layer:
-            if cfg.dtype != "float32" or not cfg.use_rope:
+            if (cfg.family != "dense" or cfg.dtype != "float32"
+                    or not cfg.use_rope):
                 raise ValueError(
-                    f"fuse_layer=True needs a float32 model with rope (the "
-                    f"megakernel's route); {cfg.name} has dtype "
-                    f"{cfg.dtype!r}, use_rope={cfg.use_rope}")
+                    f"fuse_layer=True needs a dense float32 model with rope "
+                    f"(the megakernel's route); {cfg.name} has family "
+                    f"{cfg.family!r}, dtype {cfg.dtype!r}, use_rope="
+                    f"{cfg.use_rope}")
             cfg = dataclasses.replace(cfg, fuse_layer=True)
         if chunk_size is None:
             chunk_size = DEFAULT_CHUNK_SIZE
@@ -398,6 +405,7 @@ class Engine:
         of its cache row. Returns the token sampled at the last valid
         position (committed to ``last_tok`` on the final chunk)."""
         ctx = self._ctx(key)
+        ctx.prefill_valid = torch.tensor([valid], device=self.device)
         sl = tf.take_slot(self.caches, s)
         if reset:
             for t in sl.values():
@@ -417,20 +425,21 @@ class Engine:
 
     def _decode(self, act: List[bool]) -> None:
         """One batch decode step over every slot; inactive rows keep their
-        token and cache length."""
+        token, cache length and ssm window and state."""
         tok_idx = list(self._counts)
         ctx = self._ctx(self._next_key())
         temps = [float(r.temperature) if r is not None else 0.0
                  for r in self._slots]
         active = torch.tensor(act, device=self.device)
-        old_lens = self.caches["len"].clone()
+        inactive = [s for s, a in enumerate(act) if not a]
+        frozen = tf.freeze_rows(self.caches, inactive)
         logits, self.caches = tf.forward(
             self.params, {"tokens": self.last_tok[:, None]}, self.cfg, ctx,
             self.caches)
         toks = _sample_tokens(logits[:, -1], temps,
                               _row_sample_keys(self._rk_slot, tok_idx))
         toks = torch.where(active, toks, self.last_tok)
-        tf.mask_cache_advance(self.caches, old_lens, active)
+        tf.mask_cache_advance(self.caches, frozen, inactive)
         self.last_tok = toks
         self._pend.append((toks, [self._req_index[id(r)] if act[s] else None
                                   for s, r in enumerate(self._slots)]))

@@ -128,6 +128,8 @@ def test_unported_options_and_bad_requests_raise(setup):
                {"cim_mode": "qat"}):
         with pytest.raises(NotImplementedError):
             Engine(cfg, tp, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        Engine(dataclasses.replace(cfg, family="moe"), tp, device="cpu")
     behavioural = dataclasses.replace(cfg, cim=dataclasses.replace(
         cfg.cim, use_kernel=False))
     with pytest.raises(NotImplementedError):

@@ -14,7 +14,10 @@ output's scale. The fused layer against its plain version on the kernel's
 activation scales: each output row within 2^-10 of its max |value| (a
 quantized activation that float order puts in the next bucket moves it by
 less), each attention-output row within 2^-12, the written f32 cache rows
-within 1e-6 relative, int8 codes equal or one apart.
+within 1e-6 relative, int8 codes equal or one apart. The mamba2 decode
+step against its plain version: the new conv window bit for bit; every
+state row (one (slot, head, p) over N) and every y row (one (slot, head)
+over P) within 1e-5 of its max |value|.
 """
 
 import dataclasses
@@ -37,6 +40,8 @@ from repro_torch.core.deploy import deploy
 from repro_torch.kernels import fused_step
 from repro_torch.kernels.fused_step import (fused_dense_layer,
                                             fused_dense_layer_plain)
+from repro_torch.kernels.ssm_scan import (ssm_decode_step,
+                                          ssm_decode_step_plain)
 from repro_torch.models import transformer as tf
 from repro_torch.models.attention import _kv_quant
 from repro_torch.models.layers import Ctx
@@ -225,4 +230,74 @@ def test_fused_engine_tokens_equal_unfused_on_card(cuda):
         [Request(prompt=p, max_new_tokens=8) for p in prompts])
         for fuse in (True, False)]
     assert fused_dense_layer.launches > 0
+    assert outs[0] == outs[1]
+
+
+def _ssm_case(dev, window_dtype):
+    """Reduced mamba2-130m shapes (H = 16, P = 32, N = 16, conv_dim 544),
+    B = 4, a random window and f32 state, ragged dt log-uniform in
+    [1e-3, 1e-1] (mamba2's dt range: every row keeps part of its state)."""
+    s = get_config("mamba2-130m").reduced().ssm
+    b, d_inner, n, g = 4, 512, s.d_state, s.ngroups
+    h, win, cd = d_inner // s.headdim, s.conv_width - 1, 512 + 2 * 16
+    gen = torch.Generator(device=dev).manual_seed(9)
+    r = lambda *sh: torch.randn(sh, generator=gen, device=dev)  # noqa: E731
+    conv, xbc = r(b, win, cd).to(window_dtype), r(b, 1, cd).to(window_dtype)
+    dt = torch.exp(torch.rand((b, h), generator=gen, device=dev)
+                   * (np.log(0.1) - np.log(1e-3)) + np.log(1e-3))
+    a = -torch.linspace(1.0, 16.0, h, device=dev)
+    args = [conv, xbc, 0.2 * r(win + 1, cd), 0.1 * r(cd), dt, a, r(h),
+            r(b, h, s.headdim, n)]
+    return args, (d_inner, g, n)
+
+
+def _ssm_rows_off(out, ref, tol=1e-5):
+    """(state rows off, y rows off) of out = (y, window, state)."""
+    b, h = ref[2].shape[:2]
+    return (_rows_off(out[2], ref[2], tol),
+            _rows_off(out[0].view(b, h, -1), ref[0].view(b, h, -1), tol))
+
+
+@pytest.mark.parametrize("window_dtype", [torch.float32, torch.bfloat16])
+def test_ssm_kernel_matches_plain(cuda, window_dtype):
+    args, dims = _ssm_case(cuda, window_dtype)
+    ssm_decode_step.launches = 0
+    out = ssm_decode_step(*args, *dims)
+    ref = ssm_decode_step_plain(*args, *dims)
+    assert ssm_decode_step.launches == 1
+    assert out[1].dtype == window_dtype and torch.equal(out[1], ref[1])
+    assert not any(m.any() for m in _ssm_rows_off(out, ref))
+    st = args[-1].clone()
+    y2, _, st2 = ssm_decode_step(*args[:-1], st, *dims, state_out=st)
+    assert st2 is st and torch.equal(st, out[2]) and torch.equal(y2, out[0])
+
+
+def test_ssm_tolerance_catches_wrong_variants(cuda):
+    """A step without the decay (A = 0, so exp(dt * A) = 1) and a step on
+    the state of the wrong slot fail the check in every state and y row."""
+    args, dims = _ssm_case(cuda, torch.bfloat16)
+    out = ssm_decode_step(*args, *dims)
+    no_decay = list(args)
+    no_decay[5] = torch.zeros_like(args[5])
+    wrong_slot = list(args)
+    wrong_slot[7] = args[7].roll(1, dims=0)
+    for variant in (no_decay, wrong_slot):
+        ref = ssm_decode_step_plain(*variant, *dims)
+        assert all(m.all() for m in _ssm_rows_off(out, ref))
+
+
+@pytest.mark.parametrize("mode", ["off", "sim"])
+def test_reduced_mamba2_tokens_card_equal_cpu(cuda, mode):
+    base = get_config("mamba2-130m").reduced()
+    cfg = dataclasses.replace(base, cim=dataclasses.replace(
+        base.cim, mode=mode, use_kernel=True))
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (40, 1, 57, 9)]
+    ssm_decode_step.launches = 0
+    outs = [Engine(cfg, params, max_slots=2, max_len=128, attn_impl="kernel",
+                   device=dev).generate(
+        [Request(prompt=p, max_new_tokens=8) for p in prompts])
+        for dev in (cuda, "cpu")]
+    assert ssm_decode_step.launches > 0
     assert outs[0] == outs[1]
