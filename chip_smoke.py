@@ -17,8 +17,15 @@ selective-scan decode kernel against its plain version at full width
 (with two deliberately wrong inputs that the tolerance must catch),
 card-vs-CPU greedy tokens of the reduced mamba2 in off and sim mode,
 full-width mamba2-130m serving with exact launch counts, a profile of one
-decode step and the kernel's times. Every phase prints one JSON line; any
-failure exits non-zero. The last line is the device record.
+decode step and the kernel's times. Then the moe family with MLA
+attention: the latent-cache decode kernel against its plain version at
+deepseek-v2 width (with two deliberately wrong inputs that the tolerance
+must catch) and the CIM kernel at deepseek-v2's shapes, card-vs-CPU greedy
+tokens of the reduced deepseek-v2 in off and sim mode, deepseek-v2-236b at
+every published width and 4 of its 60 layers served with exact launch
+counts and its peak memory, a profile of one decode step and the kernel's
+times beside one scaled_dot_product_attention call. Every phase prints one
+JSON line; any failure exits non-zero. The last line is the device record.
 """
 
 from __future__ import annotations
@@ -123,15 +130,54 @@ def phase_device():
          build_s=time.perf_counter() - t0, nvcc_s=_build.build_seconds)
 
 
+def random_plane(g, k, n, spec):
+    """A (K, N) int8 plane quantized from N(0, 1) weights at spec.w_bits."""
+    import torch
+    from repro_torch.core import quant
+    w = torch.randn((k, n), generator=g, device="cuda")
+    return quant.quantize(w, quant.abs_max_scale(w, spec.w_bits),
+                          spec.w_bits).to(torch.int8)
+
+
+def cim_case(g, m, wq, spec):
+    """The CIM kernel against its plain version on an (M, K) bf16 input:
+    sigma = 0 gives the integer part, which must match exactly (every tile
+    sum is an integer below 2^24 and so is the f32 total); with noise,
+    Box-Muller's logf/cosf differ from the CPU's by ulps: tolerance
+    1e-6 * tiles * max|y| + 1e-5 * sigma. Returns (max abs err, max err
+    over max|y|)."""
+    import torch
+    from repro_torch.core import quant
+    from repro_torch.core.cim import output_noise_std_int_per_tile
+    from repro_torch.kernels.cim_matmul import (cim_matmul_fused,
+                                                cim_matmul_fused_plain)
+    k, n = wq.shape
+    x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+    xs = 4.0 * torch.sqrt(torch.mean(x.float() ** 2)) / quant.qmax(
+        spec.in_bits)
+    qp = torch.stack([xs, torch.ones_like(xs)])
+    ex = cim_matmul_fused(x, wq, qp, None, 0.0, spec.in_bits)
+    ep = cim_matmul_fused_plain(x, wq, qp, None, 0.0, spec.in_bits)
+    if not torch.equal(ex, ep):
+        fail(f"cim_matmul_fused integer part differs at M={m} K={k} N={n} "
+             f"bits={spec.in_bits}: {(ex - ep).abs().max().item()}")
+    sigma = output_noise_std_int_per_tile(spec, k)
+    seed = (0x12345678 + m, 0x9ABCDEF0 + n)
+    yk = cim_matmul_fused(x, wq, qp, seed, sigma, spec.in_bits)
+    yp = cim_matmul_fused_plain(x, wq, qp, seed, sigma, spec.in_bits)
+    err = (yk - yp).abs().max().item()
+    tol = 1e-6 * -(-k // 1024) * yp.abs().max().item() + 1e-5 * sigma
+    if not err <= tol:
+        fail(f"cim_matmul_fused noisy M={m} K={k} N={n}: err {err} > tol "
+             f"{tol}")
+    return err, err / yp.abs().max().item()
+
+
 # ------------------------------------------------------------ phase 2
 def phase_kernels(cfg):
     """Each kernel against its plain version on the card, main-path shapes."""
     import torch
-    from repro_torch.core import quant
-    from repro_torch.core.cim import output_noise_std_int_per_tile
     from repro_torch.core.sac import paper_sac
-    from repro_torch.kernels.cim_matmul import (cim_matmul_fused,
-                                                cim_matmul_fused_plain)
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_plain)
     from repro_torch.kernels.flash_attention import (flash_gqa_attention,
@@ -142,45 +188,17 @@ def phase_kernels(cfg):
     g = torch.Generator(device=dev).manual_seed(1)
     pol = paper_sac()
     worst = {}
-    # kernel 1: sigma = 0 gives the integer part, which must match exactly
-    # (every tile sum is an integer below 2^24 and so is the f32 total);
-    # with noise, Box-Muller's logf/cosf differ from the CPU's by ulps:
-    # tolerance 1e-6 * tiles * max|y| + 1e-5 * sigma
+    # kernel 1 at qwen2-0.5b's shapes (cim_case states the tolerance)
     n_cases, rel1 = 0, 0.0
     for spec in (pol.attn, pol.mlp):
         for k in (896, 4864):
-            sigma = output_noise_std_int_per_tile(spec, k)
             for n in (128, 896, 4864):
-                w = torch.randn((k, n), generator=g, device=dev)
-                wq = quant.quantize(w, quant.abs_max_scale(w, spec.w_bits),
-                                    spec.w_bits).to(torch.int8)
+                wq = random_plane(g, k, n, spec)
                 for m in (1, 4, 8, 32):
-                    x = torch.randn((m, k), generator=g, device=dev
-                                    ).to(torch.bfloat16)
-                    xs = 4.0 * torch.sqrt(torch.mean(
-                        x.float() ** 2)) / quant.qmax(spec.in_bits)
-                    qp = torch.stack([xs, torch.ones_like(xs)])
-                    ex = cim_matmul_fused(x, wq, qp, None, 0.0, spec.in_bits)
-                    ep = cim_matmul_fused_plain(x, wq, qp, None, 0.0,
-                                                spec.in_bits)
-                    if not torch.equal(ex, ep):
-                        fail(f"cim_matmul_fused integer part differs at "
-                             f"M={m} K={k} N={n} bits={spec.in_bits}: "
-                             f"{(ex - ep).abs().max().item()}")
-                    seed = (0x12345678 + m, 0x9ABCDEF0 + n)
-                    yk = cim_matmul_fused(x, wq, qp, seed, sigma,
-                                          spec.in_bits)
-                    yp = cim_matmul_fused_plain(x, wq, qp, seed, sigma,
-                                                spec.in_bits)
-                    err = (yk - yp).abs().max().item()
-                    tiles = -(-k // 1024)
-                    tol = 1e-6 * tiles * yp.abs().max().item() + 1e-5 * sigma
-                    if not err <= tol:
-                        fail(f"cim_matmul_fused noisy M={m} K={k} N={n}: "
-                             f"err {err} > tol {tol}")
+                    err, rel = cim_case(g, m, wq, spec)
                     worst["cim_matmul_fused"] = max(
                         worst.get("cim_matmul_fused", 0.0), err)
-                    rel1 = max(rel1, err / yp.abs().max().item())
+                    rel1 = max(rel1, rel)
                     n_cases += 1
     emit("kernel_check", kernel="cim_matmul_fused", cases=n_cases,
          integer_part="exact", max_abs_err=worst["cim_matmul_fused"],
@@ -400,7 +418,8 @@ def phase_profile(params, cfg=None, fuse_layer=False):
                                + e.time_range.elapsed_us() / 3e3)
     busy = busy_ms(prof.events(), 3) if n_kernels else None
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    emit("profile_decode_step", arch=cfg.name, slots=4, dtype=cfg.dtype,
+    emit("profile_decode_step", arch=cfg.name, n_layers=cfg.n_layers,
+         slots=4, dtype=cfg.dtype,
          cache="int8" if cfg.kv_cache_int8 else cfg.dtype,
          fuse_layer=fuse_layer,
          step_ms=1e3 * plain_wall, profiled_step_ms=1e3 * wall,
@@ -1272,6 +1291,314 @@ def phase_times_ssm():
     return {"ssm_decode_step": res}
 
 
+# ------------------------------------------------------------ phase 8
+# the moe family with MLA attention: deepseek-v2-236b at full width, four of
+# its 60 layers (the depth one card holds), every decode step of every layer
+# through the latent-cache kernel mla_decode_attention
+MLA_TOL = {"float32": 1e-5, "bfloat16": 2 ** -7}   # times the row's max
+MLA_LENS = (301, 138, 96, 212)         # the session's lengths + the token
+MLA_LAYERS = 4
+
+
+def mla_config(mode="sim", reduced=False):
+    from repro_torch.configs.registry import get_config
+    cfg = get_config("deepseek-v2-236b")
+    cfg = (cfg.reduced() if reduced
+           else dataclasses.replace(cfg, n_layers=MLA_LAYERS))
+    return dataclasses.replace(cfg, cim=dataclasses.replace(
+        cfg.cim, mode=mode, use_kernel=True))
+
+
+def mla_inputs(dtype, lens, t, seed, h=128, lat=512, rope=64):
+    """One layer's decode operands at deepseek-v2 width: N(0, 1) queries
+    and latent cache give scores of std sqrt(3) at scale 1/sqrt(192), so
+    every 32-key stretch carries weight (a dropped tail shows)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    b = len(lens)
+    return (r(b, h, lat), r(b, h, rope), r(b, t, lat), r(b, t, rope),
+            torch.tensor(lens, dtype=torch.int32, device="cuda"),
+            float(1.0 / 192 ** 0.5))
+
+
+def mla_rows(out, ref, tol):
+    """Rows (one (slot, head) over the latent width) out of tolerance, the
+    max abs error and the max error over the row's max."""
+    out, ref = out.float(), ref.float()
+    err = (out - ref).abs()
+    scale = ref.abs().amax(-1, keepdim=True)
+    return ((err > tol * scale).any(-1), float(err.max()),
+            float((err / scale.clamp(min=1e-30)).max()))
+
+
+def phase_mla_check():
+    """The latent-cache kernel against its plain version at full width
+    (B = 4, H = 128, L = 512, R = 64, T = 512) in bf16 and f32, at the
+    session's lengths and with a 0 and a T row; lens == 0 rows exactly
+    zero. Reach: the plain version over 32 fewer live keys, and over the
+    cache of another batch entry (rolled by one), must fail nearly every
+    row."""
+    import torch
+    from repro_torch.kernels.mla_decode import (mla_decode_attention,
+                                                mla_decode_attention_plain)
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        tol = MLA_TOL[name]
+        for lens in (MLA_LENS, (0, 512, 1, 33)):
+            args = mla_inputs(dtype, lens, 512, 41)
+            out = mla_decode_attention(*args)
+            ref = mla_decode_attention_plain(*args)
+            bad, err, rel = mla_rows(out, ref, tol)
+            zero_ok = all(not out[b].abs().max().item()
+                          for b, n in enumerate(lens) if n == 0)
+            if bad.any() or not zero_ok or out.dtype != dtype:
+                fail(f"mla_decode_attention {name} lens {lens}: "
+                     f"{float(bad.float().mean())} of the rows out of "
+                     f"{tol}*max|row| (max err {err}), lens==0 rows zero "
+                     f"{zero_ok}")
+            reach = None
+            if lens == MLA_LENS:
+                short, rolled = list(args), list(args)
+                short[4] = args[4] - 32
+                rolled[2], rolled[3] = args[2].roll(1, 0), args[3].roll(1, 0)
+                reach = {k: float(mla_rows(out, mla_decode_attention_plain(
+                    *v), tol)[0].float().mean())
+                    for k, v in (("32_keys_dropped", short),
+                                 ("other_entry_cache", rolled))}
+                if min(reach.values()) < 0.99:
+                    fail(f"mla_decode_attention tolerance too loose: "
+                         f"variants fail only {reach} of the rows")
+            worst = max(worst, err)
+            emit("mla_kernel_check", kernel="mla_decode_attention",
+                 dtype=name, shape={"B": 4, "H": 128, "L": 512, "R": 64,
+                                    "T": 512}, lens=list(lens),
+                 max_abs_err=err, max_err_over_row_max=rel,
+                 tol=f"{tol}*max|row| per (slot, head) row",
+                 zero_rows_exact=True, reach_rows_failing=reach)
+    return worst
+
+
+def phase_cim_check_mla():
+    """The CIM kernel against its plain version at the shapes cell F gives
+    it: dq, dkv, uq, o and the shared expert at decode (M = 4) and in a
+    prefill chunk (M = 32), uk/uv over the whole cache row (M = 320)."""
+    import torch
+    from repro_torch.core.sac import paper_sac
+    g = torch.Generator(device="cuda").manual_seed(43)
+    pol = paper_sac()
+    shapes = [(m, 5120, 1536, pol.attn) for m in (4, 32)] + \
+        [(m, 5120, 576, pol.attn) for m in (4, 32)] + \
+        [(m, 1536, 24576, pol.attn) for m in (4, 32)] + \
+        [(m, 16384, 5120, pol.attn) for m in (4, 32)] + \
+        [(320, 512, 16384, pol.attn)] + \
+        [(m, 5120, 3072, pol.mlp) for m in (4, 32)] + \
+        [(m, 3072, 5120, pol.mlp) for m in (4, 32)]
+    worst = rel = 0.0
+    for m, k, n, spec in shapes:
+        err, r = cim_case(g, m, random_plane(g, k, n, spec), spec)
+        worst, rel = max(worst, err), max(rel, r)
+    emit("kernel_check", kernel="cim_matmul_fused", arch="deepseek-v2-236b",
+         cases=len(shapes), shapes=[list(x[:3]) for x in shapes],
+         integer_part="exact", max_abs_err=worst, max_rel_err=rel,
+         tol="1e-6*tiles*max|y| + 1e-5*sigma")
+    return worst
+
+
+def phase_mla_parity():
+    """Reduced deepseek-v2 (2 layers, f32, 8 experts): greedy tokens on the
+    card (MLA and CIM kernels) equal the CPU's (plain versions), in off
+    and sim mode, with a 1-token prompt and a recycled slot."""
+    import torch
+    from repro_torch.core.deploy import init_params
+    from repro_torch.kernels.mla_decode import mla_decode_attention
+    from repro_torch.serving.engine import Engine, Request
+
+    base = mla_config("off", reduced=True)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, base.vocab_size, n) for n in (40, 1, 90, 57)]
+    res = {}
+    for mode in ("off", "sim"):
+        cfg = mla_config(mode, reduced=True)
+        params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        outs = {}
+        mla_decode_attention.launches = 0
+        for dev in ("cuda", "cpu"):
+            eng = Engine(cfg, params, max_slots=2, max_len=128,
+                         attn_impl="kernel", device=dev)
+            outs[dev] = eng.generate([Request(prompt=p, max_new_tokens=8,
+                                              rid=f"p{i}")
+                                      for i, p in enumerate(prompts)])
+        if outs["cuda"] != outs["cpu"] or mla_decode_attention.launches == 0:
+            fail(f"reduced deepseek-v2 {mode}: tokens differ: cuda "
+                 f"{outs['cuda']} vs cpu {outs['cpu']} (kernel launches "
+                 f"{mla_decode_attention.launches})")
+        res[mode] = outs["cuda"]
+    emit("mla_token_parity", arch=base.name, requests=len(prompts),
+         prompt_lens=[len(p) for p in prompts], new_tokens=8, equal=True,
+         tokens=res)
+
+
+def phase_serve_mla(params):
+    """Cell F: deepseek-v2-236b at full width, 4 of 60 layers, bf16, sim
+    mode, the session of cells A-E. Launch counts must hold exactly:
+    mla_decode_attention 4 per decode step; cim_matmul_fused 9 per layer per
+    chunk (dq, uq, dkv, uk, uv, o, shared gate/up/down) and 7 per layer per
+    decode step (no uk/uv in the absorbed decode); no other kernel."""
+    import gc
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.kernels.cim_matmul import cim_matmul_fused
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_gqa_attention
+    from repro_torch.kernels.fused_step import fused_dense_layer
+    from repro_torch.kernels.mla_decode import mla_decode_attention
+    from repro_torch.kernels.ssm_scan import ssm_decode_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import Ctx
+    from repro_torch.serving.engine import Engine, Request
+
+    cfg = mla_config()
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(cfg, params, max_slots=4, max_len=320, attn_impl="kernel",
+                 record_ttft=True, record_steps=True, device="cuda")
+    rng = np.random.default_rng(5)
+    lens = (60, 300, 137, 95, 211, 64)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n),
+                    max_new_tokens=16, rid=f"r{i}")
+            for i, n in enumerate(lens)]
+    kernels = (cim_matmul_fused, decode_attention, flash_gqa_attention,
+               fused_dense_layer, ssm_decode_step, mla_decode_attention)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k.__name__: k.launches for k in kernels}
+    bad = [o for o in outs if not isinstance(o, list) or len(o) != 16
+           or not all(0 <= t < cfg.vocab_size for t in o)]
+    if bad:
+        fail(f"deepseek-v2: failed, short or out-of-range requests: {bad}")
+    ctx = Ctx.make(cfg, prng.PRNGKey(11), mode="sim")
+    tokens = torch.from_numpy(reqs[0].prompt[:32]).cuda()[None]
+    logits, _ = tf.forward(eng.params, {"tokens": tokens}, cfg, ctx,
+                           tf.init_caches(cfg, 1, 32, "cuda"))
+    if (tuple(logits.shape) != (1, 32, cfg.vocab_size)
+            or not bool(torch.isfinite(logits).all())):
+        fail(f"deepseek-v2: logits {tuple(logits.shape)} not finite")
+    n_chunks = sum(e["chunks"] for e in eng.step_log)
+    n_decode = sum(e["decode"] for e in eng.step_log)
+    L = cfg.n_layers
+    expect = {"cim_matmul_fused": 9 * L * n_chunks + 7 * L * n_decode,
+              "decode_attention": 0, "flash_gqa_attention": 0,
+              "fused_dense_layer": 0, "ssm_decode_step": 0,
+              "mla_decode_attention": L * n_decode}
+    if counts != expect or n_decode == 0:
+        fail(f"deepseek-v2: launches {counts} != expected {expect}")
+    dec = [e["s"] for e in eng.step_log if e["decode"] and not e["chunks"]]
+    toks = sum(len(o) for o in outs)
+    ttft = [t for t in eng.ttft_s if t is not None]
+    emit("serve_mla_full_width", arch=cfg.name, n_layers=L,
+         reduced={"n_layers": "60 -> 4"}, dtype=cfg.dtype,
+         requests=len(reqs), prompt_lens=list(lens), new_tokens=16, slots=4,
+         tokens=toks, wall_s=wall, session_tok_per_s=toks / wall,
+         chunks=n_chunks, decode_steps=n_decode,
+         pure_decode_step_ms_mean=1e3 * float(np.mean(dec)),
+         ttft_ms_mean=1e3 * float(np.mean(ttft)),
+         ttft_ms_max=1e3 * float(np.max(ttft)),
+         launches=counts, expected=expect, logits_finite=True,
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del eng, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def top_kernels(fn, n=3):
+    """Names of the device kernels that one call of ``fn`` launched, by
+    device time (the backend a library call picked)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return [k[:80] for k, _ in sorted(by.items(), key=lambda kv: -kv[1])[:n]]
+
+
+def phase_times_mla():
+    """Device ms of one decode step's 4 latent-cache launches (B = 4,
+    H = 128, L = 512, R = 64, bf16, the engine's cache of T = 320 rows, each
+    layer its own cache, lens 301/138/96/212), the plain version's, one
+    scaled_dot_product_attention call per layer over the same inputs (the
+    yardstick: query [q_lat | q_rope], key [ckv | krope] and value ckv
+    broadcast over the heads, a boolean length mask), and the bound: the
+    f32 operations (2 (L + R) per score and 2 L per weighted latent row, per
+    head and live key) over the f32 peak against the live latent and rope
+    rows, queries and outputs over 3.35 TB/s."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.mla_decode import (mla_decode_attention,
+                                                mla_decode_attention_plain)
+    b, h, lat, rope, t = 4, 128, 512, 64, 320
+    layers = [mla_inputs(torch.bfloat16, MLA_LENS, t, 70 + i)
+              for i in range(MLA_LAYERS)]
+    live = sum(MLA_LENS)
+    nbytes = MLA_LAYERS * (live * (lat + rope) * 2 + b * h * (lat + rope) * 2
+                           + b * h * lat * 2 + b * 4)
+    ops = MLA_LAYERS * h * live * (2 * (lat + rope) + 2 * lat)
+
+    def run_k():
+        for a in layers:
+            mla_decode_attention(*a)
+
+    def run_p():
+        for a in layers:
+            mla_decode_attention_plain(*a)
+
+    lib_in = []
+    for ql, qr, ckv, kr, lens, scale in layers:
+        q = torch.cat([ql, qr], -1)[:, :, None]            # (B, H, 1, 576)
+        k = torch.cat([ckv, kr], -1)[:, None].expand(b, h, t, lat + rope)
+        v = ckv[:, None].expand(b, h, t, lat)
+        mask = (torch.arange(t, device="cuda")[None, :] < lens[:, None]
+                )[:, None, None, :]
+        lib_in.append((q, k, v, mask, scale))
+
+    def run_lib():
+        for q, k, v, mask, scale in lib_in:
+            F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                           scale=scale)
+
+    k_ms = device_ms(run_k, 10)
+    p_ms = device_ms(run_p, 3)
+    lib_ms = device_ms(run_lib, 3)
+    bound = 1e3 * max(nbytes / HBM_BPS, ops / FP32_OPS)
+    res = dict(ms=k_ms, wall_ms=wall_ms(run_k, 10), plain_ms=p_ms,
+               bound_ms=bound,
+               bound_by="bytes" if nbytes / HBM_BPS >= ops / FP32_OPS
+               else "operations", library_ms=lib_ms,
+               library="scaled_dot_product_attention, bf16, kernels "
+                       + ", ".join(top_kernels(run_lib)),
+               unit=f"one decode step: {MLA_LAYERS} layers, B={b}, H={h}, "
+                    f"L={lat}, R={rope}, T={t}, lens {list(MLA_LENS)}, bf16",
+               launches_per_decode_step=MLA_LAYERS)
+    emit("time", kernel="mla_decode_attention", **res, bytes=nbytes,
+         f32_ops=ops)
+    return {"mla_decode_attention": res}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1284,6 +1611,7 @@ def main() -> int:
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_gqa_attention
     from repro_torch.kernels.fused_step import fused_dense_layer
+    from repro_torch.kernels.mla_decode import mla_decode_attention
     from repro_torch.kernels.ssm_scan import ssm_decode_step
 
     phase_device()
@@ -1321,6 +1649,20 @@ def main() -> int:
     runs["ssm"] = phase_serve_ssm(params_ssm)
     phase_profile(params_ssm, ssm_config())
     times.update(phase_times_ssm())
+    del params_ssm
+    torch.cuda.empty_cache()
+    errs["mla"] = phase_mla_check()
+    errs["cim_matmul_fused"] = max(errs["cim_matmul_fused"],
+                                   phase_cim_check_mla())
+    phase_mla_parity()
+    params_mla = init_params(mla_config(),
+                             torch.Generator(device="cuda").manual_seed(0),
+                             "cuda")
+    runs["mla"] = phase_serve_mla(params_mla)
+    phase_profile(params_mla, mla_config())
+    del params_mla
+    torch.cuda.empty_cache()
+    times.update(phase_times_mla())
     src = {"cim_matmul_fused": ("src/repro_torch/csrc/cim_matmul.cu",
                                 "src/repro/kernels/cim_matmul.py:340",
                                 cim_matmul_fused, "cim_matmul_fused"),
@@ -1346,18 +1688,21 @@ def main() -> int:
                fused_dense_layer, ("fused", True)),
            "ssm_decode_step": ("src/repro_torch/csrc/ssm_scan.cu",
                                "src/repro/kernels/ssm_scan.py:140",
-                               ssm_decode_step, "ssm")}
+                               ssm_decode_step, "ssm"),
+           "mla_decode_attention": ("src/repro_torch/csrc/mla_decode.cu",
+                                    "src/repro/kernels/mla_decode.py:144",
+                                    mla_decode_attention, "mla")}
     line = []
     for name, (path, tpu, fn, ekey) in src.items():
         t = times[name]
         # launches of the main-path run this entry's times describe (the
-        # bf16 qwen2 cells A and B and the mamba2 cell E for the CIM
-        # kernel, which they share)
+        # bf16 qwen2 cells A and B, the mamba2 cell E and the deepseek-v2
+        # cell F for the CIM kernel, which they share)
         n = (runs[False][fn.__name__] + runs[True][fn.__name__]
-             + runs["ssm"][fn.__name__]
+             + runs["ssm"][fn.__name__] + runs["mla"][fn.__name__]
              if ekey == "cim_matmul_fused" else
-             runs[ekey][fn.__name__] if ekey == "ssm" or ekey[0] == "fused"
-             else runs[ekey[1]][fn.__name__])
+             runs[ekey][fn.__name__] if ekey in ("ssm", "mla")
+             or ekey[0] == "fused" else runs[ekey[1]][fn.__name__])
         line.append({"name": name, "route": "cuda", "source": path,
                      "replaces": tpu, "launches": n,
                      "max_abs_err": errs[ekey], "ms": t["ms"],

@@ -1,5 +1,6 @@
-"""Config schema of the port (a copy of the dense and ssm parts of the JAX
-package's ``configs/base.py``; the port imports nothing of that package).
+"""Config schema of the port (a copy of the dense, ssm and moe/MLA parts of
+the JAX package's ``configs/base.py``; the port imports nothing of that
+package).
 
 One ``ModelConfig`` describes an architecture; ``reduced()`` builds the
 same-family tiny config the CPU tests use.
@@ -24,6 +25,14 @@ class CIMModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 0
+    top_k: int = 2
+    n_shared: int = 0            # always-on shared experts (deepseek-v2: 2)
+    capacity_factor: float = 1.25
+
+
+@dataclasses.dataclass(frozen=True)
 class SSMConfig:
     """Mamba2 / SSD block shape (arXiv:2405.21060)."""
 
@@ -36,9 +45,21 @@ class SSMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention (deepseek-v2, arXiv:2405.04434)."""
+
+    q_lora: int = 1536
+    kv_lora: int = 512
+    rope_head_dim: int = 64
+    nope_head_dim: int = 128
+    v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # "dense" or "ssm" (the ported families)
+    family: str                  # "dense", "ssm" or "moe" (the ported
+                                 # families; moe with MLA attention only)
     n_layers: int
     d_model: int
     n_heads: int
@@ -63,7 +84,9 @@ class ModelConfig:
                                   # requires mode off, or sim with deployed
                                   # planes (in-kernel cim_matmul_fused math)
     cim: CIMModelConfig = CIMModelConfig()
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
+    mla: Optional[MLAConfig] = None
 
     @property
     def hd(self) -> int:
@@ -80,6 +103,19 @@ class ModelConfig:
             di = s.expand * d
             per_layer = (d * (2 * di + 2 * s.ngroups * s.d_state
                               + di // s.headdim) + di * d)
+        elif self.family == "moe":
+            m, a, h = self.moe, self.mla, self.n_heads
+            if a is not None:
+                qkv = (d * a.q_lora
+                       + a.q_lora * h * (a.nope_head_dim + a.rope_head_dim)
+                       + d * (a.kv_lora + a.rope_head_dim)
+                       + a.kv_lora * h * (a.nope_head_dim + a.v_head_dim)
+                       + h * a.v_head_dim * d)
+            else:
+                qkv = (d * hd * (h + 2 * self.n_kv_heads)
+                       + h * hd * d)
+            per_layer = (qkv + 3 * d * f * (m.n_experts + m.n_shared)
+                         + d * m.n_experts)
         else:
             qkv = (d * hd * (self.n_heads + 2 * self.n_kv_heads)
                    + self.n_heads * hd * d)
@@ -102,8 +138,18 @@ class ModelConfig:
             max_seq_len=128,
             dtype="float32",
         )
+        if self.moe is not None:
+            small = dataclasses.replace(
+                small, d_ff=128,
+                moe=dataclasses.replace(self.moe,
+                                        n_experts=min(self.moe.n_experts, 8),
+                                        top_k=min(self.moe.top_k, 2)))
         if self.ssm is not None:
             small = dataclasses.replace(
                 small, ssm=dataclasses.replace(self.ssm, d_state=16,
                                                headdim=32, chunk=32))
+        if self.mla is not None:
+            small = dataclasses.replace(
+                small, mla=MLAConfig(q_lora=64, kv_lora=64, rope_head_dim=16,
+                                     nope_head_dim=32, v_head_dim=32))
         return small

@@ -8,6 +8,7 @@ from typing import Dict, List
 from repro_torch.configs.base import ModelConfig
 
 _MODULES: Dict[str, str] = {
+    "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
     "mamba2-130m": "repro_torch.configs.mamba2_130m",
     "qwen2-0.5b": "repro_torch.configs.qwen2_0_5b",
 }

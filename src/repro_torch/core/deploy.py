@@ -3,20 +3,26 @@
 Twin of the single-device part of ``src/repro/core/deploy.py``: the macro
 is weight-stationary, so every CIM-routed dense dict ``{"w": (..., K, N)}``
 gets a resident plane ``wq<bits>`` (int8) and its per-slice scale
-``ws<bits>`` (in the config dtype), keyed by the deployed bit-width. No
-guard checksum, fault masking or tensor-parallel placement in this slice.
+``ws<bits>`` (in the config dtype), keyed by the deployed bit-width. MoE
+expert banks (raw ``(E, d_in, d_out)`` tensors, stacked over layers) get
+sibling ``<bank>_q<bits>``/``<bank>_s<bits>`` planes with one f32 scale
+per layer slice, the per-tensor scale ``models.moe._expert_dense`` uses.
+No guard checksum, fault masking or tensor-parallel placement in this
+slice.
 
 Also the parameter bridge of the port:
 
   * ``params_from_jax(tree)`` turns the JAX params tree, already converted
     to numpy arrays by the caller (the port never imports JAX), into torch
     tensors of the same structure;
-  * ``init_params(cfg, generator, device)`` initialises the dense and ssm
-    families natively (the card has no JAX): the JAX initialiser's
-    distributions — N(0, 1/d_in) weights, zero biases, unit norms,
-    N(0, 0.02^2) embeddings; for mamba2 N(0, 0.2^2) conv weights, zero conv
-    bias and dt bias, ``A_log = log(linspace(1, 16, H))`` and unit skip
-    gains — drawn from a ``torch.Generator``, equal in law, not in bits.
+  * ``init_params(cfg, generator, device)`` initialises the dense, ssm and
+    moe families natively (the card has no JAX): the JAX initialiser's
+    distributions — N(0, 1/d_in) weights (the MLA projections and the f32
+    router too), zero biases, unit norms, N(0, 0.02^2) embeddings; for
+    mamba2 N(0, 0.2^2) conv weights, zero conv bias and dt bias,
+    ``A_log = log(linspace(1, 16, H))`` and unit skip gains; for the expert
+    banks U(-1/sqrt(d), 1/sqrt(d)) — drawn from a ``torch.Generator``, equal
+    in law, not in bits.
 """
 
 from __future__ import annotations
@@ -33,10 +39,16 @@ from repro_torch.core.sac import Policy, get_policy
 
 _KEY_ROLE = {
     "q": "attn_qkv", "k": "attn_qkv", "v": "attn_qkv", "o": "attn_out",
+    "dq": "attn_qkv", "uq": "attn_qkv", "dkv": "attn_qkv",
+    "uk": "attn_qkv", "uv": "attn_qkv",
     "gate": "mlp_in", "up": "mlp_in", "down": "mlp_out",
     "in_proj": "ssm_in", "out_proj": "ssm_out",
     "router": "router", "head": "head",
 }
+_EXPERT_BANKS = ("w_gate", "w_up", "w_down")
+# elements of one f32 slab: the bank quantizer and the expert product
+# convert an int8 or bf16 bank to f32 a slab of experts at a time
+SLAB_ELEMS = 1 << 27
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -57,6 +69,28 @@ def quantize_plane(w: torch.Tensor, bits: int, reduce_axes: int):
     ws = quant.abs_max_scale(w, bits, axis=axes)
     wq = quant.quantize(w.to(torch.float32), ws, bits).to(quant.storage_dtype(bits))
     return wq, ws.reshape(w.shape[:w.ndim - reduce_axes])
+
+
+def quantize_bank(bank: torch.Tensor, bits: int):
+    """``quantize_plane(bank.to(float32), bits, reduce_axes=3)`` of a
+    stacked expert bank (L, E, d_in, d_out), bit for bit, converting one
+    slab of experts to f32 at a time (the whole f32 bank of a deepseek-v2
+    layer is 5 GB)."""
+    lead, (e, d_in, d_out) = bank.shape[:-3], bank.shape[-3:]
+    flat = bank.reshape(-1, e, d_in, d_out)
+    step = max(1, SLAB_ELEMS // (d_in * d_out))
+    wq = torch.empty(flat.shape, dtype=quant.storage_dtype(bits),
+                     device=bank.device)
+    ws = torch.empty((flat.shape[0],), dtype=torch.float32,
+                     device=bank.device)
+    for i in range(flat.shape[0]):
+        ws[i] = quant.abs_max_scale(torch.stack(
+            [flat[i, j:j + step].to(torch.float32).abs().amax()
+             for j in range(0, e, step)]), bits)
+        for j in range(0, e, step):
+            wq[i, j:j + step] = quant.quantize(
+                flat[i, j:j + step].to(torch.float32), ws[i], bits)
+    return wq.reshape(bank.shape), ws.reshape(lead)
 
 
 def deploy(cfg: ModelConfig, params: Any,
@@ -81,7 +115,16 @@ def deploy(cfg: ModelConfig, params: Any,
                                     reduce_axes=2)
             return dict(node, **{f"wq{spec.w_bits}": wq,
                                  f"ws{spec.w_bits}": ws})
-        return {k: walk(v, k, name) for k, v in node.items()}
+        out = {k: walk(v, k, name) for k, v in node.items()}
+        spec = (policy.spec_for_role("moe_expert")
+                if any(b in node for b in _EXPERT_BANKS) else None)
+        if spec is not None:
+            for b in _EXPERT_BANKS:
+                if b in node:
+                    wq, ws = quantize_bank(node[b], spec.w_bits)
+                    out[f"{b}_q{spec.w_bits}"] = wq
+                    out[f"{b}_s{spec.w_bits}"] = ws
+        return out
 
     return walk(params, None, None)
 
@@ -123,11 +166,13 @@ def params_from_jax(tree: Any, device="cpu") -> Any:
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda") -> Any:
-    """Random params of the dense or ssm family, stacked over layers like
-    the reference."""
+    """Random params of the dense, ssm or moe (MLA) family, stacked over
+    layers like the reference."""
     from repro_torch import resolve_device
-    if cfg.family not in ("dense", "ssm"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported")
+    if cfg.family not in ("dense", "ssm", "moe") or (
+            cfg.family == "moe" and cfg.mla is None):
+        raise NotImplementedError(
+            f"{cfg.name} (family {cfg.family!r}) is not ported")
     dev = resolve_device(device)
     dt = dtype_of(cfg)
     L, d = cfg.n_layers, cfg.d_model
@@ -140,8 +185,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     def full(shape, value, dtype=dt):
         return torch.full(shape, value, dtype=dtype, device=dev)
 
-    def dense(d_in, d_out, bias=False):
-        p = {"w": normal(L, d_in, d_out, std=d_in ** -0.5)}
+    def dense(d_in, d_out, bias=False, dtype=dt):
+        p = {"w": normal(L, d_in, d_out, std=d_in ** -0.5, dtype=dtype)}
         if bias:
             p["b"] = full((L, d_out), 0.0)
         return p
@@ -170,6 +215,42 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             },
             "n": ones(d),
         }
+    elif cfg.family == "moe":
+        a, m, f, h = cfg.mla, cfg.moe, cfg.d_ff, cfg.n_heads
+        lim = d ** -0.5
+
+        def bank(d_in, d_out):
+            # one layer's slab of experts at a time: the f32 draw of a
+            # whole deepseek-v2 bank is 5 GB per layer
+            w = torch.empty((L, m.n_experts, d_in, d_out), dtype=dt,
+                            device=dev)
+            step = max(1, SLAB_ELEMS // (d_in * d_out))
+            for i in range(L):
+                for j in range(0, m.n_experts, step):
+                    n = min(step, m.n_experts - j)
+                    u = torch.rand((n, d_in, d_out), generator=generator,
+                                   device=dev, dtype=torch.float32)
+                    w[i, j:j + n] = (u * (2 * lim) - lim).to(dt)
+            return w
+
+        blocks = {
+            "attn": {"dq": dense(d, a.q_lora),
+                     "uq": dense(a.q_lora,
+                                 h * (a.nope_head_dim + a.rope_head_dim)),
+                     "dkv": dense(d, a.kv_lora + a.rope_head_dim),
+                     "uk": dense(a.kv_lora, h * a.nope_head_dim),
+                     "uv": dense(a.kv_lora, h * a.v_head_dim),
+                     "o": dense(h * a.v_head_dim, d)},
+            "moe": {"router": dense(d, m.n_experts, dtype=torch.float32),
+                    "w_gate": bank(d, f), "w_up": bank(d, f),
+                    "w_down": bank(f, d)},
+            "n1": ones(d), "n2": ones(d),
+        }
+        if m.n_shared:
+            fs = m.n_shared * f
+            blocks["moe"]["shared"] = {"gate": dense(d, fs),
+                                       "up": dense(d, fs),
+                                       "down": dense(fs, d)}
     else:
         f, nh, kv, hd = cfg.d_ff, cfg.n_heads, cfg.n_kv_heads, cfg.hd
         blocks = {

@@ -114,21 +114,24 @@ def seed_from_key(key: Key) -> Key:
     return key_words(key)
 
 
-def random_bits(key: Key, shape, device="cpu") -> torch.Tensor:
+def random_bits(key: Key, shape, device="cpu",
+                start: int = 0) -> torch.Tensor:
     """32-bit ``jax.random.bits``: b0 ^ b1 at counter (hi, lo) of the flat
-    index, as an int64 tensor of ``shape``."""
+    index, as an int64 tensor of ``shape``. ``start`` offsets the flat
+    index: the result is the slice ``[start, start + prod(shape))`` of the
+    flat draw of a larger shape, bit for bit."""
     n = int(np.prod(shape)) if len(shape) else 1
-    idx = torch.arange(n, dtype=torch.int64, device=device)
+    idx = torch.arange(start, start + n, dtype=torch.int64, device=device)
     b0, b1 = threefry2x32(key[0], key[1], idx >> 32, idx & M32)
     return (b0 ^ b1).reshape(shape)
 
 
 def uniform(key: Key, shape, minval: float = 0.0, maxval: float = 1.0,
-            device="cpu") -> torch.Tensor:
+            device="cpu", start: int = 0) -> torch.Tensor:
     """f32 ``jax.random.uniform``: floats * (max - min) + min, then max(min, .)."""
     lo = torch.tensor(minval, dtype=torch.float32, device=device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=device)
-    floats = uniform_from_bits(random_bits(key, shape, device))
+    floats = uniform_from_bits(random_bits(key, shape, device, start))
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 
@@ -148,8 +151,9 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
 
     def coef(i):
-        return torch.where(lt, torch.tensor(_ERFINV_LT5[i], dtype=x.dtype),
-                           torch.tensor(_ERFINV_GE5[i], dtype=x.dtype))
+        return torch.where(
+            lt, torch.tensor(_ERFINV_LT5[i], dtype=x.dtype, device=x.device),
+            torch.tensor(_ERFINV_GE5[i], dtype=x.dtype, device=x.device))
 
     p = coef(0)
     for i in range(1, len(_ERFINV_LT5)):
@@ -158,11 +162,13 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * torch.finfo(x.dtype).max, out)
 
 
-def normal(key: Key, shape) -> torch.Tensor:
-    """f32 ``jax.random.normal`` on the CPU: sqrt(2) * erf_inv(U(-1, 1))."""
+def normal(key: Key, shape, device="cpu", start: int = 0) -> torch.Tensor:
+    """f32 ``jax.random.normal``: sqrt(2) * erf_inv(U(-1, 1)); ``start`` as
+    in ``random_bits`` (a slab of a larger draw)."""
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-    u = uniform(key, shape, lo, 1.0)
-    return torch.tensor(np.float32(np.sqrt(2)), dtype=torch.float32) * erf_inv(u)
+    u = uniform(key, shape, lo, 1.0, device, start)
+    return torch.tensor(np.float32(np.sqrt(2)), dtype=torch.float32,
+                        device=device) * erf_inv(u)
 
 
 def gumbel(key: Key, shape, device="cpu") -> torch.Tensor:

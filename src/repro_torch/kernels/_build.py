@@ -42,6 +42,7 @@ _SIGNATURES = {
                   _I, _F, _P],
     "fused_dense_layer": [_P, _P],
     "ssm_decode_step": [_P] * 11 + [_I] * 8 + [_P],
+    "mla_decode_attention": [_P] * 6 + [_I] * 6 + [_F, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

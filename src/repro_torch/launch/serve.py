@@ -5,15 +5,19 @@
       [--new-tokens 16] [--prompt-len 128] [--slots 4] [--reduced]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \\
       --cim sim --attn-impl kernel
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \\
+      --reduced --cim sim --attn-impl kernel --device cpu
 
 ``--cim sim`` serves the CIM macro model: the weights are deployed once as
 int8 planes and every linear runs the fused CIM kernel with in-kernel
 readout noise (``cim.use_kernel=True``, the port's only sim path).
 ``--attn-impl kernel`` runs cached attention through the decode and flash
-kernels, and a mamba2 decode step through the selective-scan kernel;
-``--kv-int8`` changes nothing for an attention-free model, as in the
-reference. Parameters are random, drawn from ``--seed``. The entry point
-runs on the card; ``--device cpu`` runs the kernels' plain versions.
+kernels, a deepseek-v2 decode step through the latent-cache MLA kernel,
+and a mamba2 decode step through the selective-scan kernel;
+``--kv-int8`` changes nothing for an attention-free model or for MLA's
+latent cache, as in the reference. Parameters are random, drawn from
+``--seed``. The entry point runs on the card; ``--device cpu`` runs the
+kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -36,7 +40,9 @@ def _build_argparser():
         description="CR-CIM serving on PyTorch: slot-batched engine with "
                     "chunked prefill")
     ap.add_argument("--arch", default="qwen2-0.5b",
-                    help="qwen2-0.5b (dense) or mamba2-130m (ssm)")
+                    help="qwen2-0.5b (dense), mamba2-130m (ssm) or "
+                         "deepseek-v2-236b (moe with MLA; 472 GB at full "
+                         "width: --reduced)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--new-tokens", type=int, default=12)
@@ -48,7 +54,8 @@ def _build_argparser():
     ap.add_argument("--chunk-size", type=int, default=32)
     ap.add_argument("--kv-int8", action="store_true",
                     help="int8 KV cache with per-(token, head) scales "
-                         "(no KV cache, and no effect, on mamba2)")
+                         "(no effect on mamba2, which has no KV cache, or "
+                         "on deepseek-v2's latent cache)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu' for the plain versions")

@@ -1,6 +1,6 @@
-"""GQA attention against the per-sequence slot cache.
+"""GQA and MLA attention against the per-sequence slot cache.
 
-Twin of the GQA part of ``src/repro/models/attention.py``. The cache is a
+Twin of the GQA and MLA parts of ``src/repro/models/attention.py``. The cache is a
 dict ``{"k": (B, T, KV, D), "v": ..., "len": (B,)}`` (int8 ``k``/``v`` plus
 ``ks``/``vs`` (B, T, KV, 1) f32 scales with ``kv_cache_int8``); ``len`` is
 per sequence, so ragged slots share one batch. Unlike the functional
@@ -15,6 +15,15 @@ Two implementations, selected by ``cfg.attn_impl``:
   * ``"kernel"`` — decode (S == 1) through the length-aware decode kernel,
     prefill (S > 1) through the GQA flash kernel with per-row start
     offsets (``kernels/decode_attention.py``, ``kernels/flash_attention.py``).
+
+MLA (deepseek-v2, ``mla_attention``) caches the compressed latent
+``{"ckv": (B, T, kv_lora), "krope": (B, T, rope_hd), "len": (B,)}``, also
+updated in place. Train and prefill up-project the whole cache row through
+``uk``/``uv`` (CIM linears) and run a masked f32 softmax; a decode step
+runs the *absorbed* form, W_uk folded into the query and W_uv applied to
+the latent context (float weights in the model dtype, as the reference),
+through the latent-cache kernel (``kernels/mla_decode.py``) with
+``attn_impl="kernel"`` or the masked einsum otherwise.
 """
 
 from __future__ import annotations
@@ -22,11 +31,13 @@ from __future__ import annotations
 import math
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_gqa_attention
+from repro_torch.kernels.mla_decode import mla_decode_attention
 from repro_torch.models.layers import Ctx, Params, apply_rope, dense
 
 NEG_INF = -1e30
@@ -169,4 +180,96 @@ def gqa_attention(ctx: Ctx, p: Params, x: torch.Tensor,
         else:
             out = _sdpa(q, ck, cv, _cached_mask(start, s, t))
     out = out.reshape(b, s, h * hd)
+    return dense(ctx, p["o"], out, "attn_out"), cache
+
+
+# ----------------------------------------------------------------- MLA
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                   device="cpu") -> Dict[str, Any]:
+    a = cfg.mla
+    return {
+        "ckv": torch.zeros((batch, max_len, a.kv_lora), dtype=dtype,
+                           device=device),
+        "krope": torch.zeros((batch, max_len, a.rope_head_dim), dtype=dtype,
+                             device=device),
+        "len": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def mla_attention(ctx: Ctx, p: Params, x: torch.Tensor,
+                  positions: torch.Tensor,
+                  cache: Optional[Dict[str, Any]] = None
+                  ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
+    """Multi-head latent attention with the compressed-KV cache; with
+    ``cache`` writes the new latent rows in place (see module doc). The CIM
+    keys are drawn in the reference's order: dq, uq, dkv, (uk, uv when not
+    decoding), o."""
+    cfg = ctx.cfg
+    a = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    impl = cfg.attn_impl
+    if impl not in ("einsum", "kernel"):
+        raise ValueError(f"attn_impl must be 'einsum' or 'kernel', "
+                         f"got {impl!r}")
+
+    cq = dense(ctx, p["dq"], x, "attn_qkv")
+    q = dense(ctx, p["uq"], cq, "attn_qkv").reshape(
+        b, s, h, a.nope_head_dim + a.rope_head_dim)
+    q_nope, q_rope = torch.split(q, [a.nope_head_dim, a.rope_head_dim],
+                                 dim=-1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    dkv = dense(ctx, p["dkv"], x, "attn_qkv")
+    ckv, krope = torch.split(dkv, [a.kv_lora, a.rope_head_dim], dim=-1)
+    krope = apply_rope(krope[:, :, None, :], positions,
+                       cfg.rope_theta)[:, :, 0]
+
+    if cache is not None:
+        start = cache["len"].clone()             # (B,) per-sequence lengths
+        ckv_all = row_update(cache["ckv"], ckv, start)
+        krope_all = row_update(cache["krope"], krope, start)
+        cache["len"].copy_(start + s)
+    else:
+        start = torch.zeros((b,), dtype=torch.int32, device=x.device)
+        ckv_all, krope_all = ckv, krope
+    t = ckv_all.shape[1]
+
+    # 1 / sqrt(nope + rope) rounded to f32, as the reference's jnp scalar
+    scale = float(np.float32(1.0) / np.sqrt(
+        np.float32(a.nope_head_dim + a.rope_head_dim)))
+
+    if s == 1 and cache is not None:
+        # absorbed decode: attention in the latent space, O(t * kv_lora)
+        wuk = p["uk"]["w"].to(x.dtype).reshape(a.kv_lora, h, a.nope_head_dim)
+        q_lat = torch.einsum("bshd,lhd->bshl", q_nope, wuk)
+        wuv = p["uv"]["w"].to(x.dtype).reshape(a.kv_lora, h, a.v_head_dim)
+        if impl == "kernel":
+            out_lat = mla_decode_attention(
+                q_lat[:, 0], q_rope[:, 0], ckv_all, krope_all, start + 1,
+                scale=float(1.0 / (a.nope_head_dim + a.rope_head_dim) ** 0.5),
+            )[:, None]
+        else:
+            logits = (torch.einsum("bshl,btl->bhst", q_lat, ckv_all)
+                      + torch.einsum("bshd,btd->bhst", q_rope, krope_all)
+                      ).to(torch.float32) * scale
+            logits = torch.where(_cached_mask(start, s, t), logits, NEG_INF)
+            probs = torch.softmax(logits, dim=-1).to(x.dtype)
+            out_lat = torch.einsum("bhst,btl->bshl", probs, ckv_all)
+        out = torch.einsum("bshl,lhv->bshv", out_lat, wuv)
+    else:
+        # train / prefill: up-project the whole cache row once
+        k_nope = dense(ctx, p["uk"], ckv_all, "attn_qkv").reshape(
+            b, t, h, a.nope_head_dim)
+        v = dense(ctx, p["uv"], ckv_all, "attn_qkv").reshape(
+            b, t, h, a.v_head_dim)
+        logits = (torch.einsum("bshd,bthd->bhst", q_nope, k_nope)
+                  + torch.einsum("bshd,btd->bhst", q_rope, krope_all)
+                  ).to(torch.float32) * scale
+        logits = torch.where(_cached_mask(start, s, t), logits, NEG_INF)
+        probs = torch.softmax(logits, dim=-1).to(v.dtype)
+        out = torch.einsum("bhst,bthd->bshd", probs, v)
+
+    out = out.reshape(b, s, h * a.v_head_dim)
     return dense(ctx, p["o"], out, "attn_out"), cache

@@ -1,6 +1,6 @@
 """Building blocks: CIM-aware dense, norms, RoPE, SwiGLU, embeddings.
 
-Twin of ``src/repro/models/layers.py`` for the dense and ssm families. Every matmul
+Twin of ``src/repro/models/layers.py`` for the ported families. Every matmul
 goes through ``dense()`` with a *role* (attn_qkv / mlp_in / ...) so the SAC
 policy picks the macro operating point per layer. Parameters are plain
 dicts of tensors laid out like the JAX tree.

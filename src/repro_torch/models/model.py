@@ -1,7 +1,7 @@
 """Public model API: build an arch, get its init and forward.
 
-Twin of ``build`` in ``src/repro/models/model.py`` for the dense and ssm
-families.
+Twin of ``build`` in ``src/repro/models/model.py`` for the dense, ssm and
+moe (MLA) families.
 ``init(generator, device)`` draws torch-native parameters
 (``core.deploy.init_params``); parameters converted from a JAX tree come
 from ``core.deploy.params_from_jax``.
@@ -28,10 +28,7 @@ class ModelAPI:
 
 
 def build(cfg: ModelConfig) -> ModelAPI:
-    if cfg.family not in ("dense", "ssm"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet; ROADMAP.md lists it "
-            "as later work")
+    tf.check_family(cfg)
     return ModelAPI(
         cfg=cfg,
         init=lambda generator, device="cuda": init_params(cfg, generator,

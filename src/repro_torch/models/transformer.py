@@ -1,7 +1,8 @@
-"""Decoder-LM assembly for the dense family (GQA + SwiGLU pre-norm blocks)
-and the ssm family (pre-norm mamba2 blocks).
+"""Decoder-LM assembly for the dense family (GQA + SwiGLU pre-norm blocks),
+the ssm family (pre-norm mamba2 blocks) and the moe family with MLA
+attention (deepseek-v2: MLA + routed and shared experts).
 
-Twin of the dense and ssm parts of ``src/repro/models/transformer.py``.
+Twin of the dense, ssm and moe parts of ``src/repro/models/transformer.py``.
 The layer stack is a Python loop over the layers (the reference scans over
 stacked parameters); layer ``i`` keys its CIM noise off
 ``fold_in(ctx.key, i)`` exactly as the reference's scan body does.
@@ -9,7 +10,8 @@ stacked parameters); layer ``i`` keys its CIM noise off
 Caches are stacked over layers like the reference's: dense
 ``{"k": (L, B, T, KV, D), "v": ..., ["ks", "vs": (L, B, T, KV, 1)],
 "len": (L, B)}``; ssm ``{"conv": (L, B, width-1, conv_dim) in the model
-dtype, "state": (L, B, H, P, N) f32}``, with no length. ``forward``
+dtype, "state": (L, B, H, P, N) f32}``, with no length; MLA
+``{"ckv": (L, B, T, kv_lora), "krope": (L, B, T, rope_hd), "len": (L, B)}``. ``forward``
 writes the new keys (or window and state) in place and returns the same
 dict; ``take_slot`` returns views of one slot row, so a forward on a
 slot's views updates the engine's cache without a copy.
@@ -31,6 +33,7 @@ from repro_torch.core import prng
 from repro_torch.core.deploy import dtype_of
 from repro_torch.kernels.fused_step import fused_dense_layer
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import Ctx, Params, embed, rmsnorm, swiglu, \
     unembed
@@ -73,12 +76,27 @@ def _ssm_block(ctx: Ctx, p: Params, x, positions, cache):
     return x + h, new_cache
 
 
-_BLOCKS = {"dense": _dense_block, "ssm": _ssm_block}
+def _moe_block(ctx: Ctx, p: Params, x, positions, cache):
+    h, new_cache = attn.mla_attention(
+        ctx, p["attn"], rmsnorm(p["n1"], x, ctx.cfg.norm_eps), positions,
+        cache)
+    x = x + h
+    # serving (cached) forwards route dropless, as in the reference
+    x = x + moe_mod.moe_block(ctx, p["moe"],
+                              rmsnorm(p["n2"], x, ctx.cfg.norm_eps),
+                              dropless=cache is not None)
+    return x, new_cache
 
 
-def _check_family(cfg: ModelConfig) -> None:
+_BLOCKS = {"dense": _dense_block, "ssm": _ssm_block, "moe": _moe_block}
+
+
+def check_family(cfg: ModelConfig) -> None:
     if cfg.family not in _BLOCKS:
         raise NotImplementedError(f"family {cfg.family!r} {_NOT_PORTED}")
+    if cfg.family == "moe" and cfg.mla is None:
+        raise NotImplementedError(
+            f"the moe family with GQA attention ({cfg.name}) {_NOT_PORTED}")
 
 
 def _index(tree, i: int):
@@ -95,9 +113,11 @@ def _index(tree, i: int):
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 device="cpu") -> Dict[str, torch.Tensor]:
     """Stacked per-layer decoding caches (leading 'layers' axis)."""
-    _check_family(cfg)
+    check_family(cfg)
     if cfg.family == "ssm":
         one = ssm_mod.init_ssm_cache(cfg, batch, dtype_of(cfg), device)
+    elif cfg.family == "moe":
+        one = attn.init_mla_cache(cfg, batch, max_len, dtype_of(cfg), device)
     else:
         one = attn.init_gqa_cache(cfg, batch, max_len, dtype_of(cfg), device)
     return {k: v[None].repeat((cfg.n_layers,) + (1,) * v.ndim)
@@ -128,7 +148,8 @@ def set_cache_lens(caches, value) -> Dict[str, torch.Tensor]:
 
 # leaves a decode step must leave unchanged in inactive slots: the length,
 # and the ssm window and state, which every step rolls and decays in place
-# (attention K/V writes land past the frozen length, where no mask looks)
+# (attention K/V and MLA latent writes land past the frozen length, where
+# no mask looks)
 _FROZEN = ("len", "conv", "state")
 
 
@@ -184,7 +205,7 @@ def forward(params: Params, batch: Dict[str, Any], cfg: ModelConfig,
             ) -> Tuple[torch.Tensor, Any]:
     """Forward to logits. train: caches=None; prefill/decode: the stacked
     cache, updated in place."""
-    _check_family(cfg)
+    check_family(cfg)
     ctx = ctx or Ctx.make(cfg)
     x = embed(params["embed"], batch["tokens"], dtype_of(cfg))
     b, s, _ = x.shape

@@ -1,17 +1,18 @@
 """Slot-batched continuous-batching serving engine on PyTorch.
 
 Twin of the fused ``Engine`` of ``src/repro/serving/engine.py`` for the
-dense and ssm families. One stacked cache of batch ``max_slots`` is
-allocated once (a KV cache over-allocated to a chunk multiple, so a final
-padded chunk never clamps back onto live keys; for mamba2 the conv window
-and the f32 state). Each scheduler iteration advances every
-still-prefilling slot by one fixed-shape chunk of ``chunk_size`` tokens,
-in ascending slot order, then runs ONE batch decode step over every slot:
-idle and prefilling rows ride along, as in the reference, because sim-mode
-CIM noise depends on the batch-global activation scale, and their lengths
-(and ssm window and state) are restored afterwards. A prefill chunk tells
-the model how many of its tokens are real (``Ctx.prefill_valid``), so the
-ssm state skips the chunk's right-pad.
+dense, ssm and moe (MLA) families. One stacked cache of batch
+``max_slots`` is allocated once (a KV or latent cache over-allocated to a
+chunk multiple, so a final padded chunk never clamps back onto live keys;
+for mamba2 the conv window and the f32 state). Each scheduler iteration
+advances every still-prefilling slot by one fixed-shape chunk of
+``chunk_size`` tokens, in ascending slot order, then runs ONE batch decode
+step over every slot: idle and prefilling rows ride along, as in the
+reference, because sim-mode CIM noise depends on the batch-global
+activation scale, and their lengths (and ssm window and state) are
+restored afterwards. A prefill chunk tells the model how many of its
+tokens are real (``Ctx.prefill_valid``), so the ssm state skips the
+chunk's right-pad.
 
 The PRNG contract replays the reference bit for bit:
 
@@ -145,9 +146,7 @@ class Engine:
                 f"Engine options {sorted(unported)} are not ported yet; "
                 "ROADMAP.md lists them as later work")
         self.device = resolve_device(device)
-        if cfg.family not in ("dense", "ssm"):
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (ROADMAP.md)")
+        tf.check_family(cfg)
         if attn_impl is not None:
             if attn_impl not in ("einsum", "kernel"):
                 raise ValueError(f"attn_impl must be 'einsum' or 'kernel', "

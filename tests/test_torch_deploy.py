@@ -82,15 +82,15 @@ def test_init_params_matches_jax_tree_in_law():
 
 
 def test_registry_lists_only_ported_archs():
-    assert list_archs() == ["mamba2-130m", "qwen2-0.5b"]
+    assert list_archs() == ["deepseek-v2-236b", "mamba2-130m", "qwen2-0.5b"]
     with pytest.raises(KeyError, match="not ported"):
-        get_config("deepseek-v2-236b")
+        get_config("zamba2-7b")
     for arch in list_archs():
         full, ref = get_config(arch), jget(arch)
         for ours, theirs in ((full, ref), (full.reduced(), ref.reduced())):
             for f in dataclasses.fields(ours):
                 a, b = getattr(ours, f.name), getattr(theirs, f.name)
-                if f.name in ("cim", "ssm") and a is not None:
+                if f.name in ("cim", "moe", "ssm", "mla") and a is not None:
                     a, b = dataclasses.asdict(a), dataclasses.asdict(b)
                 assert a == b, (arch, f.name)
             assert ours.param_count() == theirs.param_count()

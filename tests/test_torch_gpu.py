@@ -17,7 +17,10 @@ less), each attention-output row within 2^-12, the written f32 cache rows
 within 1e-6 relative, int8 codes equal or one apart. The mamba2 decode
 step against its plain version: the new conv window bit for bit; every
 state row (one (slot, head, p) over N) and every y row (one (slot, head)
-over P) within 1e-5 of its max |value|.
+over P) within 1e-5 of its max |value|. The MLA latent-cache decode kernel
+against its plain version: every output row (one (slot, head) over the
+latent width) within 1e-5 of its max |value| in f32 and 2^-7 in bf16 (one
+bf16 rounding of an output); lens == 0 rows exactly zero.
 """
 
 import dataclasses
@@ -40,6 +43,8 @@ from repro_torch.core.deploy import deploy
 from repro_torch.kernels import fused_step
 from repro_torch.kernels.fused_step import (fused_dense_layer,
                                             fused_dense_layer_plain)
+from repro_torch.kernels.mla_decode import (mla_decode_attention,
+                                            mla_decode_attention_plain)
 from repro_torch.kernels.ssm_scan import (ssm_decode_step,
                                           ssm_decode_step_plain)
 from repro_torch.models import transformer as tf
@@ -300,4 +305,71 @@ def test_reduced_mamba2_tokens_card_equal_cpu(cuda, mode):
         [Request(prompt=p, max_new_tokens=8) for p in prompts])
         for dev in (cuda, "cpu")]
     assert ssm_decode_step.launches > 0
+    assert outs[0] == outs[1]
+
+
+MLA_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
+
+
+def _mla_case(dev, dtype, h, lat, rope, t, lens):
+    """Random latent-cache decode operands; N(0, 1) queries and cache give
+    scores of std sqrt(3) at scale 1/sqrt(192), spread enough that every
+    32-key stretch carries weight."""
+    g = torch.Generator(device=dev).manual_seed(h + lat)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    return (r(len(lens), h, lat), r(len(lens), h, rope),
+            r(len(lens), t, lat), r(len(lens), t, rope),
+            torch.tensor(lens, dtype=torch.int32, device=dev), 192 ** -0.5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,lat,rope,t,lens", [
+    (128, 512, 64, 512, (301, 138, 96, 212)),     # deepseek-v2
+    (128, 512, 64, 512, (0, 512, 1, 33)),
+    (4, 64, 16, 128, (0, 128, 5, 70)),            # the reduced model
+])
+def test_mla_kernel_matches_plain(cuda, dtype, h, lat, rope, t, lens):
+    args = _mla_case(cuda, dtype, h, lat, rope, t, lens)
+    mla_decode_attention.launches = 0
+    out = mla_decode_attention(*args)
+    ref = mla_decode_attention_plain(*args)
+    assert mla_decode_attention.launches == 1 and out.dtype == dtype
+    assert not _rows_off(out.float(), ref.float(), MLA_TOL[dtype]).any()
+    for b, n in enumerate(lens):
+        if n == 0:
+            assert not out[b].abs().max().item()
+
+
+def test_mla_tolerance_catches_wrong_variants(cuda):
+    """The plain version over 32 fewer live keys, and over the cache of
+    another batch entry, fail the check in every output row."""
+    for dtype in (torch.float32, torch.bfloat16):
+        args = _mla_case(cuda, dtype, 128, 512, 64, 512, (301, 138, 96, 212))
+        out = mla_decode_attention(*args).float()
+        short = list(args)
+        short[4] = args[4] - 32
+        rolled = list(args)
+        rolled[2], rolled[3] = args[2].roll(1, 0), args[3].roll(1, 0)
+        for variant in (short, rolled):
+            ref = mla_decode_attention_plain(*variant).float()
+            assert _rows_off(out, ref, MLA_TOL[dtype]).all()
+
+
+@pytest.mark.parametrize("mode", ["off", "sim"])
+def test_reduced_deepseek_tokens_card_equal_cpu(cuda, mode):
+    base = get_config("deepseek-v2-236b").reduced()
+    cfg = dataclasses.replace(base, cim=dataclasses.replace(
+        base.cim, mode=mode, use_kernel=True))
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (40, 1, 57, 9)]
+    mla_decode_attention.launches = 0
+    outs = [Engine(cfg, params, max_slots=2, max_len=128, attn_impl="kernel",
+                   device=dev).generate(
+        [Request(prompt=p, max_new_tokens=8) for p in prompts])
+        for dev in (cuda, "cpu")]
+    assert mla_decode_attention.launches > 0
     assert outs[0] == outs[1]

@@ -120,3 +120,25 @@ def test_quantize_bit_equal_including_ties():
     assert quant.qmax(4) == jquant.qmax(4) == 7
     assert quant.storage_dtype(8) == torch.int8
     assert quant.storage_dtype(10) == torch.int16
+
+
+def test_normal_of_the_expert_noise_matches_jax():
+    """The MoE readout-noise draw: ``jax.random.normal`` of a (1, E, C, d)
+    buffer under a folded key. The Threefry bits are equal; the values
+    within 3 ulp (torch's log1p against XLA's, and XLA's fused multiply-adds
+    in the erf_inv polynomial: 3 ulp was the largest of four million
+    draws). A slab drawn with ``start`` is the same slice of the whole
+    draw, bit for bit."""
+    shape = (1, 8, 6, 128)
+    jk = jax.random.fold_in(jax.random.fold_in(jax.random.PRNGKey(9), 2), 7)
+    tk = prng.fold_in(prng.fold_in(prng.PRNGKey(9), 2), 7)
+    np.testing.assert_array_equal(
+        np.asarray(jax.random.bits(jk, shape), np.int64),
+        prng.random_bits(tk, shape).numpy())
+    j = np.asarray(jax.random.normal(jk, shape, jnp.float32))
+    t = prng.normal(tk, shape).numpy()
+    ulp = np.spacing(np.abs(j).astype(np.float32))
+    assert (np.abs(t - j) <= 3 * ulp).all(), np.abs(t - j).max()
+    per_e = 6 * 128
+    part = prng.normal(tk, (1, 3, 6, 128), start=5 * per_e)
+    assert torch.equal(part, torch.from_numpy(t[:, 5:8]))
