@@ -24,7 +24,14 @@ must catch) and the CIM kernel at deepseek-v2's shapes, card-vs-CPU greedy
 tokens of the reduced deepseek-v2 in off and sim mode, deepseek-v2-236b at
 every published width and 4 of its 60 layers served with exact launch
 counts and its peak memory, a profile of one decode step and the kernel's
-times beside one scaled_dot_product_attention call. Every phase prints one
+times beside one scaled_dot_product_attention call. Last, the two
+entry-point kernels at qwen2-0.5b width: the int8 CIM kernel against its
+plain version at the seven projections (M = 1024) and at ragged shapes
+(with a shifted-tile variant that the tolerance must catch), the
+straight-through ops.cim_matmul forward and backward with exact launch
+counts, MHA flash attention against its plain version at five shapes in
+bf16 and f32 with its block counts (and a variant with 32 live keys
+dropped that must fail), and both kernels' times. Every phase prints one
 JSON line; any failure exits non-zero. The last line is the device record.
 """
 
@@ -112,6 +119,57 @@ def device_ms(fn, reps: int) -> float:
             fn()
         torch.cuda.synchronize()
     return busy_ms(prof.events(), reps)
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Device ms per ``fn()`` from CUDA events around ``reps`` calls queued
+    behind a spinning kernel: the host enqueues them all while the card
+    spins, so the events time the card's work without the host's launch
+    gaps, as the profiler does (which dropped kernels from some windows of
+    the entry-point phase). ``fn`` must not wait for the card."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    torch.cuda._sleep(int(2e9 * (2 * reps * host_s + 1e-3)))
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Device ms per ``fn()`` from CUDA events around ``reps`` replays of a
+    CUDA graph of one call: for a plain version of many small launches,
+    whose enqueue the host cannot keep ahead of the card."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    del graph
+    return a.elapsed_time(b) / reps
 
 
 # ------------------------------------------------------------ phase 1
@@ -803,8 +861,10 @@ def phase_serve_fused(params32, int8: bool):
     flash kernels. Launch counts must hold exactly."""
     import torch
     from repro_torch.kernels.cim_matmul import cim_matmul_fused
+    from repro_torch.kernels.cim_matmul import cim_matmul_int8
     from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_gqa_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_gqa_attention)
     from repro_torch.kernels.fused_step import fused_dense_layer
     from repro_torch.serving.engine import Engine, Request
 
@@ -1186,8 +1246,10 @@ def phase_serve_ssm(params):
     import torch
     from repro_torch.core import prng
     from repro_torch.kernels.cim_matmul import cim_matmul_fused
+    from repro_torch.kernels.cim_matmul import cim_matmul_int8
     from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_gqa_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_gqa_attention)
     from repro_torch.kernels.fused_step import fused_dense_layer
     from repro_torch.kernels.ssm_scan import ssm_decode_step
     from repro_torch.models import transformer as tf
@@ -1453,8 +1515,10 @@ def phase_serve_mla(params):
     import torch
     from repro_torch.core import prng
     from repro_torch.kernels.cim_matmul import cim_matmul_fused
+    from repro_torch.kernels.cim_matmul import cim_matmul_int8
     from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_gqa_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_gqa_attention)
     from repro_torch.kernels.fused_step import fused_dense_layer
     from repro_torch.kernels.mla_decode import mla_decode_attention
     from repro_torch.kernels.ssm_scan import ssm_decode_step
@@ -1599,6 +1663,456 @@ def phase_times_mla():
     return {"mla_decode_attention": res}
 
 
+# ------------------------------------------------------------ phase 9
+# the entry-point kernels: the straight-through CIM matmul ops.cim_matmul on
+# the int8 kernel cim_matmul_int8, and the MHA flash attention
+# flash_attention, at qwen2-0.5b width (the train CLI's batch 8 x seq 128)
+INT32_OPS = 132 * 64 * 1.98e9   # H100 SXM: 64 INT32 lanes per SM at boost
+NOISE_INT_OPS = 85     # integer operations per readout normal, see PERF.md
+B2_M = 1024
+B2_PROJ = (("q", 896, 896, "attn"), ("k", 896, 128, "attn"),
+           ("v", 896, 128, "attn"), ("o", 896, 896, "attn"),
+           ("gate", 896, 4864, "mlp"), ("up", 896, 4864, "mlp"),
+           ("down", 4864, 896, "mlp"))
+B2_RAGGED = ((100, 2048, 130), (1, 1024, 1), (8, 512, 8),
+             (33, 2 * 512 + 61, 77))
+# (name, BH, S, T, D, causal, per-batch-row starts or None, heads per row)
+B5_SHAPES = (("qwen2_train", 112, 128, 128, 64, True, None, 14),
+             ("qwen2_prefill_cache", 56, 32, 320, 64, True,
+              (0, 96, 160, 288), 14),
+             ("vit_small", 384, 65, 65, 64, False, None, 6),
+             ("d128_cross", 16, 512, 1536, 128, False, None, 16),
+             ("d128_causal", 16, 2048, 2048, 128, True, None, 16))
+
+
+def b2_operands(g, m, k, n, spec):
+    """int8 operands quantized from N(0, 1) at the spec's bits, and their
+    scale xs * ws (what ops.cim_matmul hands the kernel)."""
+    import torch
+    from repro_torch.core import quant
+    x = torch.randn((m, k), generator=g, device="cuda")
+    w = torch.randn((k, n), generator=g, device="cuda")
+    xq, xs, wq, ws = quant.quantize_operands(x, w, spec.in_bits, spec.w_bits)
+    return xq.to(torch.int8), wq.to(torch.int8), xs * ws
+
+
+def b2_shifted_plain(xq, wq, seed, sigma, scale):
+    """Reach variant: the plain version with every tile's noise drawn at
+    the next tile index."""
+    import torch
+    from repro_torch.core import prng
+    m, k = xq.shape
+    n = wq.shape[1]
+    rows = torch.arange(m, device=xq.device)[:, None].expand(m, n)
+    cols = torch.arange(n, device=xq.device)[None, :].expand(m, n)
+    y = torch.zeros((m, n), dtype=torch.float32, device=xq.device)
+    for t in range(-(-k // 1024)):
+        sl = slice(t * 1024, (t + 1) * 1024)
+        s = (xq[:, sl].double() @ wq[sl].double()).float()
+        y = y + (s + sigma * prng.tile_gaussian(seed[0], seed[1], t + 1,
+                                                rows, cols))
+    return y * scale
+
+
+def b2_off(yk, yp, scale):
+    """Elements out of the JAX package's slack: rtol 5e-6, atol 2e-3 *
+    scale (Box-Muller's ulps)."""
+    return (yk - yp).abs() > 5e-6 * yp.abs() + 2e-3 * scale
+
+
+def phase_cim_int8_check():
+    """The int8 CIM kernel against its plain version at qwen2-0.5b's seven
+    CIM projections (M = 1024, paper_sac bits) and at ragged shapes over the
+    whole int8 range: exact without noise; with noise within rtol 5e-6 /
+    atol 2e-3 * scale (the error printed, expected 0). Reach: the plain
+    version with the noise of the next tile index fails every row."""
+    import torch
+    from repro_torch.core.cim import output_noise_std_int_per_tile
+    from repro_torch.core.sac import paper_sac
+    from repro_torch.kernels.cim_matmul import (cim_matmul_int8,
+                                                cim_matmul_int8_plain)
+    g = torch.Generator(device="cuda").manual_seed(51)
+    pol = paper_sac()
+    worst, reach = 0.0, 1.0
+    cases = [(B2_M, k, n, getattr(pol, role), name)
+             for name, k, n, role in B2_PROJ]
+    cases += [(m, k, n, None, "ragged") for m, k, n in B2_RAGGED]
+    for i, (m, k, n, spec, name) in enumerate(cases):
+        if spec is None:
+            xq = torch.randint(-127, 128, (m, k), generator=g, device="cuda",
+                               dtype=torch.int8)
+            wq = torch.randint(-127, 128, (k, n), generator=g, device="cuda",
+                               dtype=torch.int8)
+            scale, sigma = torch.tensor(0.0125, device="cuda"), 2.5
+        else:
+            xq, wq, scale = b2_operands(g, m, k, n, spec)
+            sigma = output_noise_std_int_per_tile(spec, k)
+        y0 = cim_matmul_int8(xq, wq, None, 0.0, scale)
+        if not torch.equal(y0, cim_matmul_int8_plain(xq, wq, None, 0.0,
+                                                     scale)):
+            fail(f"cim_matmul_int8 integer part differs at {name} M={m} "
+                 f"K={k} N={n}")
+        seed = (0x12345678 + i, 0x9ABCDEF0 - i)
+        yk = cim_matmul_int8(xq, wq, seed, sigma, scale)
+        yp = cim_matmul_int8_plain(xq, wq, seed, sigma, scale)
+        err = (yk - yp).abs().max().item()
+        if b2_off(yk, yp, scale).any() or not torch.isfinite(yk).all():
+            fail(f"cim_matmul_int8 noisy {name} M={m} K={k} N={n}: max err "
+                 f"{err} (scale {scale.item()})")
+        row_reach = None
+        if spec is not None:
+            ys = b2_shifted_plain(xq, wq, seed, sigma, scale)
+            row_reach = float(b2_off(yk, ys, scale).any(-1).float().mean())
+            reach = min(reach, row_reach)
+        worst = max(worst, err)
+        emit("cim_int8_check", kernel="cim_matmul_int8", shape=[m, k, n],
+             projection=name, bits=None if spec is None else spec.in_bits,
+             sigma=sigma, integer_part="exact", max_abs_err=err,
+             max_err_over_scale=err / scale.item(),
+             tol="5e-6*|y| + 2e-3*scale",
+             shifted_tile_rows_failing=row_reach)
+    if reach < 1.0:
+        fail(f"cim_matmul_int8 tolerance too loose: the shifted-tile "
+             f"variant fails only {reach} of the rows")
+    return worst
+
+
+def phase_cim_ste():
+    """The straight-through ops.cim_matmul on the card at the seven
+    projections (M = 1024, f32 x and w, noise on): the forward equals the
+    plain int8 path on the same quantized operands, seed and scale; the
+    gradients equal the f32 dequantized products within rtol 1e-6; exactly
+    one int8-kernel launch per projection forward and none in backward."""
+    import torch
+    from repro_torch.core import prng, quant
+    from repro_torch.core.cim import output_noise_std_int_per_tile
+    from repro_torch.core.sac import paper_sac
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cim_matmul import (cim_matmul_int8,
+                                                cim_matmul_int8_plain)
+    g = torch.Generator(device="cuda").manual_seed(52)
+    pol = paper_sac()
+    ins = []
+    for i, (name, k, n, role) in enumerate(B2_PROJ):
+        x = torch.randn((8, 128, k), generator=g, device="cuda")
+        w = torch.randn((k, n), generator=g, device="cuda") * k ** -0.5
+        ins.append((name, getattr(pol, role), x.requires_grad_(True),
+                    w.requires_grad_(True), prng.fold_in(prng.PRNGKey(7), i)))
+    cim_matmul_int8.launches = 0
+    t0 = time.perf_counter()
+    ys = [ops.cim_matmul(x, w, spec, key) for _, spec, x, w, key in ins]
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    fwd_launches = cim_matmul_int8.launches
+    gys = [torch.randn(y.shape, generator=g, device="cuda") for y in ys]
+    t0 = time.perf_counter()
+    for y, gy in zip(ys, gys):
+        y.backward(gy)
+    torch.cuda.synchronize()
+    bwd_s = time.perf_counter() - t0
+    launches = cim_matmul_int8.launches
+    if fwd_launches != len(B2_PROJ) or launches != fwd_launches:
+        fail(f"ops.cim_matmul launches: {fwd_launches} in forward (want "
+             f"{len(B2_PROJ)}), {launches - fwd_launches} in backward "
+             f"(want 0)")
+    worst = 0.0
+    for (name, spec, x, w, key), y, gy in zip(ins, ys, gys):
+        with torch.no_grad():
+            k, n = w.shape
+            x2 = x.reshape(-1, k)
+            xq, xs, wq, ws = quant.quantize_operands(x2, w, spec.in_bits,
+                                                     spec.w_bits)
+            sigma = output_noise_std_int_per_tile(spec, k)
+            yp = cim_matmul_int8_plain(xq.to(torch.int8), wq.to(torch.int8),
+                                       prng.seed_from_key(key), sigma,
+                                       xs * ws).reshape(8, 128, n)
+            if (y.shape != (8, 128, n) or not torch.isfinite(y).all()
+                    or b2_off(y, yp, xs * ws).any()):
+                fail(f"ops.cim_matmul forward {name}: shape {tuple(y.shape)}"
+                     f", max err {(y - yp).abs().max().item()}")
+            g2 = gy.reshape(-1, n)
+            dx = (g2 @ quant.dequantize(wq, ws).T).reshape(x.shape)
+            dw = quant.dequantize(xq, xs).T @ g2
+            for got, want, what in ((x.grad, dx, "dx"), (w.grad, dw, "dw")):
+                rel = ((got - want).abs() / want.abs().clamp(min=1e-30)).max()
+                if not (got - want).abs().le(1e-6 * want.abs()).all():
+                    fail(f"ops.cim_matmul {what} {name}: max rel err "
+                         f"{rel.item()} > 1e-6")
+            worst = max(worst, (y - yp).abs().max().item())
+    emit("cim_ste", entry="repro_torch.kernels.ops.cim_matmul",
+         shapes=[[8, 128, k, n] for _, k, n, _ in B2_PROJ],
+         launches_forward=fwd_launches,
+         launches_backward=launches - fwd_launches,
+         forward_max_abs_err_vs_plain=worst, grad_rtol=1e-6,
+         forward_s=fwd_s, backward_s=bwd_s)
+    return launches
+
+
+def b5_inputs(g, bh, s, t, d, starts, heads, dtype):
+    import torch
+    q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype)
+               for shape in ((bh, s, d), (bh, t, d), (bh, t, d)))
+    st = (None if starts is None else torch.tensor(
+        starts, dtype=torch.int32, device="cuda").repeat_interleave(heads))
+    return q, k, v, st
+
+
+def b5_live(bh, s, t, causal, st):
+    """Live keys of every (row, query): keys 0 .. n - 1, n = min(start + i
+    + 1, start + S, T) when causal, T when not."""
+    import torch
+    if not causal:
+        return torch.full((bh, s), t, dtype=torch.int64, device="cuda")
+    st0 = (torch.zeros(bh, dtype=torch.int64, device="cuda") if st is None
+           else st.long())
+    pos = st0[:, None] + torch.arange(s, device="cuda")[None, :]
+    return torch.minimum(pos + 1, torch.clamp(st0 + s, max=t)[:, None])
+
+
+def b5_variant(q, k, v, upper):
+    """Reach variant: attention over keys j < upper (per row, query), in the
+    kernel's arithmetic (f32 scores, p in v's dtype, f32 sums)."""
+    import torch
+    d = q.shape[-1]
+    sc = torch.einsum("bsd,btd->bst", q.float(), k.float()) * (d ** -0.5)
+    kj = torch.arange(k.shape[1], device="cuda")
+    sc = torch.where(kj[None, None, :] < upper[:, :, None], sc,
+                     torch.full_like(sc, -1e30))
+    p = torch.softmax(sc, -1)
+    return torch.einsum("bst,btd->bsd", p.to(v.dtype).float(),
+                        v.float()).to(q.dtype)
+
+
+def b5_rows_off(out, ref, dtype):
+    """Rows (one query over D) out of tolerance: f32 within 2e-5 + 2e-5
+    |ref|; bf16 within 2^-7 of the row's max |ref| (one output rounding)."""
+    import torch
+    out, ref = out.float(), ref.float()
+    err = (out - ref).abs()
+    if dtype == torch.float32:
+        return (err > 2e-5 + 2e-5 * ref.abs()).any(-1), err.max().item()
+    scale = ref.abs().amax(-1, keepdim=True)
+    return (err > 2 ** -7 * scale).any(-1), err.max().item()
+
+
+def b5_counts(bh, s, t, d, causal, st):
+    """Closed form of the kernel's block counts (its blocks: MHA_BLOCK_Q[d]
+    queries, MHA_BLOCK_K keys): causal query blocks count up to their
+    frontier, non-causal ones every key block."""
+    from repro_torch.kernels.flash_attention import MHA_BLOCK_K, MHA_BLOCK_Q
+    bq, bk = MHA_BLOCK_Q[d], MHA_BLOCK_K
+    n_q = -(-s // bq)
+    if not causal:
+        return [[-(-t // bk)] * n_q for _ in range(bh)]
+    starts = [0] * bh if st is None else st.tolist()
+    return [[-(-min(starts[b] + min((i + 1) * bq, s), t) // bk)
+             for i in range(n_q)] for b in range(bh)]
+
+
+def phase_flash_mha_check():
+    """flash_attention at every B5 shape in bf16 and f32, driven once per
+    shape and dtype through the entry point (the launches counted), then
+    held against its plain version (f32 2e-5 + 2e-5 |ref|, bf16 2^-7 of the
+    row max), its block counts against the closed form, and its reach: the
+    result over each row's live keys less the last 32 must fail every long
+    row (more than 32 live keys). Head dims other than 64 and 128 raise."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    g = torch.Generator(device="cuda").manual_seed(53)
+    launches, worst = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        cases = [(shape, b5_inputs(g, *shape[1:5], shape[6], shape[7], dtype))
+                 for shape in B5_SHAPES]
+        flash_attention.launches = 0
+        outs = [flash_attention(q, k, v, shape[5], st,
+                                return_block_counts=True)
+                for shape, (q, k, v, st) in cases]
+        torch.cuda.synchronize()
+        launches[name] = flash_attention.launches
+        if launches[name] != len(B5_SHAPES):
+            fail(f"flash_attention {name}: {launches[name]} launches for "
+                 f"{len(B5_SHAPES)} calls")
+        worst[name] = 0.0
+        for (shape, (q, k, v, st)), (out, counts) in zip(cases, outs):
+            sname, bh, s, t, d, causal = shape[:6]
+            ref = flash_attention_plain(q, k, v, causal, st)
+            bad, err = b5_rows_off(out, ref, dtype)
+            if bad.any() or out.dtype != dtype or out.shape != q.shape:
+                fail(f"flash_attention {name} {sname}: {bad.float().mean()} "
+                     f"of the rows out of tolerance (max err {err})")
+            want = b5_counts(bh, s, t, d, causal, st)
+            if counts.tolist() != want:
+                fail(f"flash_attention {name} {sname}: block counts differ "
+                     f"from the closed form")
+            live = b5_live(bh, s, t, causal, st)
+            long_rows = live > 32
+            short = b5_variant(q, k, v, live - 32)
+            reach = (float(b5_rows_off(out, short, dtype)[0][long_rows]
+                           .float().mean()) if long_rows.any() else None)
+            if reach is not None and reach < 1.0:
+                fail(f"flash_attention {name} {sname}: tolerance too loose: "
+                     f"dropping the last 32 live keys fails only {reach} of "
+                     f"the long rows")
+            worst[name] = max(worst[name], err)
+            emit("flash_mha_check", kernel="flash_attention", dtype=name,
+                 shape=sname, BH=bh, S=s, T=t, D=d, causal=causal,
+                 starts=None if shape[6] is None else list(shape[6]),
+                 max_abs_err=err,
+                 tol="2e-5+2e-5|ref|" if dtype == torch.float32
+                 else "2^-7*max|ref row|",
+                 block_counts="closed form", blocks_visited=int(
+                     counts.sum()), long_rows=int(long_rows.sum()),
+                 last_32_keys_dropped_long_rows_failing=reach)
+    q = torch.zeros((2, 8, 96), device="cuda")
+    try:
+        flash_attention(q, q, q)
+    except ValueError as e:
+        emit("flash_mha_check", head_dim_96="raises", message=str(e))
+    else:
+        fail("flash_attention took head_dim 96")
+    return launches, worst
+
+
+def b2_bound(calls):
+    """Bytes, int8 products and readout-noise integer operations of the
+    int8 kernel over ``calls`` of (xq, wq, noise); bound = the larger of
+    the bytes over 3.35 TB/s and the operations over their peak, the int8
+    products on the tensor cores and the noise on the CUDA cores' INT32
+    lanes (counted as running side by side)."""
+    nbytes = ops8 = noise = 0
+    for xq, wq, on in calls:
+        m, k = xq.shape
+        n = wq.shape[1]
+        nbytes += m * k + k * n + 4 * m * n + 8
+        ops8 += 2 * m * k * n
+        noise += NOISE_INT_OPS * m * n * -(-k // 1024) if on else 0
+    t_bytes = nbytes / HBM_BPS
+    t_ops = max(ops8 / INT8_OPS, noise / INT32_OPS)
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations",
+            dict(bytes=nbytes, int8_ops=ops8, noise_int_ops=noise,
+                 bytes_ms=1e3 * t_bytes, int8_ms=1e3 * ops8 / INT8_OPS,
+                 noise_ms=1e3 * noise / INT32_OPS))
+
+
+def b5_work(bh, s, t, d, causal, st, dtype):
+    """Bytes (q, k, v read once, out written once, starts) and operations
+    (4 D per live (query, key) pair) of one flash_attention call."""
+    import torch
+    esz = 2 if dtype == torch.bfloat16 else 4
+    nbytes = esz * d * (2 * bh * s + 2 * bh * t) + (0 if st is None
+                                                    else 4 * bh)
+    pairs = int(b5_live(bh, s, t, causal, st).sum())
+    return nbytes, 4 * d * pairs
+
+
+def phase_times_b2_b5():
+    """Device ms of the two entry-point kernels (queued_ms) at the
+    full-width shapes, their plain versions (graph_ms) and a library
+    yardstick (queued_ms).
+    B2: one forward of the seven qwen2-0.5b projections at M = 1024, noise
+    on (7 launches); the yardstick torch._int_mm(xq, wq).float() * scale is
+    the same function without the noise. B5: one launch at each shape and
+    dtype; the yardstick scaled_dot_product_attention in the same dtype
+    (is_causal, or a boolean mask for start offsets)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.cim import output_noise_std_int_per_tile
+    from repro_torch.core.sac import paper_sac
+    from repro_torch.kernels.cim_matmul import (cim_matmul_int8,
+                                                cim_matmul_int8_plain)
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    g = torch.Generator(device="cuda").manual_seed(54)
+    pol = paper_sac()
+    calls = []
+    for i, (name, k, n, role) in enumerate(B2_PROJ):
+        spec = getattr(pol, role)
+        xq, wq, scale = b2_operands(g, B2_M, k, n, spec)
+        calls.append((xq, wq, wq.t().contiguous().t(), scale,
+                      output_noise_std_int_per_tile(spec, k), (9, i)))
+
+    def run_k(noise=True):
+        for xq, wq, _, sc, sigma, seed in calls:
+            cim_matmul_int8(xq, wq, seed if noise else None, sigma, sc)
+
+    def run_p():
+        for xq, wq, _, sc, sigma, seed in calls:
+            cim_matmul_int8_plain(xq, wq, seed, sigma, sc)
+
+    def run_lib():
+        for xq, _, wcol, sc, *_ in calls:
+            torch._int_mm(xq, wcol).float() * sc
+
+    k_ms = queued_ms(run_k, 10)
+    k0_ms = queued_ms(lambda: run_k(False), 10)
+    p_ms = graph_ms(run_p, 2)
+    lib_ms = queued_ms(run_lib, 10)
+    bound, by, terms = b2_bound([(c[0], c[1], True) for c in calls])
+    bound0 = b2_bound([(c[0], c[1], False) for c in calls])[0]
+    res = {"cim_matmul_int8": dict(
+        ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by,
+        library_ms=lib_ms,
+        library="torch._int_mm(xq, wq).float() * scale: the same products "
+                "without the readout noise; kernels "
+                + ", ".join(top_kernels(run_lib)),
+        ms_noiseless=k0_ms, bound_ms_noiseless=bound0,
+        unit="one forward of the seven qwen2-0.5b projections, M=1024, "
+             "noise on (7 launches)", **terms)}
+    emit("time", kernel="cim_matmul_int8", **res["cim_matmul_int8"])
+
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        peak = BF16_OPS if dtype == torch.bfloat16 else FP32_OPS
+        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, ops=0)
+        for sname, bh, s, t, d, causal, starts, heads in B5_SHAPES:
+            q, k, v, st = b5_inputs(g, bh, s, t, d, starts, heads, dtype)
+            if st is None:
+                mask = None
+            else:
+                qi = st.long()[:, None] + torch.arange(s, device="cuda")
+                kj = torch.arange(t, device="cuda")
+                mask = ((kj[None, None, :] <= qi[:, :, None])
+                        & (kj[None, None, :] < (st.long() + s)[:, None, None])
+                        )[:, None]
+            q4, k4, v4 = q[:, None], k[:, None], v[:, None]
+
+            def run_lib_b5():
+                F.scaled_dot_product_attention(
+                    q4, k4, v4, attn_mask=mask,
+                    is_causal=causal and mask is None)
+
+            f_ms = queued_ms(lambda: flash_attention(q, k, v, causal, st), 10)
+            f_p = graph_ms(lambda: flash_attention_plain(q, k, v, causal,
+                                                          st), 3)
+            f_lib = queued_ms(run_lib_b5, 10)
+            nbytes, ops = b5_work(bh, s, t, d, causal, st, dtype)
+            b_ms = 1e3 * max(nbytes / HBM_BPS, ops / peak)
+            emit("time", kernel="flash_attention", dtype=name, shape=sname,
+                 ms=f_ms, plain_ms=f_p, library_ms=f_lib, bound_ms=b_ms,
+                 bound_by="bytes" if nbytes / HBM_BPS >= ops / peak
+                 else "operations", bytes=nbytes, ops=ops,
+                 library="scaled_dot_product_attention, " + name
+                         + ", kernels " + ", ".join(top_kernels(run_lib_b5)))
+            for key, val in (("ms", f_ms), ("plain_ms", f_p),
+                             ("library_ms", f_lib), ("bytes", nbytes),
+                             ("ops", ops)):
+                tot[key] += val
+        t_b, t_o = tot["bytes"] / HBM_BPS, tot["ops"] / peak
+        key = "flash_attention" + ("" if dtype == torch.bfloat16 else "[f32]")
+        res[key] = dict(ms=tot["ms"], plain_ms=tot["plain_ms"],
+                        library_ms=tot["library_ms"],
+                        bound_ms=1e3 * max(t_b, t_o),
+                        bound_by="bytes" if t_b >= t_o else "operations",
+                        unit="one launch at each of the five B5 shapes, "
+                             + name)
+        emit("time", kernel=key, **res[key], bytes=tot["bytes"],
+             ops=tot["ops"])
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1608,8 +2122,10 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout)
     from repro_torch.core.deploy import init_params
     from repro_torch.kernels.cim_matmul import cim_matmul_fused
+    from repro_torch.kernels.cim_matmul import cim_matmul_int8
     from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_gqa_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_gqa_attention)
     from repro_torch.kernels.fused_step import fused_dense_layer
     from repro_torch.kernels.mla_decode import mla_decode_attention
     from repro_torch.kernels.ssm_scan import ssm_decode_step
@@ -1663,6 +2179,14 @@ def main() -> int:
     del params_mla
     torch.cuda.empty_cache()
     times.update(phase_times_mla())
+    errs["cim_matmul_int8"] = phase_cim_int8_check()
+    runs["ste"] = {"cim_matmul_int8": phase_cim_ste()}
+    mha_launches, mha_errs = phase_flash_mha_check()
+    runs["mha"] = {"flash_attention": mha_launches["bfloat16"],
+                   "flash_attention[f32]": mha_launches["float32"]}
+    errs["mha"] = mha_errs["bfloat16"]
+    errs["mha[f32]"] = mha_errs["float32"]
+    times.update(phase_times_b2_b5())
     src = {"cim_matmul_fused": ("src/repro_torch/csrc/cim_matmul.cu",
                                 "src/repro/kernels/cim_matmul.py:340",
                                 cim_matmul_fused, "cim_matmul_fused"),
@@ -1691,16 +2215,30 @@ def main() -> int:
                                ssm_decode_step, "ssm"),
            "mla_decode_attention": ("src/repro_torch/csrc/mla_decode.cu",
                                     "src/repro/kernels/mla_decode.py:144",
-                                    mla_decode_attention, "mla")}
+                                    mla_decode_attention, "mla"),
+           "cim_matmul_int8": ("src/repro_torch/csrc/cim_matmul.cu",
+                               "src/repro/kernels/cim_matmul.py:275",
+                               cim_matmul_int8, "cim_matmul_int8"),
+           "flash_attention": ("src/repro_torch/csrc/flash_mha.cu",
+                               "src/repro/kernels/flash_attention.py:204",
+                               flash_attention, "mha"),
+           "flash_attention[f32]": (
+               "src/repro_torch/csrc/flash_mha.cu",
+               "src/repro/kernels/flash_attention.py:204",
+               flash_attention, "mha[f32]")}
     line = []
     for name, (path, tpu, fn, ekey) in src.items():
         t = times[name]
         # launches of the main-path run this entry's times describe (the
         # bf16 qwen2 cells A and B, the mamba2 cell E and the deepseek-v2
-        # cell F for the CIM kernel, which they share)
+        # cell F for the CIM kernel, which they share; the entry-point
+        # phases cim_ste and flash_mha_check for the int8 CIM and MHA
+        # kernels)
         n = (runs[False][fn.__name__] + runs[True][fn.__name__]
              + runs["ssm"][fn.__name__] + runs["mla"][fn.__name__]
              if ekey == "cim_matmul_fused" else
+             runs["ste"][name] if ekey == "cim_matmul_int8" else
+             runs["mha"][name] if ekey in ("mha", "mha[f32]") else
              runs[ekey][fn.__name__] if ekey in ("ssm", "mla")
              or ekey[0] == "fused" else runs[ekey[1]][fn.__name__])
         line.append({"name": name, "route": "cuda", "source": path,

@@ -35,3 +35,19 @@ def quantize(x: torch.Tensor, scale: torch.Tensor, bits: int) -> torch.Tensor:
     """Quantize to signed integers in [-qmax, qmax] (int32)."""
     q = qmax(bits)
     return torch.clamp(torch.round(x / scale), -q, q).to(torch.int32)
+
+
+def dequantize(xi: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return xi.to(torch.float32) * scale
+
+
+def quantize_operands(x: torch.Tensor, w: torch.Tensor, in_bits: int,
+                      w_bits: int):
+    """Quantize both operands of a CIM matmul: ``(xq, xs, wq, ws)`` with
+    ``xq``/``wq`` int32 in symmetric range and per-tensor abs-max scales.
+    Scales come from the operands as given (the caller's dtype); rounding
+    is done in f32 by division, half to even."""
+    xs = abs_max_scale(x, in_bits)
+    ws = abs_max_scale(w, w_bits)
+    return (quantize(x.to(torch.float32), xs, in_bits), xs,
+            quantize(w.to(torch.float32), ws, w_bits), ws)

@@ -1,18 +1,22 @@
-// Block body shared by the decode and flash-prefill GQA attention kernels.
+// Block body shared by the decode, flash-prefill GQA and MHA flash attention
+// kernels.
 //
 // One block serves one (batch row b, KV head h, query block qb): its
 // R = BQ * G query rows (row r = query position qb*BQ + r / G, grouped head
 // h*G + r % G) against the slot cache, streamed in storage layout
 // (B, T, KV, D) - no head replication, int8 dequantized on load with the
-// per-key (B, T, KV) scales. Key j is visible to the query at absolute
-// position start + i iff j <= start + i and j < start + S (the
-// _cached_mask contract: recycled slots keep stale keys past the written
-// prefix). Key blocks past the causal frontier of the query block are never
-// read. Online softmax over the visited blocks: running max m, denominator
-// l and accumulator acc, updated as l = l * alpha + sum(p),
-// acc = acc * alpha + p @ V. With a bf16 cache, p is rounded to bf16 before
-// the p @ V product, as the reference's p.astype(v.dtype) does; sums stay
-// f32.
+// per-key (B, T, KV) scales. Key j counts iff j < kv_end and, when causal,
+// j <= start + i for the query at absolute position start + i. The callers
+// give kv_end = min(T, start + S) when causal (the _cached_mask contract:
+// recycled slots keep stale keys past the written prefix) and T when not.
+// Causal key blocks past the frontier of the query block are never read;
+// non-causal blocks visit every key block below T. Online softmax over the
+// visited blocks, in order from block 0 (which holds key 0, live in every
+// row, so a masked score of -1e30 always meets a finite running max):
+// running max m, denominator l and accumulator acc, updated as
+// l = l * alpha + sum(p), acc = acc * alpha + p @ V. With a bf16 cache, p
+// is rounded to bf16 before the p @ V product, as the reference's
+// p.astype(v.dtype) does; sums stay f32.
 #pragma once
 
 #include "common.cuh"
@@ -27,7 +31,8 @@ __device__ __forceinline__ void gqa_attend(
     const KVT* __restrict__ v, const float* __restrict__ ks,
     const float* __restrict__ vs, QT* __restrict__ out,
     int* __restrict__ counts, int b, int h, int qb, int n_q, int BQ, int G,
-    int S, int T, int H, int KV, int start, float scale) {
+    int S, int T, int H, int KV, int start, int kv_end, bool causal,
+    float scale) {
   constexpr bool INT8 = sizeof(KVT) == 1;
   constexpr bool ROUND_P = sizeof(KVT) == 2;   // bf16 cache
   constexpr int NOUT = RMAX * D / THREADS;      // outputs per thread
@@ -45,8 +50,8 @@ __device__ __forceinline__ void gqa_attend(
   const int i0 = qb * BQ;
   // rows whose query position lies past S are padding: never computed
   const int rows = min(R, (S - i0) * G);
-  const int kv_end = start + S;                // exclusive validity bound
   const int q_abs_max = start + min(i0 + BQ, S) - 1;
+  const int j_end = causal ? min(q_abs_max + 1, kv_end) : kv_end;
 
   for (int e = t; e < RMAX * D; e += THREADS) {
     const int r = e / D, d = e % D;
@@ -66,7 +71,7 @@ __device__ __forceinline__ void gqa_attend(
   for (int u = 0; u < NOUT; ++u) acc[u] = 0.0f;
 
   int visited = 0;
-  for (int j0 = 0; j0 <= q_abs_max && j0 < T; j0 += BK) {
+  for (int j0 = 0; j0 < j_end; j0 += BK) {
     ++visited;
     __syncthreads();                           // previous block consumed
     for (int e = t; e < BK * D; e += THREADS) {
@@ -94,7 +99,7 @@ __device__ __forceinline__ void gqa_attend(
       for (int d = 0; d < D; ++d) s = fmaf(qs[r][d], kt[d][j], s);
       s = __fmul_rn(s, scale);
       const int kj = j0 + j, pos = start + i0 + r / G;
-      ps[r][j] = (kj <= pos && kj < kv_end) ? s : NEG_INF;
+      ps[r][j] = ((!causal || kj <= pos) && kj < kv_end) ? s : NEG_INF;
     }
     __syncthreads();
     // online softmax, one warp per row

@@ -32,7 +32,7 @@ decode_kernel(const QT* q, const KVT* k, const KVT* v, const float* ks,
   // one query at absolute position lens - 1: S = 1, start = lens - 1
   rt::gqa_attend<QT, KVT, RMAX, BK, D, THREADS>(
       q, k, v, ks, vs, out, nullptr, b, h, 0, 1, 1, G, 1, T, H, KV,
-      lens[b] - 1, scale);
+      lens[b] - 1, min(T, lens[b]), true, scale);
 }
 
 template <typename QT, typename KVT>

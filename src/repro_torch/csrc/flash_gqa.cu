@@ -33,7 +33,7 @@ flash_kernel(const QT* q, const KVT* k, const KVT* v, const float* ks,
   const int qb = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   rt::gqa_attend<QT, KVT, RMAX, BK, D, THREADS>(
       q, k, v, ks, vs, out, counts, b, h, qb, n_q, BQ, G, S, T, H, KV,
-      start[b], scale);
+      start[b], min(T, start[b] + S), true, scale);
 }
 
 template <typename QT, typename KVT>

@@ -1,9 +1,14 @@
-"""Fused activation-quant CIM matmul: CUDA kernel and plain PyTorch version.
+"""CIM matmuls on int8 weight planes: CUDA kernels and plain PyTorch versions.
 
-Replaces ``src/repro/kernels/cim_matmul.py`` ``cim_matmul_fused_pallas``
-(TPU kernel ``_fused_kernel``). The kernel is ``csrc/cim_matmul.cu``; its
-design note says what bounds it on the H100 (the int8 weight stream) and
-how it streams the plane once.
+Two wrappers of one CUDA body (``csrc/cim_matmul.cu``, whose design note
+says what bounds each on the H100 and how it streams the plane once):
+
+* ``cim_matmul_fused`` replaces ``src/repro/kernels/cim_matmul.py``
+  ``cim_matmul_fused_pallas`` (TPU kernel ``_fused_kernel``): float
+  activations, quantized in the kernel's prologue;
+* ``cim_matmul_int8`` replaces ``cim_matmul_pallas`` (TPU kernel
+  ``_kernel``): activations already quantized to int8, a scalar scale
+  epilogue, any K and N (the kernel masks the ragged edges).
 
 ``cim_matmul_fused`` takes the float activation (M, K), quantizes it
 against the scalar ``x_scale`` (round half to even, clip at +-qmax), takes
@@ -14,14 +19,16 @@ global (row, col)), sums the tiles in f32 in order and multiplies by
 ``out_scale``. Scales arrive as a device tensor ``qp = [x_scale,
 out_scale]`` so the host never waits for them.
 
-CPU tensors take ``cim_matmul_fused_plain``, the twin of
-``ref.cim_matmul_fused_ref``; CUDA tensors launch the kernel or raise.
+CPU tensors take ``cim_matmul_fused_plain`` (twin of
+``ref.cim_matmul_fused_ref``) and ``cim_matmul_int8_plain`` (twin of
+``ref.cim_matmul_prng_ref``); CUDA tensors launch the kernel or raise.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch.core import prng, quant
@@ -29,30 +36,37 @@ from repro_torch.core.cim import MACRO_ROWS
 from repro_torch.kernels import _build
 
 
-def cim_matmul_fused_plain(x: torch.Tensor, wq: torch.Tensor,
-                           qp: torch.Tensor, seed: Optional[Tuple[int, int]],
-                           sigma: float, in_bits: int) -> torch.Tensor:
-    """Plain PyTorch version of the kernel (same arithmetic, tile by tile).
+def _tile_sums(xq: torch.Tensor, wq: torch.Tensor,
+               seed: Optional[Tuple[int, int]], sigma: float) -> torch.Tensor:
+    """sum_t (xq[:, tile t] . wq[tile t] + sigma * noise_t), f32, in order.
 
     The int32 dot runs as a float64 product: every partial sum is an integer
     below 2^53, so it is exact in any order, on the CPU and on the card."""
-    q = quant.qmax(in_bits)
-    xq = torch.clamp(torch.round(x.to(torch.float32) / qp[0]), -q, q)
     m, k = xq.shape
     n = wq.shape[1]
     noise = seed is not None and sigma > 0.0
     if noise:
-        rows = torch.arange(m, dtype=torch.int64, device=x.device)[:, None]
-        cols = torch.arange(n, dtype=torch.int64, device=x.device)[None, :]
+        rows = torch.arange(m, dtype=torch.int64, device=xq.device)[:, None]
+        cols = torch.arange(n, dtype=torch.int64, device=xq.device)[None, :]
         rows, cols = rows.expand(m, n), cols.expand(m, n)
-    y = torch.zeros((m, n), dtype=torch.float32, device=x.device)
+    y = torch.zeros((m, n), dtype=torch.float32, device=xq.device)
     for t in range(-(-k // MACRO_ROWS)):
         sl = slice(t * MACRO_ROWS, (t + 1) * MACRO_ROWS)
         s = (xq[:, sl].to(torch.float64) @ wq[sl].to(torch.float64)).to(torch.float32)
         if noise:
             s = s + sigma * prng.tile_gaussian(seed[0], seed[1], t, rows, cols)
         y = y + s
-    return y * qp[1]
+    return y
+
+
+def cim_matmul_fused_plain(x: torch.Tensor, wq: torch.Tensor,
+                           qp: torch.Tensor, seed: Optional[Tuple[int, int]],
+                           sigma: float, in_bits: int) -> torch.Tensor:
+    """Plain PyTorch version of the fused kernel (same arithmetic, tile by
+    tile)."""
+    q = quant.qmax(in_bits)
+    xq = torch.clamp(torch.round(x.to(torch.float32) / qp[0]), -q, q)
+    return _tile_sums(xq, wq, seed, sigma) * qp[1]
 
 
 def cim_matmul_fused(x: torch.Tensor, wq: torch.Tensor, qp: torch.Tensor,
@@ -95,3 +109,73 @@ def cim_matmul_fused(x: torch.Tensor, wq: torch.Tensor, qp: torch.Tensor,
 
 
 cim_matmul_fused.launches = 0
+
+
+Seed = Union[None, int, Sequence[int]]
+
+
+def resolve_seed(seed: Seed) -> Optional[Tuple[int, int]]:
+    """The kernel's (seed0, seed1) words, as ``_resolve_seed`` of the JAX
+    package reads them: None -> no noise, a scalar -> (s, 0), a pair as it
+    is; each word taken as its uint32 bits (a negative int32 wraps)."""
+    if seed is None:
+        return None
+    words = np.asarray(seed).reshape(-1).tolist()
+    if len(words) not in (1, 2):
+        raise ValueError(f"seed must be a scalar or a pair, got {seed!r}")
+    if len(words) == 1:
+        words.append(0)
+    return int(words[0]) & prng.M32, int(words[1]) & prng.M32
+
+
+def _scale_tensor(scale, device) -> torch.Tensor:
+    if scale is None:
+        return torch.ones((), dtype=torch.float32, device=device)
+    if isinstance(scale, torch.Tensor):
+        return scale.to(device=device, dtype=torch.float32).reshape(())
+    return torch.tensor(float(scale), dtype=torch.float32, device=device)
+
+
+def cim_matmul_int8_plain(xq: torch.Tensor, wq: torch.Tensor, seed: Seed,
+                          sigma: float, scale=None) -> torch.Tensor:
+    """Plain PyTorch version of the int8 kernel: twin of
+    ``ref.cim_matmul_prng_ref`` (exact integer tiles, the same noise)."""
+    y = _tile_sums(xq, wq, resolve_seed(seed), sigma)
+    return y if scale is None else y * _scale_tensor(scale, xq.device)
+
+
+def cim_matmul_int8(xq: torch.Tensor, wq: torch.Tensor, seed: Seed,
+                    sigma: float, scale=None) -> torch.Tensor:
+    """(M, K) int8 ``xq`` @ (K, N) int8 ``wq`` through the macro model ->
+    (M, N) float32 ``scale * sum_t (tile dot + sigma * noise_t)``."""
+    if xq.device.type == "cpu":
+        return cim_matmul_int8_plain(xq, wq, seed, sigma, scale)
+    if xq.device.type != "cuda":
+        raise ValueError(f"cim_matmul_int8: unsupported device {xq.device}")
+    m, k = xq.shape
+    k2, n = wq.shape
+    if k != k2:
+        raise ValueError(f"shape mismatch {tuple(xq.shape)} @ {tuple(wq.shape)}")
+    if xq.dtype != torch.int8 or wq.dtype != torch.int8:
+        raise ValueError(f"cim_matmul_int8 takes int8 operands, got "
+                         f"{xq.dtype} and {wq.dtype}")
+    if wq.device != xq.device:
+        raise ValueError("xq and wq must be on one device")
+    xq = xq.contiguous()
+    wq = wq.contiguous()
+    qp = torch.stack([torch.ones((), dtype=torch.float32, device=xq.device),
+                      _scale_tensor(scale, xq.device)])
+    words = resolve_seed(seed)
+    noise = words is not None and sigma > 0.0
+    s0, s1 = words if noise else (0, 0)
+    out = torch.empty((m, n), dtype=torch.float32, device=xq.device)
+    rc = _build.library().cim_matmul_int8(
+        xq.data_ptr(), wq.data_ptr(), qp.data_ptr(), out.data_ptr(), m, k, n,
+        float(sigma) if noise else 0.0, s0, s1, int(noise),
+        _build.stream_ptr(xq.device))
+    _build.check(rc, "cim_matmul_int8")
+    cim_matmul_int8.launches += 1
+    return out
+
+
+cim_matmul_int8.launches = 0

@@ -1,9 +1,18 @@
-"""GQA-native causal flash prefill: CUDA kernel and plain PyTorch version.
+"""Flash attention: CUDA kernels and plain PyTorch versions.
 
-Replaces the GQA part of ``src/repro/kernels/flash_attention.py``:
-``flash_gqa_attention`` (TPU kernel ``_gqa_kernel``); the kernel is
-``csrc/flash_gqa.cu``, whose note gives its bound on the H100 and its
-design.
+Replaces both kernels of ``src/repro/kernels/flash_attention.py``:
+``flash_gqa_attention`` (TPU kernel ``_gqa_kernel``) by the kernel of
+``csrc/flash_gqa.cu``, and the MHA-shaped ``flash_attention`` (TPU kernel
+``_kernel``) by the kernel of ``csrc/flash_mha.cu``; each source's note
+gives its bound on the H100 and its design.
+
+``flash_attention`` takes (BH, S, D) queries against (BH, T, D) keys and
+values (training and cross-attention shapes, heads folded into rows),
+causal or not, with optional per-row start offsets (causal only), head dims
+64 and 128, float32 or bfloat16. CPU tensors take ``flash_attention_plain``,
+which follows the kernel's arithmetic (online softmax over the same blocks
+of ``MHA_BLOCK_K`` keys, p rounded to v's dtype before p @ V); CUDA tensors
+launch the kernel or raise.
 
 Queries (B, S, H, D) of the S freshly written tokens against the
 (B, T, KV, D) slot cache; query i of row b sits at ``start[b] + i`` and
@@ -12,8 +21,8 @@ in-kernel, the cache streams as stored (int8 dequantized in-kernel), key
 blocks past each query block's causal frontier are never read, and
 ``return_block_counts`` adds the (B, KV, n_q) count of key blocks visited
 (the kernel's blocks: ``BLOCK_Q`` query positions, ``BLOCK_K`` keys).
-CPU tensors take ``flash_gqa_plain`` (twin of ``ref.flash_gqa_ref``); CUDA
-tensors launch the kernel or raise.
+For ``flash_gqa_attention`` CPU tensors take ``flash_gqa_plain`` (twin of
+``ref.flash_gqa_ref``); CUDA tensors launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -29,6 +38,11 @@ from repro_torch.kernels._attn import check_cache_operands
 ROWS_MAX = 56      # query rows (positions x grouped heads) one block holds
 BLOCK_Q = 8        # query positions per block (fewer when G > 7)
 BLOCK_K = 32       # keys per step
+
+MHA_BLOCK_K = 32                    # keys per step of the MHA kernel
+MHA_BLOCK_Q = {64: 32, 128: 16}     # query rows per block, by head dim
+MHA_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+NEG_INF = -1e30
 
 
 def flash_gqa_plain(q, k, v, start=None, ks=None, vs=None) -> torch.Tensor:
@@ -96,3 +110,106 @@ def flash_gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_gqa_attention.launches = 0
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True,
+                          start: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of the MHA kernel, in its arithmetic: f32 scores
+    times 1/sqrt(D), masked to -1e30, online softmax over blocks of
+    ``MHA_BLOCK_K`` keys in order, p rounded to v's dtype before p @ V, f32
+    sums, denominator max(l, 1e-30), output in q's dtype. Blocks past a
+    causal frontier are fully masked here, where the kernel skips them: they
+    add p = 0 and alpha = 1 exactly (block 0 holds key 0, live in every row,
+    so the running max is finite from the first block on)."""
+    if start is not None and not causal:
+        raise ValueError("per-row start offsets require causal attention")
+    bh, s, d = q.shape
+    t = k.shape[1]
+    st = (torch.zeros((bh,), dtype=torch.int64, device=q.device)
+          if start is None else start.to(device=q.device, dtype=torch.int64))
+    pos = st[:, None] + torch.arange(s, device=q.device)[None, :]
+    # exclusive key bound per row: the written prefix when causal, else T
+    kv_end = torch.clamp(st + s, max=t) if causal else torch.full_like(st, t)
+    scale = 1.0 / math.sqrt(d)
+    qf = q.to(torch.float32)
+    m = torch.full((bh, s), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((bh, s), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((bh, s, d), dtype=torch.float32, device=q.device)
+    for j0 in range(0, t, MHA_BLOCK_K):
+        kb = k[:, j0:j0 + MHA_BLOCK_K].to(torch.float32)
+        vb = v[:, j0:j0 + MHA_BLOCK_K].to(torch.float32)
+        sc = torch.einsum("bsd,btd->bst", qf, kb) * scale
+        kj = torch.arange(j0, j0 + kb.shape[1], device=q.device)
+        live = kj[None, None, :] < kv_end[:, None, None]
+        if causal:
+            live = live & (kj[None, None, :] <= pos[:, :, None])
+        sc = torch.where(live, sc, torch.full_like(sc, NEG_INF))
+        m_new = torch.maximum(m, sc.amax(-1))
+        p = torch.exp(sc - m_new[:, :, None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        pv = torch.einsum("bst,btd->bsd", p.to(v.dtype).to(torch.float32), vb)
+        acc = acc * alpha[:, :, None] + pv
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)[:, :, None]).to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, start: Optional[torch.Tensor] = None,
+                    return_block_counts: bool = False):
+    """(BH, S, D) queries, (BH, T, D) keys and values -> (BH, S, D) in q's
+    dtype [, (BH, n_q) int32 counts of the key blocks each query block of
+    ``MHA_BLOCK_Q[D]`` rows visited, in blocks of ``MHA_BLOCK_K`` keys]."""
+    if start is not None and not causal:
+        raise ValueError("per-row start offsets require causal attention")
+    if q.device.type == "cpu":
+        if return_block_counts:
+            raise ValueError("block counts come from the kernel's own blocks; "
+                             "the plain version has none")
+        return flash_attention_plain(q, k, v, causal, start)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: q (BH, S, D), k and v (BH, T, D), "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    bh, s, d = q.shape
+    t = k.shape[1]
+    if k.shape[0] != bh or k.shape[2] != d:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} differ in BH or D")
+    if d not in MHA_BLOCK_Q:
+        raise ValueError(f"flash_attention: kernel takes head_dim in "
+                         f"{sorted(MHA_BLOCK_Q)}, got {d}")
+    if q.dtype not in MHA_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention: q, k, v must share one dtype of "
+                         f"float32 or bfloat16, got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("flash_attention: operands on different devices")
+    if s == 0 or t == 0:
+        raise ValueError(f"flash_attention: empty S={s} or T={t}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    bounded = start is not None
+    st = (start.to(device=q.device, dtype=torch.int32).reshape(-1).contiguous()
+          if bounded else None)
+    if bounded and st.numel() != bh:
+        raise ValueError(f"flash_attention: start has {st.numel()} rows, "
+                         f"q has {bh}")
+    out = torch.empty_like(q)
+    n_q = -(-s // MHA_BLOCK_Q[d])
+    counts = (torch.empty((bh, n_q), dtype=torch.int32, device=q.device)
+              if return_block_counts else None)
+    rc = _build.library().flash_mha(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if st is None else st.data_ptr(), out.data_ptr(),
+        None if counts is None else counts.data_ptr(), bh, s, t, d,
+        int(causal), int(bounded), MHA_DTYPES[q.dtype], 1.0 / math.sqrt(d),
+        _build.stream_ptr(q.device))
+    _build.check(rc, "flash_attention")
+    flash_attention.launches += 1
+    return (out, counts) if return_block_counts else out
+
+
+flash_attention.launches = 0

@@ -20,7 +20,13 @@ state row (one (slot, head, p) over N) and every y row (one (slot, head)
 over P) within 1e-5 of its max |value|. The MLA latent-cache decode kernel
 against its plain version: every output row (one (slot, head) over the
 latent width) within 1e-5 of its max |value| in f32 and 2^-7 in bf16 (one
-bf16 rounding of an output); lens == 0 rows exactly zero.
+bf16 rounding of an output); lens == 0 rows exactly zero. The int8 CIM
+kernel against its plain version: exact without noise, within rtol 5e-6
+and atol 2e-3 * scale with noise (the JAX package's slack); the
+straight-through ops.cim_matmul's gradients equal the f32 dequantized
+products within rtol 1e-6. The MHA flash kernel against its plain version
+(same blocks, same roundings): f32 within 2e-5 + 2e-5 |ref|, bf16 every
+output row within 2^-7 of its max |value| (one output rounding).
 """
 
 import dataclasses
@@ -32,11 +38,17 @@ import torch
 from repro_torch.configs.registry import get_config
 from repro_torch.core import cim, quant, sac
 from repro_torch.core.deploy import init_params
+from repro_torch.kernels import ops
 from repro_torch.kernels.cim_matmul import (cim_matmul_fused,
-                                            cim_matmul_fused_plain)
+                                            cim_matmul_fused_plain,
+                                            cim_matmul_int8,
+                                            cim_matmul_int8_plain)
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain)
-from repro_torch.kernels.flash_attention import (flash_gqa_attention,
+from repro_torch.kernels.flash_attention import (MHA_BLOCK_K, MHA_BLOCK_Q,
+                                                 flash_attention,
+                                                 flash_attention_plain,
+                                                 flash_gqa_attention,
                                                  flash_gqa_plain)
 from repro_torch.core import prng
 from repro_torch.core.deploy import deploy
@@ -373,3 +385,106 @@ def test_reduced_deepseek_tokens_card_equal_cpu(cuda, mode):
         for dev in (cuda, "cpu")]
     assert mla_decode_attention.launches > 0
     assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 512, 8), (100, 2048, 130),
+                                   (1, 1024, 1), (33, 1085, 77),
+                                   (64, 896, 128), (256, 4864, 896)])
+def test_cim_int8_kernel_matches_plain(cuda, m, k, n):
+    g = torch.Generator(device=cuda).manual_seed(k + n)
+    xq = torch.randint(-127, 128, (m, k), generator=g, device=cuda,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (k, n), generator=g, device=cuda,
+                       dtype=torch.int8)
+    scale = torch.tensor(0.0125, device=cuda)
+    cim_matmul_int8.launches = 0
+    assert torch.equal(cim_matmul_int8(xq, wq, None, 0.0, scale),
+                       cim_matmul_int8_plain(xq, wq, None, 0.0, scale))
+    for seed in (-7, (0x89ABCDEF, 0x01234567)):
+        yk = cim_matmul_int8(xq, wq, seed, 2.5, scale)
+        yp = cim_matmul_int8_plain(xq, wq, seed, 2.5, scale)
+        torch.testing.assert_close(yk, yp, rtol=5e-6, atol=2e-3 * 0.0125)
+    assert cim_matmul_int8.launches == 3
+
+
+def test_cim_matmul_ste_on_card(cuda):
+    spec = sac.paper_sac().mlp
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((2, 96, 1100), generator=g, device=cuda)
+    w = torch.randn((1100, 72), generator=g, device=cuda)
+    key = prng.PRNGKey(11)
+    xc = x.clone().requires_grad_(True)
+    wc = w.clone().requires_grad_(True)
+    cim_matmul_int8.launches = 0
+    y = ops.cim_matmul(xc, wc, spec, key)
+    assert cim_matmul_int8.launches == 1
+    y_cpu = ops.cim_matmul(x.cpu(), w.cpu(), spec, key)
+    scale = (quant.abs_max_scale(x, spec.in_bits)
+             * quant.abs_max_scale(w, spec.w_bits)).item()
+    torch.testing.assert_close(y.cpu(), y_cpu, rtol=5e-6, atol=2e-3 * scale)
+    gy = torch.randn(y.shape, generator=g, device=cuda)
+    y.backward(gy)
+    assert cim_matmul_int8.launches == 1            # none in backward
+    xs = quant.abs_max_scale(x, spec.in_bits)
+    ws = quant.abs_max_scale(w, spec.w_bits)
+    fq_x = quant.dequantize(quant.quantize(x, xs, spec.in_bits), xs)
+    fq_w = quant.dequantize(quant.quantize(w, ws, spec.w_bits), ws)
+    g2 = gy.reshape(-1, 72)
+    torch.testing.assert_close(xc.grad, (g2 @ fq_w.T).reshape(x.shape),
+                               rtol=1e-6, atol=0)
+    torch.testing.assert_close(wc.grad, fq_x.reshape(-1, 1100).T @ g2,
+                               rtol=1e-6, atol=0)
+
+
+def mha_counts(bh, s, t, d, causal, start):
+    """Closed form of the MHA kernel's block counts: causal query block i
+    visits the key blocks up to its frontier, non-causal every block."""
+    bq, bk = MHA_BLOCK_Q[d], MHA_BLOCK_K
+    n_q = -(-s // bq)
+    st = [0] * bh if start is None else start.tolist()
+    if not causal:
+        return [[-(-t // bk)] * n_q for _ in range(bh)]
+    return [[-(-min(st[b] + min((i + 1) * bq, s), t) // bk)
+             for i in range(n_q)] for b in range(bh)]
+
+
+def mha_rows_off(out, ref, dtype):
+    """Rows (one query over D) out of tolerance: f32 2e-5 + 2e-5 |ref|,
+    bf16 2^-7 of the row's max |ref|."""
+    out, ref = out.float(), ref.float()
+    if dtype == torch.float32:
+        tol = 2e-5 + 2e-5 * ref.abs()
+    else:
+        tol = 2 ** -7 * ref.abs().amax(-1, keepdim=True)
+    return ((out - ref).abs() > tol).any(-1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,s,t,d,causal,start", [
+    (4, 128, 128, 64, True, None), (2, 200, 200, 64, True, None),
+    (3, 128, 384, 128, False, None), (1, 130, 257, 64, True, None),
+    (3, 10, 64, 64, True, [0, 7, 20]), (3, 12, 40, 128, True, [33, 5, 0]),
+    (5, 65, 65, 64, False, None)])
+def test_flash_mha_kernel_matches_plain(cuda, dtype, bh, s, t, d, causal,
+                                        start):
+    g = torch.Generator(device=cuda).manual_seed(s + t + d)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+               for shape in ((bh, s, d), (bh, t, d), (bh, t, d)))
+    st = (None if start is None
+          else torch.tensor(start, dtype=torch.int32, device=cuda))
+    flash_attention.launches = 0
+    out, counts = flash_attention(q, k, v, causal, st,
+                                  return_block_counts=True)
+    assert flash_attention.launches == 1 and out.dtype == dtype
+    ref = flash_attention_plain(q, k, v, causal, st)
+    assert not mha_rows_off(out, ref, dtype).any()
+    assert counts.tolist() == mha_counts(bh, s, t, d, causal, st)
+
+
+def test_flash_mha_head_dims(cuda):
+    q = torch.zeros((2, 8, 96), device=cuda)
+    with pytest.raises(ValueError, match="64, 128"):
+        flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="causal"):
+        flash_attention(q, q, q, causal=False,
+                        start=torch.zeros(2, dtype=torch.int32, device=cuda))
