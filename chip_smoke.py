@@ -31,8 +31,17 @@ plain version at the seven projections (M = 1024) and at ragged shapes
 straight-through ops.cim_matmul forward and backward with exact launch
 counts, MHA flash attention against its plain version at five shapes in
 bf16 and f32 with its block counts (and a variant with 32 live keys
-dropped that must fail), and both kernels' times. Every phase prints one
-JSON line; any failure exits non-zero. The last line is the device record.
+dropped that must fail), and both kernels' times. The two GQA kernels
+(decode and flash prefill, split over the key axis) are also held against
+their plain versions at head dim 128 (G 2, 4, 8) in every dtype
+combination, at decode lengths on the split edges and flash starts past
+the cache's end, and timed beside scaled_dot_product_attention and their
+earlier times. The behavioural sim path (cim.use_kernel=False, what the
+serving CLI's --cim sim runs): reduced-model tokens card vs CPU, and
+full-width qwen2-0.5b served with no CIM kernel launch. And
+Engine(fuse_layer=True) on a bf16 model serves unfused. Every phase prints
+one JSON line; any failure exits non-zero. The last line is the device
+record.
 """
 
 from __future__ import annotations
@@ -240,7 +249,6 @@ def phase_kernels(cfg):
                                                       decode_attention_plain)
     from repro_torch.kernels.flash_attention import (flash_gqa_attention,
                                                      flash_gqa_plain)
-    from repro_torch.models.attention import _kv_quant
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
@@ -272,13 +280,8 @@ def phase_kernels(cfg):
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     t = 320
     for int8 in (False, True):
-        kf = torch.randn((4, t, kv, hd), generator=g, device=dev)
-        vf = torch.randn((4, t, kv, hd), generator=g, device=dev)
-        if int8:
-            kc, ks = _kv_quant(kf)
-            vc, vs = _kv_quant(vf)
-        else:
-            kc, vc, ks, vs = kf.bfloat16(), vf.bfloat16(), None, None
+        kc, vc, ks, vs = attn_cache(g, 4, t, kv, hd, "int8" if int8
+                                    else "bf16")
         q = torch.randn((4, h, hd), generator=g, device=dev).bfloat16()
         lens = torch.tensor([0, 1, 77, t], dtype=torch.int32, device=dev)
         ok = decode_attention(q, kc, vc, lens, ks, vs).float()
@@ -307,9 +310,7 @@ def phase_kernels(cfg):
             fk, counts = flash_gqa_attention(qf, kvs[0], kvs[1], st, *kvs[2:],
                                              return_block_counts=True)
             fk = fk.float()
-            # causal pruning witness: q block i visits the key blocks up to
-            # its frontier start + 8 (i + 1) - 1, in blocks of 32 keys
-            want = [[-(-(start + 8 * (i + 1)) // 32) for i in range(4)]] * kv
+            want = flash_counts(qf, kvs[0], kv, start)
             if counts[0].tolist() != want:
                 fail(f"flash_gqa start={start}: block counts "
                      f"{counts[0].tolist()} != {want}")
@@ -334,7 +335,108 @@ def phase_kernels(cfg):
              starts=[0, 32, 96, 256], max_abs_err=worst[("flash", int8)],
              max_err_over_row_max=rel, tol="2^-6*max|ref row|",
              block_counts="exact", tail_block_dropped_rows_failing=reach)
+    attn_shape_checks(g)
     return worst
+
+
+ATTN_COMBOS = (("f32", "f32"), ("f32", "int8"), ("bf16", "bf16"),
+               ("bf16", "int8"))
+
+
+def attn_cache(g, b, t, kv, d, kvdt):
+    """A random (B, T, KV, D) K/V cache in ``kvdt`` (f32, bf16 or int8
+    with its per-key scales, quantized as the model quantizes it)."""
+    import torch
+    from repro_torch.models.attention import _kv_quant
+    kf = torch.randn((b, t, kv, d), generator=g, device="cuda")
+    vf = torch.randn((b, t, kv, d), generator=g, device="cuda")
+    if kvdt == "int8":
+        (kc, ks), (vc, vs) = _kv_quant(kf), _kv_quant(vf)
+        return kc, vc, ks, vs
+    dt = torch.float32 if kvdt == "f32" else torch.bfloat16
+    return kf.to(dt), vf.to(dt), None, None
+
+
+def flash_counts(q, k, kv, start):
+    """Closed form of flash_gqa's block counts, from the wrapper's launch
+    plan (its blocks: ``block_q`` query positions, ``block_k`` keys): q
+    block i visits the key blocks up to its causal frontier start +
+    min((i + 1) block_q, S), clipped to the written prefix min(T, start +
+    S); the same for every KV head."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_gqa_plan
+    b, s, h, d = q.shape
+    t = k.shape[1]
+    plan = flash_gqa_plan(b, s, t, h, kv, d, q.dtype == torch.bfloat16)
+    bq, bk = plan["block_q"], plan["block_k"]
+    end = min(t, start + s)
+    return [[-(-min(start + min((i + 1) * bq, s), end) // bk)
+             for i in range(plan["n_q"])]] * kv
+
+
+def attn_shape_checks(g):
+    """The two GQA kernels beyond the main path's bf16 shapes, in every
+    dtype combination they take (q f32 or bf16; cache f32, bf16 or int8):
+    head dim 128 at G 2, 4 and 8 (internlm2-1.8b, pixtral-12b,
+    deepseek-67b), qwen2's head dim 64 at G 7; decode lengths at the split
+    edges (1, the split width - 1, + 1, T) on caches whose T is a multiple
+    of no block, and a multi-tile split (T 2000); flash starts whose
+    frontier lands past T. Tolerance 2^-6 of each query head's row max;
+    lens == 0 rows exactly zero; flash block counts equal the closed form."""
+    import torch
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain,
+                                                      decode_plan)
+    from repro_torch.kernels.flash_attention import (flash_gqa_attention,
+                                                     flash_gqa_plain)
+    dev = torch.device("cuda")
+    for d, g_, t in ((64, 7, 2000), (64, 7, 333), (128, 2, 300),
+                     (128, 4, 257), (128, 8, 333)):
+        kv = 2
+        h = g_ * kv
+        for qdt, kvdt in ATTN_COMBOS:
+            qd = torch.float32 if qdt == "f32" else torch.bfloat16
+            kc, vc, ks, vs = attn_cache(g, 4, t, kv, d, kvdt)
+            q = torch.randn((4, h, d), generator=g, device=dev).to(qd)
+            sp = decode_plan(4, t, kv, d)["split"]
+            worst_d = 0.0
+            for lens in ([0, 1, sp - 1, t], [sp + 1, 2 * sp, t - 1, 3],
+                         [t, 137, 95, 211 % t]):
+                ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+                ok = decode_attention(q, kc, vc, ln, ks, vs).float()
+                op = decode_attention_plain(q, kc, vc, ln, ks, vs).float()
+                err, rel, bad = row_check(ok, op)
+                zero = all(ok[i].abs().max().item() == 0.0
+                           for i, n in enumerate(lens) if n == 0)
+                if bad or not zero:
+                    fail(f"decode_attention D={d} G={g_} T={t} {qdt}/{kvdt} "
+                         f"lens={lens}: {bad:.3f} of the rows out of "
+                         f"tolerance (max err/row {rel}) or lens==0 row "
+                         f"nonzero")
+                worst_d = max(worst_d, rel)
+            qf = torch.randn((1, 32, h, d), generator=g, device=dev).to(qd)
+            one = [None if x is None else x[:1] for x in (kc, vc, ks, vs)]
+            worst_f = 0.0
+            for start in (0, 96, t - 32, t - 5):
+                st = torch.tensor([start], dtype=torch.int32, device=dev)
+                fk, counts = flash_gqa_attention(qf, one[0], one[1], st,
+                                                 one[2], one[3],
+                                                 return_block_counts=True)
+                fp = flash_gqa_plain(qf, one[0], one[1], st, one[2],
+                                     one[3]).float()
+                err, rel, bad = row_check(fk.float(), fp)
+                want = flash_counts(qf, one[0], kv, start)
+                if bad or counts[0].tolist() != want:
+                    fail(f"flash_gqa D={d} G={g_} T={t} {qdt}/{kvdt} "
+                         f"start={start}: {bad:.3f} of the rows out of "
+                         f"tolerance (max err/row {rel}) or counts "
+                         f"{counts[0].tolist()} != {want}")
+                worst_f = max(worst_f, rel)
+            emit("kernel_check", kernel="decode_attention+flash_gqa",
+                 head_dim=d, group=g_, T=t, q=qdt, cache=kvdt, split=sp,
+                 decode_max_err_over_row_max=worst_d,
+                 flash_max_err_over_row_max=worst_f, tol="2^-6*max|ref row|",
+                 block_counts="closed form")
 
 
 # ------------------------------------------------------------ phase 3
@@ -438,10 +540,11 @@ def phase_serve(params, int8: bool):
     return counts, n_decode, n_chunks
 
 
-def phase_profile(params, cfg=None, fuse_layer=False):
+def phase_profile(params, cfg=None, fuse_layer=False, path=None):
     """Where a pure decode step's time goes at full width: the device's
     busy share (union of kernel intervals over the host wall clock) and
-    device time by kernel, from torch.profiler over three steps."""
+    device time by kernel, from torch.profiler over three steps. ``path``
+    names the sim path in the emitted line."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.engine import Engine, Request
@@ -477,7 +580,7 @@ def phase_profile(params, cfg=None, fuse_layer=False):
     busy = busy_ms(prof.events(), 3) if n_kernels else None
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     emit("profile_decode_step", arch=cfg.name, n_layers=cfg.n_layers,
-         slots=4, dtype=cfg.dtype,
+         slots=4, dtype=cfg.dtype, **({} if path is None else {"path": path}),
          cache="int8" if cfg.kv_cache_int8 else cfg.dtype,
          fuse_layer=fuse_layer,
          step_ms=1e3 * plain_wall, profiled_step_ms=1e3 * wall,
@@ -490,12 +593,137 @@ def phase_profile(params, cfg=None, fuse_layer=False):
             "launches": n_kernels // 3}
 
 
+# ------------------------------------------------------- behavioural sim
+def phase_behavioural_sim(params):
+    """Sim mode on the behavioural path (``cim.use_kernel=False``, the
+    configs' default and what ``launch.serve --cim sim`` runs): every CIM
+    linear is ``core.cim.cim_dense`` (exact integer dot on the card, one
+    whole-K ``prng.normal`` draw in eager int64 Threefry ops), no CIM
+    kernel. First the reduced qwen2's greedy tokens on the card equal the
+    CPU's over 8 tokens; then full-width qwen2-0.5b serves cell A's six
+    requests, with cim_matmul_fused launched 0 times and the attention
+    kernels at their counts, and a profiled decode step."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.deploy import init_params
+    from repro_torch.kernels.cim_matmul import cim_matmul_fused
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_gqa_attention
+    from repro_torch.serving.engine import Engine, Request
+
+    base = get_config("qwen2-0.5b").reduced()
+    cfg = dataclasses.replace(base, cim=dataclasses.replace(
+        base.cim, mode="sim", use_kernel=False))
+    rparams = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (40, 90, 57)]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        eng = Engine(cfg, rparams, max_slots=2, max_len=128,
+                     attn_impl="kernel", device=dev)
+        outs[dev] = eng.generate([Request(prompt=p, max_new_tokens=8,
+                                          rid=f"p{i}")
+                                  for i, p in enumerate(prompts)])
+    if outs["cuda"] != outs["cpu"]:
+        fail(f"behavioural sim: reduced-model tokens differ: cuda "
+             f"{outs['cuda']} vs cpu {outs['cpu']}")
+    emit("behavioural_sim_parity", requests=len(prompts), new_tokens=8,
+         equal=True, tokens=outs["cuda"])
+
+    full = dataclasses.replace(full_config(False), cim=dataclasses.replace(
+        full_config(False).cim, use_kernel=False))
+    eng = Engine(full, params, max_slots=4, max_len=320, attn_impl="kernel",
+                 record_ttft=True, record_steps=True, device="cuda")
+    rng = np.random.default_rng(5)
+    lens = (60, 300, 137, 95, 211, 64)
+    reqs = [Request(prompt=rng.integers(0, full.vocab_size, n),
+                    max_new_tokens=16, rid=f"r{i}")
+            for i, n in enumerate(lens)]
+    kernels = (cim_matmul_fused, decode_attention, flash_gqa_attention)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k.__name__: k.launches for k in kernels}
+    bad = [o for o in outs if not isinstance(o, list) or len(o) != 16
+           or not all(0 <= t < full.vocab_size for t in o)]
+    n_chunks = sum(e["chunks"] for e in eng.step_log)
+    n_decode = sum(e["decode"] for e in eng.step_log)
+    L = full.n_layers
+    if (bad or counts["cim_matmul_fused"] != 0
+            or counts["decode_attention"] < L * n_decode
+            or counts["flash_gqa_attention"] < L * n_chunks):
+        fail(f"behavioural sim full width: bad requests {bad} or launches "
+             f"{counts}")
+    dec = [e["s"] for e in eng.step_log if e["decode"] and not e["chunks"]]
+    toks = sum(len(o) for o in outs)
+    prof = phase_profile(params, full, path="behavioural")
+    emit("serve_behavioural_full_width", arch=full.name, path="behavioural",
+         requests=len(reqs), prompt_lens=list(lens), new_tokens=16, slots=4,
+         tokens=toks, wall_s=wall, session_tok_per_s=toks / wall,
+         chunks=n_chunks, decode_steps=n_decode,
+         pure_decode_step_ms_mean=1e3 * float(np.mean(dec)),
+         ttft_ms_mean=1e3 * float(np.mean(eng.ttft_s)),
+         launches=counts, device_busy_ms_per_step=prof["device_busy_ms"],
+         device_busy_share_of_step=None if prof["device_busy_ms"] is None
+         else prof["device_busy_ms"] / prof["step_ms"])
+
+
+def phase_fuse_fallback():
+    """``Engine(fuse_layer=True)`` on a config the fused route never takes
+    (the bf16 reduced qwen2) serves unfused, as the reference does: on the
+    card, greedy tokens equal fuse_layer=False and the fused layer kernel
+    launches 0 times."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.deploy import init_params
+    from repro_torch.kernels.fused_step import fused_dense_layer
+    from repro_torch.serving.engine import Engine, Request
+
+    base = get_config("qwen2-0.5b").reduced()
+    cfg = dataclasses.replace(base, dtype="bfloat16", cim=dataclasses.replace(
+        base.cim, mode="sim", use_kernel=True))
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (33, 70)]
+    outs = {}
+    fused_dense_layer.launches = 0
+    for fuse in (True, False):
+        eng = Engine(cfg, params, max_slots=2, max_len=128,
+                     attn_impl="kernel", fuse_layer=fuse, device="cuda")
+        outs[fuse] = eng.generate([Request(prompt=p, max_new_tokens=8)
+                                   for p in prompts])
+    if outs[True] != outs[False] or fused_dense_layer.launches:
+        fail(f"fuse_layer fallback: tokens {outs[True]} vs {outs[False]}, "
+             f"{fused_dense_layer.launches} fused launches")
+    emit("fuse_layer_fallback", dtype=cfg.dtype, equal=True,
+         fused_launches=0, tokens=outs[True])
+
+
 # ------------------------------------------------------------ phase 5
+# The GQA kernels' device ms per step / chunk of the kernel bodies the
+# split-key kernels replaced, from an earlier chip_smoke.py run (H100 80GB
+# HBM3 at 700 W): printed beside the new times for comparison, not measured
+# here.
+PREVIOUS_BODY_MS = {"decode_attention": 1.212,
+                    "decode_attention[int8]": 1.251, "flash_gqa": 1.875,
+                    "flash_gqa[int8]": 1.882}
+
+
 def phase_times(params, cfg):
     """Kernel, plain and library device times (torch.profiler) at the main
     path's shapes, per decode step or per prefill chunk of all 24 layers;
     ``wall_ms`` is the kernel's event-timed rate, which the host's launch
-    overhead bounds for these small grids."""
+    overhead bounds for these small grids, and ``queued_ms`` (the GQA
+    kernels and their library call) the same launches timed with CUDA
+    events while queued behind a spinning kernel, so without the host's
+    gaps, beside ``launch_floor_queued_ms``, the same for 24 launches of a
+    one-element add, and the same launches where no split merges (decode
+    lens 16, flash start 0). ``previous_body_ms``: the replaced bodies'
+    times from an earlier run (PREVIOUS_BODY_MS)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core import prng
@@ -558,6 +786,17 @@ def phase_times(params, cfg):
     emit("time", kernel="cim_matmul_fused", **res["cim_matmul_fused"],
          bytes=bytes1, ops=ops1)
 
+    # the launch floor: 24 launches (a step's or a chunk's worth) of a
+    # one-element in-place add, queued as the kernels' queued_ms are
+    one_elem = torch.zeros(1, device=dev)
+
+    def run_floor():
+        for _ in range(L):
+            one_elem.add_(1)
+
+    floor_ms = queued_ms(run_floor, 10)
+    emit("time", kernel="launch_floor", queued_ms=floor_ms,
+         unit=f"{L} launches of a one-element in-place add")
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     t = 320
     lens = torch.tensor([300, 137, 95, 211], dtype=torch.int32, device=dev)
@@ -582,18 +821,33 @@ def phase_times(params, cfg):
                 decode_attention(q, *c[:2], lens, *c[2:])
 
         d_k, d_w = device_ms(run_d, 10), wall_ms(run_d, 10)
+        d_q = queued_ms(run_d, 10)
+        # the same launches when every row fits one split: no merge
+        short = torch.full_like(lens, 16)
+        d_q1 = queued_ms(lambda: [decode_attention(q, *c[:2], short, *c[2:])
+                                  for c in caches], 10)
         d_p = device_ms(lambda: [decode_attention_plain(q, *c[:2], lens,
                                                         *c[2:])
                                  for c in caches], 3)
-        d_lib = None
+        d_lib = d_lib_q = None
         if not int8:
             mask = (torch.arange(t, device=dev)[None, :] < lens[:, None]
                     )[:, None, None, :]
-            d_lib = device_ms(lambda: [F.scaled_dot_product_attention(
-                q[:, :, None], c[0].transpose(1, 2), c[1].transpose(1, 2),
-                attn_mask=mask, enable_gqa=True) for c in caches], 10)
+
+            def run_dl():
+                for c in caches:
+                    F.scaled_dot_product_attention(
+                        q[:, :, None], c[0].transpose(1, 2),
+                        c[1].transpose(1, 2), attn_mask=mask,
+                        enable_gqa=True)
+
+            d_lib, d_lib_q = device_ms(run_dl, 10), queued_ms(run_dl, 10)
         name = "decode_attention" + ("[int8]" if int8 else "")
-        res[name] = dict(ms=d_k, wall_ms=d_w, plain_ms=d_p, library_ms=d_lib,
+        res[name] = dict(ms=d_k, wall_ms=d_w, queued_ms=d_q,
+                         queued_ms_lens16_no_merge=d_q1,
+                         launch_floor_queued_ms=floor_ms,
+                         previous_body_ms=PREVIOUS_BODY_MS[name], plain_ms=d_p,
+                         library_ms=d_lib, library_queued_ms=d_lib_q,
                          bound_ms=1e3 * max(bytes2 / HBM_BPS, ops2 / BF16_OPS),
                          bound_by="bytes" if bytes2 / HBM_BPS >= ops2 / BF16_OPS
                          else "operations",
@@ -620,19 +874,34 @@ def phase_times(params, cfg):
                 flash_gqa_attention(qf, c[0], c[1], st, c[2], c[3])
 
         f_k, f_w = device_ms(run_f, 10), wall_ms(run_f, 10)
+        f_q = queued_ms(run_f, 10)
+        # the same launches at start 0: one key block per q block, no merge
+        st0 = torch.zeros_like(st)
+        f_q0 = queued_ms(lambda: [flash_gqa_attention(qf, c[0], c[1], st0,
+                                                      c[2], c[3])
+                                  for c in one], 10)
         f_p = device_ms(lambda: [flash_gqa_plain(qf, c[0], c[1], st, c[2],
                                                  c[3]) for c in one], 3)
-        f_lib = None
+        f_lib = f_lib_q = None
         if not int8:
             qi = torch.arange(s, device=dev)[:, None] + start
             kj = torch.arange(t, device=dev)[None, :]
             fmask = ((kj <= qi) & (kj < start + s))[None, None]
-            f_lib = device_ms(lambda: [F.scaled_dot_product_attention(
-                qf.transpose(1, 2), c[0].transpose(1, 2),
-                c[1].transpose(1, 2), attn_mask=fmask, enable_gqa=True)
-                for c in one], 10)
+
+            def run_fl():
+                for c in one:
+                    F.scaled_dot_product_attention(
+                        qf.transpose(1, 2), c[0].transpose(1, 2),
+                        c[1].transpose(1, 2), attn_mask=fmask,
+                        enable_gqa=True)
+
+            f_lib, f_lib_q = device_ms(run_fl, 10), queued_ms(run_fl, 10)
         name = "flash_gqa" + ("[int8]" if int8 else "")
-        res[name] = dict(ms=f_k, wall_ms=f_w, plain_ms=f_p, library_ms=f_lib,
+        res[name] = dict(ms=f_k, wall_ms=f_w, queued_ms=f_q,
+                         queued_ms_start0_no_merge=f_q0,
+                         launch_floor_queued_ms=floor_ms,
+                         previous_body_ms=PREVIOUS_BODY_MS[name], plain_ms=f_p,
+                         library_ms=f_lib, library_queued_ms=f_lib_q,
                          bound_ms=1e3 * max(bytes3 / HBM_BPS, ops3 / BF16_OPS),
                          bound_by="bytes" if bytes3 / HBM_BPS >= ops3 / BF16_OPS
                          else "operations",
@@ -2142,6 +2411,8 @@ def main() -> int:
     runs = {int8: phase_serve(params, int8)[0] for int8 in (False, True)}
     phase_profile(params)
     times = phase_times(params, cfg)
+    phase_behavioural_sim(params)
+    phase_fuse_fallback()
     del params
     params32 = init_params(full_config32(False),
                            torch.Generator(device="cuda").manual_seed(0),

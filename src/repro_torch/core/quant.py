@@ -41,13 +41,19 @@ def dequantize(xi: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return xi.to(torch.float32) * scale
 
 
-def quantize_operands(x: torch.Tensor, w: torch.Tensor, in_bits: int,
-                      w_bits: int):
+def quantize_operands(x: torch.Tensor, w, in_bits: int, w_bits: int,
+                      x_scale=None, w_scale=None, wq=None):
     """Quantize both operands of a CIM matmul: ``(xq, xs, wq, ws)`` with
     ``xq``/``wq`` int32 in symmetric range and per-tensor abs-max scales.
-    Scales come from the operands as given (the caller's dtype); rounding
-    is done in f32 by division, half to even."""
-    xs = abs_max_scale(x, in_bits)
-    ws = abs_max_scale(w, w_bits)
-    return (quantize(x.to(torch.float32), xs, in_bits), xs,
-            quantize(w.to(torch.float32), ws, w_bits), ws)
+    Scales come from the operands as given (the caller's dtype) unless
+    passed in; rounding is done in f32 by division, half to even. A
+    pre-quantized plane ``wq`` (with its ``w_scale``, from ``core.deploy``)
+    skips the weight side, and ``w`` is not read."""
+    xs = x_scale if x_scale is not None else abs_max_scale(x, in_bits)
+    xq = quantize(x.to(torch.float32), xs, in_bits)
+    if wq is not None:
+        if w_scale is None:
+            raise ValueError("pre-quantized wq requires its w_scale")
+        return xq, xs, wq.to(torch.int32), w_scale
+    ws = w_scale if w_scale is not None else abs_max_scale(w, w_bits)
+    return xq, xs, quantize(w.to(torch.float32), ws, w_bits), ws

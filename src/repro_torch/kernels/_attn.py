@@ -1,12 +1,16 @@
-"""Argument checks shared by the two attention kernel wrappers."""
+"""Argument checks and launch-plan helpers shared by the two GQA attention
+kernel wrappers (decode and flash prefill)."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
-HEAD_DIM = 64
+HEAD_DIMS = (64, 128)      # head dims the kernels are built for
+# Blocks a launch aims for: two per SM of an H100 (132 SMs). A key axis is
+# split over blocks until the grid reaches it.
+SM_TARGET = 2 * 132
 Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -17,8 +21,9 @@ def check_cache_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Validate q / cache / scale operands for a CUDA launch; returns the
     (q, kv) dtype codes and contiguous operands."""
     d = q.shape[-1]
-    if d != HEAD_DIM or k.shape[-1] != HEAD_DIM:
-        raise ValueError(f"{name}: kernel takes head_dim {HEAD_DIM}, got {d}")
+    if d not in HEAD_DIMS or k.shape[-1] != d:
+        raise ValueError(f"{name}: kernel takes head_dim in {HEAD_DIMS}, "
+                         f"got q {d}, cache {k.shape[-1]}")
     if q.dtype not in Q_DTYPES or k.dtype not in KV_DTYPES or v.dtype != k.dtype:
         raise ValueError(f"{name}: unsupported dtypes q={q.dtype} k={k.dtype} "
                          f"v={v.dtype}")
@@ -32,7 +37,24 @@ def check_cache_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{name}: operands on different devices")
     if int8 and (ks.dtype != torch.float32 or vs.dtype != torch.float32):
         raise ValueError(f"{name}: int8 scales must be float32")
+    # the kernels copy rows in 16-byte pieces: a view whose data does not
+    # start on 16 bytes is copied to a fresh (aligned) tensor
     cont = [t.contiguous() for t in tensors]
+    cont = [t if t.data_ptr() % 16 == 0 else t.clone() for t in cont]
     if not int8:
         cont += [None, None]
     return Q_DTYPES[q.dtype], KV_DTYPES[k.dtype], cont
+
+
+_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+
+
+def arrival_counters(device: torch.device, n: int) -> torch.Tensor:
+    """(n,) int32 zeros on ``device`` for the kernels' last-block-merges
+    counters. The kernels leave them at zero, so one buffer per device
+    serves every launch on a stream (launches on one stream run in order)."""
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros((max(n, 1024),), dtype=torch.int32, device=device)
+        _COUNTERS[device] = buf
+    return buf

@@ -2,7 +2,9 @@
 
 Replaces ``src/repro/kernels/decode_attention.py`` ``decode_attention``
 (TPU kernel ``_kernel``); the kernel is ``csrc/decode_attention.cu``, whose
-note gives its bound on the H100 (the live cache bytes) and its design.
+note gives its bound on the H100 (the live cache bytes) and its design: the
+key axis split over blocks of ``split`` keys (``decode_plan``), the last
+block of each (row, KV head) merging the partials in the same launch.
 
 One query token per batch row against the (B, T, KV, D) slot cache.
 ``lens[b]`` counts the valid keys including the current token; keys at or
@@ -20,9 +22,28 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._attn import check_cache_operands
+from repro_torch.kernels._attn import (SM_TARGET, arrival_counters,
+                                       check_cache_operands)
 
 GROUP_MAX = 8      # query heads per KV head one block holds
+TILE_K = 16        # keys per shared-memory tile; a split is a multiple
+MAX_SPLITS = 64    # blocks per (row, KV head) at most (the merge's buffer)
+
+
+def decode_plan(b: int, t: int, kv: int, d: int) -> dict:
+    """Launch plan of the kernel for B rows, T cache slots, KV heads, head
+    dim D: ``split`` keys per block (the fewest whole tiles that keep the
+    grid near ``SM_TARGET`` blocks, at most ``MAX_SPLITS`` of them per
+    (row, KV head)), ``n_split`` blocks per (row, KV head),
+    the grid (n_split, KV, B) and the scratch shapes of the partials."""
+    n_tiles = -(-t // TILE_K)
+    want = min(-(-SM_TARGET // (b * kv)), MAX_SPLITS)   # per (row, head)
+    split = TILE_K * -(-n_tiles // want)
+    n_split = -(-t // split)
+    return {"split": split, "n_split": n_split, "grid": (n_split, kv, b),
+            "part_acc": (b * kv, n_split, GROUP_MAX, d),
+            "part_ml": (b * kv, n_split, GROUP_MAX, 2),
+            "counters": b * kv}
 
 
 def decode_attention_plain(q, k, v, lens, ks=None, vs=None) -> torch.Tensor:
@@ -62,12 +83,20 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qd, kd, (q, k, v, ks, vs) = check_cache_operands(q, k, v, ks, vs,
                                                      "decode_attention")
     lens = lens.to(device=q.device, dtype=torch.int32).contiguous()
+    plan = decode_plan(b, t, kvh, d)
     out = torch.empty_like(q)
+    part_acc = torch.empty(plan["part_acc"], dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty(plan["part_ml"], dtype=torch.float32,
+                          device=q.device)
+    counters = arrival_counters(q.device, plan["counters"])
     rc = _build.library().decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if ks is None else ks.data_ptr(),
         None if vs is None else vs.data_ptr(), lens.data_ptr(),
-        out.data_ptr(), b, t, h, kvh, qd, kd, 1.0 / math.sqrt(d),
+        out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+        counters.data_ptr(), b, t, h, kvh, d, plan["split"],
+        plan["n_split"], qd, kd, 1.0 / math.sqrt(d),
         _build.stream_ptr(q.device))
     _build.check(rc, "decode_attention")
     decode_attention.launches += 1

@@ -20,7 +20,10 @@ sees key j iff j <= start[b] + i and j < start[b] + S. Heads group
 in-kernel, the cache streams as stored (int8 dequantized in-kernel), key
 blocks past each query block's causal frontier are never read, and
 ``return_block_counts`` adds the (B, KV, n_q) count of key blocks visited
-(the kernel's blocks: ``BLOCK_Q`` query positions, ``BLOCK_K`` keys).
+(the kernel's blocks: ``block_q`` query positions and ``block_k`` keys of
+``flash_gqa_plan``). bf16 queries run the tensor-core body, whose key
+blocks may split over several blocks of the grid; f32 queries the
+CUDA-core body.
 For ``flash_gqa_attention`` CPU tensors take ``flash_gqa_plain`` (twin of
 ``ref.flash_gqa_ref``); CUDA tensors launch the kernel or raise.
 """
@@ -33,11 +36,45 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._attn import check_cache_operands
+from repro_torch.kernels._attn import (SM_TARGET, arrival_counters,
+                                       check_cache_operands)
 
-ROWS_MAX = 56      # query rows (positions x grouped heads) one block holds
-BLOCK_Q = 8        # query positions per block (fewer when G > 7)
-BLOCK_K = 32       # keys per step
+BLOCK_K = 32       # keys per step (a key block)
+MMA_ROWS = 64      # query rows (positions x grouped heads) per block, bf16 q
+F32_ROWS = {64: 56, 128: 16}   # the same for f32 queries, by head dim
+F32_BLOCK_Q = 8    # query positions per block for f32 queries (at most)
+MAX_SPLITS = 16    # blocks a q block's key blocks split over, at most
+
+
+def flash_gqa_plan(b: int, s: int, t: int, h: int, kv: int, d: int,
+                   tensor_cores: bool) -> dict:
+    """Launch plan of the GQA prefill kernel: ``block_q`` query positions
+    and ``block_k`` keys per block of the count witness, ``n_q`` q blocks,
+    and for the tensor-core body (bf16 queries) the key blocks of a q
+    block in groups of ``kbps`` over ``n_split`` blocks: split until the
+    grid (n_split, n_q, B * KV) reaches about ``SM_TARGET`` blocks, at
+    most ``MAX_SPLITS`` (the merge's buffer). f32
+    queries take one block per (q block, KV head, row), grid (n_q, KV, B)."""
+    g = h // kv
+    rows = MMA_ROWS if tensor_cores else F32_ROWS[d]
+    if h % kv or g > rows:
+        raise ValueError(f"flash_gqa_attention: H={h}, KV={kv} needs a group "
+                         f"of at most {rows} at head_dim {d}")
+    bq = rows // g if tensor_cores else min(F32_BLOCK_Q, rows // g)
+    n_q = -(-s // bq)
+    n_kb = -(-t // BLOCK_K)
+    if tensor_cores:
+        want = min(-(-SM_TARGET // (n_q * kv * b)), MAX_SPLITS)
+        kbps = -(-n_kb // want)
+        n_split = -(-n_kb // kbps)
+        grid = (n_split, n_q, b * kv)
+    else:
+        kbps, n_split, grid = n_kb, 1, (n_q, kv, b)
+    return {"block_q": bq, "block_k": BLOCK_K, "n_q": n_q, "kbps": kbps,
+            "n_split": n_split, "grid": grid,
+            "part_o": (b * kv * n_q * n_split, MMA_ROWS, d),
+            "part_ml": (b * kv * n_q * n_split, MMA_ROWS, 2),
+            "counters": b * kv * n_q}
 
 MHA_BLOCK_K = 32                    # keys per step of the MHA kernel
 MHA_BLOCK_Q = {64: 32, 128: 16}     # query rows per block, by head dim
@@ -84,25 +121,30 @@ def flash_gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_gqa_attention: unsupported device {q.device}")
     b, s, h, d = q.shape
     _, t, kvh, _ = k.shape
-    if h % kvh or h // kvh > ROWS_MAX:
-        raise ValueError(f"flash_gqa_attention: H={h}, KV={kvh} needs a group "
-                         f"of at most {ROWS_MAX}")
-    bq = min(BLOCK_Q, ROWS_MAX // (h // kvh))
     qd, kd, (q, k, v, ks, vs) = check_cache_operands(q, k, v, ks, vs,
                                                      "flash_gqa_attention")
+    mma = q.dtype == torch.bfloat16
+    plan = flash_gqa_plan(b, s, t, h, kvh, d, mma)
     if start is None:
         start = torch.zeros((b,), dtype=torch.int32, device=q.device)
     start = start.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
-    n_q = -(-s // bq)
-    counts = (torch.empty((b, kvh, n_q), dtype=torch.int32, device=q.device)
+    counts = (torch.zeros((b, kvh, plan["n_q"]), dtype=torch.int32,
+                          device=q.device)
               if return_block_counts else None)
+    part_o = part_ml = counters = None
+    if plan["n_split"] > 1:
+        part_o = torch.empty(plan["part_o"], dtype=torch.float32,
+                             device=q.device)
+        part_ml = torch.empty(plan["part_ml"], dtype=torch.float32,
+                              device=q.device)
+        counters = arrival_counters(q.device, plan["counters"])
+    ptr = (lambda x: None if x is None else x.data_ptr())
     rc = _build.library().flash_gqa(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if ks is None else ks.data_ptr(),
-        None if vs is None else vs.data_ptr(), start.data_ptr(),
-        out.data_ptr(), None if counts is None else counts.data_ptr(),
-        b, s, t, h, kvh, bq, qd, kd, 1.0 / math.sqrt(d),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(ks), ptr(vs),
+        start.data_ptr(), out.data_ptr(), ptr(counts), ptr(part_o),
+        ptr(part_ml), ptr(counters), b, s, t, h, kvh, d, plan["block_q"],
+        plan["kbps"], plan["n_split"], qd, kd, 1.0 / math.sqrt(d),
         _build.stream_ptr(q.device))
     _build.check(rc, "flash_gqa_attention")
     flash_gqa_attention.launches += 1

@@ -9,8 +9,12 @@
       --reduced --cim sim --attn-impl kernel --device cpu
 
 ``--cim sim`` serves the CIM macro model: the weights are deployed once as
-int8 planes and every linear runs the fused CIM kernel with in-kernel
-readout noise (``cim.use_kernel=True``, the port's only sim path).
+int8 planes and every linear runs the config's sim path, as in the
+reference. The configs leave ``cim.use_kernel`` False, so that is the
+behavioural ``core.cim.cim_dense`` (exact integer dot plus one whole-K
+``jax.random.normal`` draw, replayed by ``core.prng.normal``); a config
+with ``use_kernel=True`` runs the fused CIM kernel with in-kernel
+per-tile readout noise instead.
 ``--attn-impl kernel`` runs cached attention through the decode and flash
 kernels, a deepseek-v2 decode step through the latent-cache MLA kernel,
 and a mamba2 decode step through the selective-scan kernel;
@@ -70,8 +74,7 @@ def main(argv=None):
         cfg = cfg.reduced()
     cfg = dataclasses.replace(
         cfg, kv_cache_int8=args.kv_int8,
-        cim=dataclasses.replace(cfg.cim, mode=args.cim,
-                                use_kernel=args.cim == "sim"))
+        cim=dataclasses.replace(cfg.cim, mode=args.cim))
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(cfg, gen, device)
     engine = Engine(cfg, params, max_slots=args.slots,

@@ -5,10 +5,11 @@ goes through ``dense()`` with a *role* (attn_qkv / mlp_in / ...) so the SAC
 policy picks the macro operating point per layer. Parameters are plain
 dicts of tensors laid out like the JAX tree.
 
-Sim mode has one path in the port: the deployed int8 planes through the
-fused CIM kernel (``cfg.cim.use_kernel=True``). The behavioural sim path of
-the reference (``use_kernel=False``) draws ``jax.random.normal`` noise and
-QAT trains through a straight-through estimator; both raise here.
+Sim mode reads the deployed int8 planes on both of the reference's
+paths: the fused CIM kernel with per-tile Threefry noise
+(``cfg.cim.use_kernel=True``) or the behavioural ``core.cim.cim_dense``
+with one whole-K ``jax.random.normal`` draw (``use_kernel=False``, the
+config default). QAT (a straight-through estimator) raises here.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import prng, quant
-from repro_torch.core.cim import CIMSpec
+from repro_torch.core.cim import CIMSpec, cim_dense
 from repro_torch.core.sac import Policy, get_policy
 from repro_torch.kernels import ops as kops
 
@@ -71,10 +72,12 @@ class Ctx:
 def dense(ctx: Ctx, p: Params, x: torch.Tensor, role: str) -> torch.Tensor:
     """y = x @ w (+ b), executed per the CIM context and SAC role.
 
-    Sim mode reads the deployed plane ``p["wq<bits>"]``/``p["ws<bits>"]``
-    and runs the fused activation-quant CIM kernel: the activation is
-    quantized in the kernel against the batch-global clip scale, the
-    readout noise is drawn in the kernel from this call's key."""
+    Sim mode reads the deployed plane ``p["wq<bits>"]``/``p["ws<bits>"]``.
+    With ``cim.use_kernel`` it runs the fused activation-quant CIM kernel:
+    the activation is quantized in the kernel against the batch-global
+    clip scale, the readout noise is drawn in the kernel from this call's
+    key. Without it, the behavioural ``cim_dense`` quantizes against the
+    same scale and draws its noise from the same key."""
     spec = ctx.spec_for(role)
     if spec is None:
         y = x @ p["w"].to(x.dtype)
@@ -88,12 +91,12 @@ def dense(ctx: Ctx, p: Params, x: torch.Tensor, role: str) -> torch.Tensor:
                 f"'{role}' at w_bits={spec.w_bits} — run core.deploy.deploy() "
                 "with the same SAC policy the serving context resolves (sim "
                 f"mode on an undeployed weight is {_NOT_PORTED})")
-        if not ctx.cfg.cim.use_kernel:
-            raise NotImplementedError(
-                f"the behavioural sim path (cim.use_kernel=False) is "
-                f"{_NOT_PORTED}; the port's sim mode is the CIM kernel")
-        y = kops.cim_matmul_deployed(x, wq, p[f"ws{spec.w_bits}"], spec, k,
-                                     x_scale=xs).to(x.dtype)
+        if ctx.cfg.cim.use_kernel:
+            y = kops.cim_matmul_deployed(x, wq, p[f"ws{spec.w_bits}"], spec,
+                                         k, x_scale=xs).to(x.dtype)
+        else:
+            y = cim_dense(x, None, spec, k, mode="sim", x_scale=xs,
+                          w_scale=p[f"ws{spec.w_bits}"], wq=wq)
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y

@@ -24,12 +24,14 @@ The PRNG contract replays the reference bit for bit:
     samples under ``fold_in(request key, i)``. Greedy rows (temperature 0)
     take the arg-max, ties to the first index.
 
-Sim mode deploys the weights once into int8 planes at construction.
-``fuse_layer=True`` runs every decode step as one megakernel launch per
-layer (``kernels/fused_step.py``); it needs a dense float32 model with
-rope, and
-unlike the reference (which then silently runs unfused) the engine raises
-``ValueError`` for a config that could never take the fused route.
+Sim mode deploys the weights once into int8 planes at construction and
+serves them on the CIM kernel (``cim.use_kernel=True``) or on the
+behavioural ``core.cim.cim_dense`` (``use_kernel=False``), as the
+reference does. ``fuse_layer=True`` runs every decode step as one
+megakernel launch per layer (``kernels/fused_step.py``) where the fused
+route applies: a dense float32 model with rope (``_use_fused_layer``). As
+in the reference, a config the route never takes (another family, another
+dtype, no rope) serves unfused.
 Emitted tokens stay on the device until drained (every ``DRAIN_EVERY``
 pending entries and at the end of ``generate``).
 
@@ -156,18 +158,7 @@ class Engine:
         if mode not in ("off", "sim"):
             raise NotImplementedError(f"cim mode {mode!r} is not ported yet "
                                       "(ROADMAP.md)")
-        if mode == "sim" and not cfg.cim.use_kernel:
-            raise NotImplementedError(
-                "sim mode runs the CIM kernel (cim.use_kernel=True); the "
-                "behavioural sim path is not ported (ROADMAP.md)")
         if fuse_layer:
-            if (cfg.family != "dense" or cfg.dtype != "float32"
-                    or not cfg.use_rope):
-                raise ValueError(
-                    f"fuse_layer=True needs a dense float32 model with rope "
-                    f"(the megakernel's route); {cfg.name} has family "
-                    f"{cfg.family!r}, dtype {cfg.dtype!r}, use_rope="
-                    f"{cfg.use_rope}")
             cfg = dataclasses.replace(cfg, fuse_layer=True)
         if chunk_size is None:
             chunk_size = DEFAULT_CHUNK_SIZE

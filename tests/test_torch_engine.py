@@ -21,8 +21,9 @@ from repro.serving import engine as jax_engine
 from repro.serving.engine import Engine as JEngine
 from repro.serving.engine import Request as JRequest
 from repro_torch.configs.registry import get_config
-from repro_torch.core import prng
+from repro_torch.core import cim, prng
 from repro_torch.core.deploy import params_from_jax
+from repro_torch.kernels.cim_matmul import cim_matmul_fused
 from repro_torch.launch import serve
 from repro_torch.serving import engine
 from repro_torch.serving.engine import Engine, Request
@@ -121,7 +122,7 @@ def test_session_api_cancel_and_slot_reuse(setup):
     assert reqs[1].out_tokens == []       # cancelled mid-prefill
 
 
-def test_unported_options_and_bad_requests_raise(setup):
+def test_unported_options_and_bad_requests_raise(setup, monkeypatch):
     cfg_of, _, tp, _ = setup
     cfg = cfg_of(get_config("qwen2-0.5b"), False)
     for kw in ({"guard": True}, {"ladder": object()}, {"chunk_size": 0},
@@ -130,10 +131,24 @@ def test_unported_options_and_bad_requests_raise(setup):
             Engine(cfg, tp, device="cpu", **kw)
     with pytest.raises(NotImplementedError):
         Engine(dataclasses.replace(cfg, family="moe"), tp, device="cpu")
+    # the behavioural sim path (use_kernel=False) is ported: it serves,
+    # through cim_matmul_behavioral and not the CIM kernel's plain version
     behavioural = dataclasses.replace(cfg, cim=dataclasses.replace(
         cfg.cim, use_kernel=False))
-    with pytest.raises(NotImplementedError):
-        Engine(behavioural, tp, cim_mode="sim", device="cpu")
+    calls = []
+    real = cim.cim_matmul_behavioral
+
+    def counted(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    monkeypatch.setattr(cim, "cim_matmul_behavioral", counted)
+    before = cim_matmul_fused.launches
+    out = Engine(behavioural, tp, cim_mode="sim", max_len=64,
+                 device="cpu").generate(
+        [Request(prompt=np.arange(5), max_new_tokens=2)])
+    assert len(out[0]) == 2 and calls
+    assert cim_matmul_fused.launches == before
     eng = Engine(cfg, tp, max_len=16, device="cpu")
     with pytest.raises(ValueError):
         eng.submit(Request(prompt=np.arange(12), max_new_tokens=8))

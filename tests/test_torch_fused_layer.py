@@ -5,7 +5,9 @@ interpret mode on the CPU) at the tiny dense shape of
 float32): one layer on a ragged 4-row cache (lens 1, 38, 101, 151 after the
 write) in off-f32, off-int8-KV and sim modes, one case with d_ff 1280 so
 that ``down`` spans two macro tiles; then greedy engine tokens with
-``fuse_layer=True`` against the JAX engine and the port's unfused engine.
+``fuse_layer=True`` against the JAX engine and the port's unfused engine,
+and a config the fused route never takes served unfused, as in the
+reference.
 
 Tolerances, from float32 summation order alone (the noise, the quantized
 activations and the int8 codes replay the reference): each output row
@@ -173,10 +175,33 @@ def test_deployed_params_carry_every_fused_leaf(engine_setup):
                                    cache)
 
 
-def test_fuse_layer_needs_a_float32_model_with_rope(engine_setup):
+def test_fuse_layer_needs_a_float32_model_with_rope(engine_setup,
+                                                    monkeypatch):
+    """The fused route needs a float32 model with rope. As in the
+    reference, ``fuse_layer=True`` on a config the route never takes (bf16,
+    no rope) serves unfused: the same tokens as ``fuse_layer=False`` and no
+    fused layer call (its launch count stays 0)."""
     _, tparams = engine_setup
     _, tc = _cfgs()
+    calls = []
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return fused_step.fused_dense_layer(*args, **kwargs)
+
+    monkeypatch.setattr(tf, "fused_dense_layer", counted)
+    before = fused_step.fused_dense_layer.launches
+    prompts = _prompts(12)
     for bad in (dataclasses.replace(tc, dtype="bfloat16"),
                 dataclasses.replace(tc, use_rope=False)):
-        with pytest.raises(ValueError, match="fuse_layer"):
-            Engine(bad, tparams, fuse_layer=True, device="cpu")
+        runs = {}
+        for fuse in (True, False):
+            eng = Engine(bad, tparams, max_slots=2, max_len=48,
+                         cim_mode="off", fuse_layer=fuse, device="cpu")
+            assert eng.cfg.fuse_layer == fuse
+            runs[fuse] = eng.generate(
+                [Request(prompt=p, max_new_tokens=4) for p in prompts])
+        assert runs[True] == runs[False]
+        assert all(len(o) == 4 for o in runs[True])
+    assert calls == []
+    assert fused_step.fused_dense_layer.launches == before

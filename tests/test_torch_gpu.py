@@ -9,8 +9,10 @@ nothing of JAX, so it runs on the card as it is:
 Tolerances: the CIM kernel's integer part (sigma = 0) is exact; with
 noise, 1e-6 * tiles * max|y| + 1e-5 * sigma (Box-Muller's logf/cosf
 ulps). Attention on a bf16 cache or with bf16 queries writes bf16 and
-rounds p to bf16 before p @ V as the reference kernel does: 2^-6 of the
-output's scale. The fused layer against its plain version on the kernel's
+rounds p to bf16 before p @ V as the reference kernel does (against the
+running max of a split's own keys): 2^-6 of the output's scale, or of
+each query head's row max in every dtype combination at head dims 64 and
+128. The fused layer against its plain version on the kernel's
 activation scales: each output row within 2^-10 of its max |value| (a
 quantized activation that float order puts in the next bucket moves it by
 less), each attention-output row within 2^-12, the written f32 cache rows
@@ -44,12 +46,14 @@ from repro_torch.kernels.cim_matmul import (cim_matmul_fused,
                                             cim_matmul_int8,
                                             cim_matmul_int8_plain)
 from repro_torch.kernels.decode_attention import (decode_attention,
-                                                  decode_attention_plain)
+                                                  decode_attention_plain,
+                                                  decode_plan)
 from repro_torch.kernels.flash_attention import (MHA_BLOCK_K, MHA_BLOCK_Q,
                                                  flash_attention,
                                                  flash_attention_plain,
                                                  flash_gqa_attention,
-                                                 flash_gqa_plain)
+                                                 flash_gqa_plain,
+                                                 flash_gqa_plan)
 from repro_torch.core import prng
 from repro_torch.core.deploy import deploy
 from repro_torch.kernels import fused_step
@@ -117,8 +121,64 @@ def test_attention_kernels_match_plain(cuda, int8):
         p = flash_gqa_plain(qf, kc[:1], vc[:1], st, *one).float()
         assert (a.float() - p).abs().max().item() <= \
             2 ** -6 * p.abs().max().item()
-        assert counts[0, 0].tolist() == [-(-(start + 8 * (i + 1)) // 32)
-                                         for i in range(4)]
+        assert counts[0].tolist() == [_gqa_counts(qf, start)] * kv
+
+
+def _gqa_counts(q, start, t=320):
+    """flash_gqa's block counts in closed form from the wrapper's plan:
+    q block i visits the key blocks up to start + min((i + 1) bq, S),
+    within the written prefix min(T, start + S)."""
+    b, s, h, d = q.shape
+    plan = flash_gqa_plan(b, s, t, h, 2, d, q.dtype == torch.bfloat16)
+    bq, bk, end = plan["block_q"], plan["block_k"], min(t, start + s)
+    return [-(-min(start + min((i + 1) * bq, s), end) // bk)
+            for i in range(plan["n_q"])]
+
+
+@pytest.mark.parametrize("qdt,kvdt", [("f32", "f32"), ("f32", "int8"),
+                                      ("bf16", "bf16"), ("bf16", "int8")])
+@pytest.mark.parametrize("d,g", [(64, 7), (128, 2), (128, 4), (128, 8)])
+def test_gqa_kernels_match_plain_all_dtypes(cuda, d, g, qdt, kvdt):
+    """The split-key decode and flash kernels against their plain versions
+    in every dtype combination they take, at head dims 64 and 128: each
+    query head's row within 2^-6 of its max |value|, lens == 0 rows zero,
+    decode lengths on the split edges, flash block counts in closed form."""
+    b, t, kv = 4, 320, 2
+    h = g * kv
+    gen = torch.Generator(device=cuda).manual_seed(d + g)
+    kf = torch.randn((b, t, kv, d), generator=gen, device=cuda)
+    vf = torch.randn((b, t, kv, d), generator=gen, device=cuda)
+    if kvdt == "int8":
+        (kc, ks), (vc, vs) = _kv_quant(kf), _kv_quant(vf)
+    else:
+        dt = torch.float32 if kvdt == "f32" else torch.bfloat16
+        kc, vc, ks, vs = kf.to(dt), vf.to(dt), None, None
+    qd = torch.float32 if qdt == "f32" else torch.bfloat16
+    q = torch.randn((b, h, d), generator=gen, device=cuda).to(qd)
+    sp = decode_plan(b, t, kv, d)["split"]
+    for lens in ([0, 1, sp - 1, t], [sp + 1, 2 * sp, 137, 95]):
+        ln = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        decode_attention.launches = 0
+        a = decode_attention(q, kc, vc, ln, ks, vs)
+        assert decode_attention.launches == 1 and a.dtype == qd
+        p = decode_attention_plain(q, kc, vc, ln, ks, vs).float()
+        a = a.float()
+        assert ((a - p).abs() <= 2 ** -6 * p.abs().amax(-1, keepdim=True)
+                ).all()
+        for i, n in enumerate(lens):
+            if n == 0:
+                assert a[i].abs().max().item() == 0.0
+    qf = torch.randn((1, 32, h, d), generator=gen, device=cuda).to(qd)
+    one = [None if x is None else x[:1] for x in (kc, vc, ks, vs)]
+    for start in (0, 128, 300):
+        st = torch.tensor([start], dtype=torch.int32, device=cuda)
+        a, counts = flash_gqa_attention(qf, one[0], one[1], st, one[2],
+                                        one[3], return_block_counts=True)
+        p = flash_gqa_plain(qf, one[0], one[1], st, one[2], one[3]).float()
+        a = a.float()
+        assert ((a - p).abs() <= 2 ** -6 * p.abs().amax(-1, keepdim=True)
+                ).all()
+        assert counts[0].tolist() == [_gqa_counts(qf, start)] * kv
 
 
 def test_reduced_model_tokens_card_equal_cpu(cuda):

@@ -281,8 +281,13 @@ def test_greedy_tokens_equal_jax_engine(params, mode, impl):
 def test_ssm_engine_options_and_cli():
     _, tc = _cfgs()
     p = deploy.init_params(tc, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(ValueError, match="dense float32"):
-        Engine(tc, p, fuse_layer=True, device="cpu")
+    # fuse_layer=True on a family the fused route never takes serves
+    # unfused, as in the reference: the same tokens as fuse_layer=False
+    prompt = np.arange(1, 12) % tc.vocab_size
+    runs = [Engine(tc, p, max_len=32, fuse_layer=fuse, device="cpu")
+            .generate([Request(prompt=prompt, max_new_tokens=3)])
+            for fuse in (True, False)]
+    assert runs[0] == runs[1] and len(runs[0][0]) == 3
     outs = serve.main(["--arch", "mamba2-130m", "--reduced", "--cim", "sim",
                        "--attn-impl", "kernel", "--device", "cpu",
                        "--requests", "3", "--prompt-len", "20",
