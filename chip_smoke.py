@@ -24,14 +24,18 @@ must catch) and the CIM kernel at deepseek-v2's shapes, card-vs-CPU greedy
 tokens of the reduced deepseek-v2 in off and sim mode, deepseek-v2-236b at
 every published width and 4 of its 60 layers served with exact launch
 counts and its peak memory, a profile of one decode step and the kernel's
-times beside one scaled_dot_product_attention call. Last, the two
+times (CUDA events) beside one scaled_dot_product_attention call. The
+f32-query GQA prefill of the float32 cells is held against its plain
+version and timed at their chunk shape beside SDPA in f32. Last, the two
 entry-point kernels at qwen2-0.5b width: the int8 CIM kernel against its
 plain version at the seven projections (M = 1024) and at ragged shapes
 (with a shifted-tile variant that the tolerance must catch), the
 straight-through ops.cim_matmul forward and backward with exact launch
 counts, MHA flash attention against its plain version at five shapes in
 bf16 and f32 with its block counts (and a variant with 32 live keys
-dropped that must fail), and both kernels' times. The two GQA kernels
+dropped that must fail), and both kernels' times (per projection for the
+int8 kernel, with and without noise; the bf16 MHA body at both key
+tiles). The two GQA kernels
 (decode and flash prefill, split over the key axis) are also held against
 their plain versions at head dim 128 (G 2, 4, 8) in every dtype
 combination, at decode lengths on the split edges and flash starts past
@@ -1366,6 +1370,100 @@ def phase_times_fused(params32):
     return res
 
 
+def phase_times_gqa_f32():
+    """The f32-query GQA prefill of the float32 cells C (f32 cache) and D
+    (int8 cache): one 32-token chunk (24 layers, start 128, qwen2-0.5b
+    heads, a cache of T = 320 rows) through flash_gqa_attention, held
+    against its plain version at the f32 limit of B5 (b5_rows_off: 2e-5 +
+    2e-5 |ref| per element; the max abs error returned), whose reach is
+    checked on the plain version (a result that drops each query's last 32
+    visible keys must fail every row), timed with CUDA events (queued_ms)
+    and the profiler, beside its plain version, one
+    scaled_dot_product_attention call per layer in f32 on the f32 cache
+    (enable_gqa, a boolean mask; its events time the host - the calls do
+    not queue behind the kernel - so ``library_ms`` is the profiler's
+    device time and the events figure is kept as
+    ``library_host_bound_queued_ms``), and the bound: the live cache rows (and int8 scales) and the queries in
+    and out over 3.35 TB/s against 4 D operations per live (query head,
+    key) pair over the f32 peak."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_gqa_attention,
+                                                     flash_gqa_plain)
+    cfg = full_config32(False)
+    L, h, kv, hd = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    t, s, start = 320, 32, 128
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(56)
+    st = torch.tensor([start], dtype=torch.int32, device=dev)
+    keys = start + s
+    ops = L * 4 * h * hd * sum(start + i + 1 for i in range(s))
+    res, errs = {}, {}
+    for int8 in (False, True):
+        caches = [attn_cache(g, 1, t, kv, hd, "int8" if int8 else "f32")
+                  for _ in range(L)]
+        qf = torch.randn((1, s, h, hd), generator=g, device=dev)
+
+        def run_f():
+            for c in caches:
+                flash_gqa_attention(qf, *c[:2], st, *c[2:])
+
+        worst, reach = 0.0, 1.0
+        for c in caches[:4]:
+            ok = flash_gqa_attention(qf, *c[:2], st, *c[2:])
+            op = flash_gqa_plain(qf, *c[:2], st, *c[2:])
+            off, err = b5_rows_off(ok, op, torch.float32)
+            if off.any():
+                fail(f"flash_gqa f32 q int8={int8}: "
+                     f"{off.float().mean().item():.3f} of the rows out of "
+                     f"tolerance (max err {err})")
+            # the frontier 32 keys earlier: each query loses its last 32
+            # visible keys
+            short = flash_gqa_plain(qf, *c[:2], st - 32, *c[2:])
+            reach = min(reach, b5_rows_off(short, op, torch.float32)[0]
+                        .float().mean().item())
+            worst = max(worst, err)
+        if reach < 1.0:
+            fail(f"flash_gqa f32 q tolerance too loose: dropping the last "
+                 f"32 visible keys fails only {reach:.3f} of the rows")
+        esz = 1 if int8 else 4
+        nbytes = L * (2 * keys * kv * hd * esz + (2 * keys * kv * 4 if int8
+                                                  else 0) + 2 * qf.numel() * 4)
+        lib = lib_q = None
+        if not int8:
+            qi = torch.arange(s, device=dev)[:, None] + start
+            kj = torch.arange(t, device=dev)[None, :]
+            fmask = ((kj <= qi) & (kj < start + s))[None, None]
+
+            def run_lib():
+                for c in caches:
+                    F.scaled_dot_product_attention(
+                        qf.transpose(1, 2), c[0].transpose(1, 2),
+                        c[1].transpose(1, 2), attn_mask=fmask,
+                        enable_gqa=True)
+
+            lib_q, lib = queued_ms(run_lib, 10), device_ms(run_lib, 10)
+        name = "flash_gqa[f32" + (",int8]" if int8 else "]")
+        res[name] = dict(
+            ms=queued_ms(run_f, 10), profiler_ms=device_ms(run_f, 10),
+            plain_ms=device_ms(lambda: [flash_gqa_plain(qf, *c[:2], st,
+                                                        *c[2:])
+                                        for c in caches], 3),
+            library_ms=lib, library_host_bound_queued_ms=lib_q,
+            bound_ms=1e3 * max(nbytes / HBM_BPS, ops / FP32_OPS),
+            bound_by="bytes" if nbytes / HBM_BPS >= ops / FP32_OPS
+            else "operations",
+            unit=f"one prefill chunk of cell {'D' if int8 else 'C'}: {L} "
+                 f"layers, S={s}, start={start}, f32 queries",
+            launches_per_chunk=L)
+        errs[name] = worst
+        emit("time", kernel=name, **res[name], bytes=nbytes, f32_ops=ops,
+             max_abs_err=worst, tol="2e-5+2e-5*|ref|",
+             tail_block_dropped_rows_failing=reach, library="scaled_dot_product_attention, f32"
+             if lib is not None else None)
+    return res, errs
+
+
 # ------------------------------------------------------------ phase 7
 # the ssm family: mamba2-130m, every decode step through ssm_decode_step
 SSM_TOL = 1e-5         # state and y rows: times the row's max |value|
@@ -1871,7 +1969,8 @@ def top_kernels(fn, n=3):
 
 
 def phase_times_mla():
-    """Device ms of one decode step's 4 latent-cache launches (B = 4,
+    """Device ms (CUDA events, queued_ms; the profiler's beside) of one
+    decode step's 4 latent-cache launches (B = 4,
     H = 128, L = 512, R = 64, bf16, the engine's cache of T = 320 rows, each
     layer its own cache, lens 301/138/96/212), the plain version's, one
     scaled_dot_product_attention call per layer over the same inputs (the
@@ -1914,14 +2013,18 @@ def phase_times_mla():
             F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                            scale=scale)
 
-    k_ms = device_ms(run_k, 10)
+    # CUDA events behind a spinning kernel (queued_ms) for the kernel and
+    # its yardstick; the profiler's figures beside them (its window for
+    # this phase undercounts late in a long run)
+    k_ms = queued_ms(run_k, 10)
+    lib_ms = queued_ms(run_lib, 10)
     p_ms = device_ms(run_p, 3)
-    lib_ms = device_ms(run_lib, 3)
     bound = 1e3 * max(nbytes / HBM_BPS, ops / FP32_OPS)
-    res = dict(ms=k_ms, wall_ms=wall_ms(run_k, 10), plain_ms=p_ms,
-               bound_ms=bound,
+    res = dict(ms=k_ms, profiler_ms=device_ms(run_k, 10),
+               wall_ms=wall_ms(run_k, 10), plain_ms=p_ms, bound_ms=bound,
                bound_by="bytes" if nbytes / HBM_BPS >= ops / FP32_OPS
                else "operations", library_ms=lib_ms,
+               library_profiler_ms=device_ms(run_lib, 3),
                library="scaled_dot_product_attention, bf16, kernels "
                        + ", ".join(top_kernels(run_lib)),
                unit=f"one decode step: {MLA_LAYERS} layers, B={b}, H={h}, "
@@ -1952,6 +2055,14 @@ B5_SHAPES = (("qwen2_train", 112, 128, 128, 64, True, None, 14),
              ("vit_small", 384, 65, 65, 64, False, None, 6),
              ("d128_cross", 16, 512, 1536, 128, False, None, 16),
              ("d128_causal", 16, 2048, 2048, 128, True, None, 16))
+
+
+# the entry-point kernels' times before their redesign (CUDA events, final
+# chip_smoke.py run of the PR 16 tree, H100 80GB HBM3 at 700 W): printed
+# beside the new times for comparison, not measured here
+PREVIOUS_B2_B5_MS = {"cim_matmul_int8": 1.354,
+                     "cim_matmul_int8[noiseless]": 1.29,
+                     "flash_attention": 3.264, "flash_attention[f32]": 3.313}
 
 
 def b2_operands(g, m, k, n, spec):
@@ -2164,12 +2275,13 @@ def b5_rows_off(out, ref, dtype):
     return (err > 2 ** -7 * scale).any(-1), err.max().item()
 
 
-def b5_counts(bh, s, t, d, causal, st):
-    """Closed form of the kernel's block counts (its blocks: MHA_BLOCK_Q[d]
-    queries, MHA_BLOCK_K keys): causal query blocks count up to their
-    frontier, non-causal ones every key block."""
+def b5_counts(bh, s, t, d, causal, st, dtype):
+    """Closed form of the kernel's block counts (its blocks: MHA_BLOCK_Q
+    queries, MHA_BLOCK_K[dtype] keys; a q block's count summed over the
+    blocks its key range is split over): causal query blocks count up to
+    their frontier, non-causal ones every key block."""
     from repro_torch.kernels.flash_attention import MHA_BLOCK_K, MHA_BLOCK_Q
-    bq, bk = MHA_BLOCK_Q[d], MHA_BLOCK_K
+    bq, bk = MHA_BLOCK_Q, MHA_BLOCK_K[dtype]
     n_q = -(-s // bq)
     if not causal:
         return [[-(-t // bk)] * n_q for _ in range(bh)]
@@ -2211,7 +2323,7 @@ def phase_flash_mha_check():
             if bad.any() or out.dtype != dtype or out.shape != q.shape:
                 fail(f"flash_attention {name} {sname}: {bad.float().mean()} "
                      f"of the rows out of tolerance (max err {err})")
-            want = b5_counts(bh, s, t, d, causal, st)
+            want = b5_counts(bh, s, t, d, causal, st, dtype)
             if counts.tolist() != want:
                 fail(f"flash_attention {name} {sname}: block counts differ "
                      f"from the closed form")
@@ -2290,10 +2402,12 @@ def phase_times_b2_b5():
     import torch.nn.functional as F
     from repro_torch.core.cim import output_noise_std_int_per_tile
     from repro_torch.core.sac import paper_sac
-    from repro_torch.kernels.cim_matmul import (cim_matmul_int8,
+    from repro_torch.kernels.cim_matmul import (cim_int8_plan,
+                                                cim_matmul_int8,
                                                 cim_matmul_int8_plain)
     from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_plain)
+                                                     flash_attention_plain,
+                                                     flash_mha_plan)
     g = torch.Generator(device="cuda").manual_seed(54)
     pol = paper_sac()
     calls = []
@@ -2319,6 +2433,17 @@ def phase_times_b2_b5():
     k0_ms = queued_ms(lambda: run_k(False), 10)
     p_ms = graph_ms(run_p, 2)
     lib_ms = queued_ms(run_lib, 10)
+    # each projection alone, noise on, and its launch plan
+    per_proj = {}
+    for (name, k, n, _), (xq, wq, _, sc, sigma, seed) in zip(B2_PROJ, calls):
+        per_proj[name] = dict(
+            ms=queued_ms(lambda: cim_matmul_int8(xq, wq, seed, sigma, sc),
+                         10),
+            ms_noiseless=queued_ms(
+                lambda: cim_matmul_int8(xq, wq, None, sigma, sc), 10),
+            plan=cim_int8_plan(B2_M, k, n, xq.data_ptr(), wq.data_ptr()),
+            plan_noiseless=cim_int8_plan(B2_M, k, n, xq.data_ptr(),
+                                         wq.data_ptr(), False))
     bound, by, terms = b2_bound([(c[0], c[1], True) for c in calls])
     bound0 = b2_bound([(c[0], c[1], False) for c in calls])[0]
     res = {"cim_matmul_int8": dict(
@@ -2328,6 +2453,9 @@ def phase_times_b2_b5():
                 "without the readout noise; kernels "
                 + ", ".join(top_kernels(run_lib)),
         ms_noiseless=k0_ms, bound_ms_noiseless=bound0,
+        previous_body_ms=PREVIOUS_B2_B5_MS["cim_matmul_int8"],
+        previous_body_ms_noiseless=PREVIOUS_B2_B5_MS[
+            "cim_matmul_int8[noiseless]"], per_projection=per_proj,
         unit="one forward of the seven qwen2-0.5b projections, M=1024, "
              "noise on (7 launches)", **terms)}
     emit("time", kernel="cim_matmul_int8", **res["cim_matmul_int8"])
@@ -2359,8 +2487,12 @@ def phase_times_b2_b5():
             f_lib = queued_ms(run_lib_b5, 10)
             nbytes, ops = b5_work(bh, s, t, d, causal, st, dtype)
             b_ms = 1e3 * max(nbytes / HBM_BPS, ops / peak)
+            plan = flash_mha_plan(bh, s, t, d, dtype)
             emit("time", kernel="flash_attention", dtype=name, shape=sname,
                  ms=f_ms, plain_ms=f_p, library_ms=f_lib, bound_ms=b_ms,
+                 block_q=plan["block_q"],
+                 block_k=plan["block_k"], n_split=plan["n_split"],
+                 grid=list(plan["grid"]),
                  bound_by="bytes" if nbytes / HBM_BPS >= ops / peak
                  else "operations", bytes=nbytes, ops=ops,
                  library="scaled_dot_product_attention, " + name
@@ -2375,6 +2507,7 @@ def phase_times_b2_b5():
                         library_ms=tot["library_ms"],
                         bound_ms=1e3 * max(t_b, t_o),
                         bound_by="bytes" if t_b >= t_o else "operations",
+                        previous_body_ms=PREVIOUS_B2_B5_MS[key],
                         unit="one launch at each of the five B5 shapes, "
                              + name)
         emit("time", kernel=key, **res[key], bytes=tot["bytes"],
@@ -2428,6 +2561,9 @@ def main() -> int:
     phase_fused_tokens(params32, fused[False][1])
     times.update(phase_times_fused(params32))
     del params32
+    gqa_f32_times, gqa_f32_errs = phase_times_gqa_f32()
+    times.update(gqa_f32_times)
+    errs.update(gqa_f32_errs)
     errs["ssm"] = phase_ssm_check()
     phase_ssm_parity()
     params_ssm = init_params(ssm_config(),
@@ -2474,6 +2610,13 @@ def main() -> int:
            "flash_gqa[int8]": ("src/repro_torch/csrc/flash_gqa.cu",
                                "src/repro/kernels/flash_attention.py:409",
                                flash_gqa_attention, ("flash", True)),
+           "flash_gqa[f32]": ("src/repro_torch/csrc/flash_gqa.cu",
+                              "src/repro/kernels/flash_attention.py:409",
+                              flash_gqa_attention, ("fused", False)),
+           "flash_gqa[f32,int8]": (
+               "src/repro_torch/csrc/flash_gqa.cu",
+               "src/repro/kernels/flash_attention.py:409",
+               flash_gqa_attention, ("fused", True)),
            "fused_dense_layer": ("src/repro_torch/csrc/fused_layer.cu",
                                  "src/repro/kernels/fused_step.py:327",
                                  fused_dense_layer, ("fused", False)),
@@ -2504,7 +2647,9 @@ def main() -> int:
         # bf16 qwen2 cells A and B, the mamba2 cell E and the deepseek-v2
         # cell F for the CIM kernel, which they share; the entry-point
         # phases cim_ste and flash_mha_check for the int8 CIM and MHA
-        # kernels)
+        # kernels; the float32 cells C and D for the fused layer and the
+        # f32-query GQA prefill, whose error phase_times_gqa_f32 keys by
+        # name)
         n = (runs[False][fn.__name__] + runs[True][fn.__name__]
              + runs["ssm"][fn.__name__] + runs["mla"][fn.__name__]
              if ekey == "cim_matmul_fused" else
@@ -2514,7 +2659,8 @@ def main() -> int:
              or ekey[0] == "fused" else runs[ekey[1]][fn.__name__])
         line.append({"name": name, "route": "cuda", "source": path,
                      "replaces": tpu, "launches": n,
-                     "max_abs_err": errs[ekey], "ms": t["ms"],
+                     "max_abs_err": errs[name if name in errs else ekey],
+                     "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})

@@ -1,22 +1,19 @@
-// Block body shared by the decode, flash-prefill GQA and MHA flash attention
-// kernels.
+// The CUDA-core block body of the f32-query GQA flash prefill
+// (flash_gqa.cu), and NEG_INF, the masked score of every attention kernel.
 //
 // One block serves one (batch row b, KV head h, query block qb): its
 // R = BQ * G query rows (row r = query position qb*BQ + r / G, grouped head
-// h*G + r % G) against the slot cache, streamed in storage layout
-// (B, T, KV, D) - no head replication, int8 dequantized on load with the
-// per-key (B, T, KV) scales. Key j counts iff j < kv_end and, when causal,
-// j <= start + i for the query at absolute position start + i. The callers
-// give kv_end = min(T, start + S) when causal (the _cached_mask contract:
-// recycled slots keep stale keys past the written prefix) and T when not.
-// Causal key blocks past the frontier of the query block are never read;
-// non-causal blocks visit every key block below T. Online softmax over the
-// visited blocks, in order from block 0 (which holds key 0, live in every
-// row, so a masked score of -1e30 always meets a finite running max):
-// running max m, denominator l and accumulator acc, updated as
-// l = l * alpha + sum(p), acc = acc * alpha + p @ V. With a bf16 cache, p
-// is rounded to bf16 before the p @ V product, as the reference's
-// p.astype(v.dtype) does; sums stay f32.
+// h*G + r % G) against the f32 or int8 slot cache, streamed in storage
+// layout (B, T, KV, D) - no head replication, int8 dequantized on load with
+// the per-key (B, T, KV) scales. Key j counts iff j < kv_end and
+// j <= start + i for the query at absolute position start + i; the caller
+// gives kv_end = min(T, start + S) (the _cached_mask contract: recycled
+// slots keep stale keys past the written prefix). Key blocks past the
+// causal frontier of the query block are never read. Online softmax over
+// the visited blocks, in order from block 0 (which holds key 0, live in
+// every row, so a masked score of -1e30 always meets a finite running
+// max): running max m, denominator l and accumulator acc, updated as
+// l = l * alpha + sum(p), acc = acc * alpha + p @ V, all in f32.
 #pragma once
 
 #include "common.cuh"
@@ -25,16 +22,14 @@ namespace rt {
 
 constexpr float NEG_INF = -1e30f;
 
-template <typename QT, typename KVT, int RMAX, int BK, int D, int THREADS>
+template <typename KVT, int RMAX, int BK, int D, int THREADS>
 __device__ __forceinline__ void gqa_attend(
-    const QT* __restrict__ q, const KVT* __restrict__ k,
+    const float* __restrict__ q, const KVT* __restrict__ k,
     const KVT* __restrict__ v, const float* __restrict__ ks,
-    const float* __restrict__ vs, QT* __restrict__ out,
+    const float* __restrict__ vs, float* __restrict__ out,
     int* __restrict__ counts, int b, int h, int qb, int n_q, int BQ, int G,
-    int S, int T, int H, int KV, int start, int kv_end, bool causal,
-    float scale) {
+    int S, int T, int H, int KV, int start, int kv_end, float scale) {
   constexpr bool INT8 = sizeof(KVT) == 1;
-  constexpr bool ROUND_P = sizeof(KVT) == 2;   // bf16 cache
   constexpr int NOUT = RMAX * D / THREADS;      // outputs per thread
   static_assert(RMAX * D % THREADS == 0, "outputs split evenly");
   static_assert(THREADS % D == 0, "a warp shares one output row");
@@ -51,7 +46,7 @@ __device__ __forceinline__ void gqa_attend(
   // rows whose query position lies past S are padding: never computed
   const int rows = min(R, (S - i0) * G);
   const int q_abs_max = start + min(i0 + BQ, S) - 1;
-  const int j_end = causal ? min(q_abs_max + 1, kv_end) : kv_end;
+  const int j_end = min(q_abs_max + 1, kv_end);
 
   for (int e = t; e < RMAX * D; e += THREADS) {
     const int r = e / D, d = e % D;
@@ -99,7 +94,7 @@ __device__ __forceinline__ void gqa_attend(
       for (int d = 0; d < D; ++d) s = fmaf(qs[r][d], kt[d][j], s);
       s = __fmul_rn(s, scale);
       const int kj = j0 + j, pos = start + i0 + r / G;
-      ps[r][j] = ((!causal || kj <= pos) && kj < kv_end) ? s : NEG_INF;
+      ps[r][j] = (kj <= pos && kj < kv_end) ? s : NEG_INF;
     }
     __syncthreads();
     // online softmax, one warp per row
@@ -116,7 +111,7 @@ __device__ __forceinline__ void gqa_attend(
       for (int j = lane; j < BK; j += 32) {
         const float p = expf(ps[r][j] - m_new);
         sum += p;
-        ps[r][j] = ROUND_P ? __bfloat162float(__float2bfloat16_rn(p)) : p;
+        ps[r][j] = p;
       }
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1)
@@ -145,8 +140,8 @@ __device__ __forceinline__ void gqa_attend(
     const int e = t + u * THREADS, r = e / D, d = e % D;
     if (r < rows) {
       const int i = i0 + r / G, head = h * G + r % G;
-      store(&out[(((size_t)b * S + i) * H + head) * D + d],
-            acc[u] / fmaxf(l_s[r], 1e-30f));
+      out[(((size_t)b * S + i) * H + head) * D + d] =
+          acc[u] / fmaxf(l_s[r], 1e-30f);
     }
   }
   if (counts != nullptr && t == 0)

@@ -8,9 +8,10 @@ from typing import Dict, Optional
 import torch
 
 HEAD_DIMS = (64, 128)      # head dims the kernels are built for
-# Blocks a launch aims for: two per SM of an H100 (132 SMs). A key axis is
-# split over blocks until the grid reaches it.
-SM_TARGET = 2 * 132
+SM_COUNT = 132             # streaming multiprocessors of an H100
+# Blocks a launch aims for: two per SM. A key axis is split over blocks
+# until the grid reaches it.
+SM_TARGET = 2 * SM_COUNT
 Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 

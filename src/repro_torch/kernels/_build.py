@@ -36,13 +36,14 @@ _F = ctypes.c_float
 _U = ctypes.c_uint
 _SIGNATURES = {
     "cim_matmul_fused": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _U, _U, _I, _P],
-    "cim_matmul_int8": [_P, _P, _P, _P, _I, _I, _I, _F, _U, _U, _I, _P],
+    "cim_matmul_int8": [_P, _P, _P, _F, _P, _I, _I, _I, _F, _U, _U, _I, _I, _I,
+                        _P],
     "decode_attention": [_P] * 10 + [_I] * 9 + [_F, _P],
     "flash_gqa": [_P] * 11 + [_I] * 11 + [_F, _P],
     "fused_dense_layer": [_P, _P],
     "ssm_decode_step": [_P] * 11 + [_I] * 8 + [_P],
     "mla_decode_attention": [_P] * 6 + [_I] * 6 + [_F, _P],
-    "flash_mha": [_P] * 6 + [_I] * 7 + [_F, _P],
+    "flash_mha": [_P] * 9 + [_I] * 8 + [_F, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

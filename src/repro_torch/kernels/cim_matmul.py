@@ -1,14 +1,15 @@
 """CIM matmuls on int8 weight planes: CUDA kernels and plain PyTorch versions.
 
-Two wrappers of one CUDA body (``csrc/cim_matmul.cu``, whose design note
-says what bounds each on the H100 and how it streams the plane once):
+Two wrappers of ``csrc/cim_matmul.cu`` (whose design note says what
+bounds each on the H100 and how each streams the plane):
 
 * ``cim_matmul_fused`` replaces ``src/repro/kernels/cim_matmul.py``
   ``cim_matmul_fused_pallas`` (TPU kernel ``_fused_kernel``): float
   activations, quantized in the kernel's prologue;
 * ``cim_matmul_int8`` replaces ``cim_matmul_pallas`` (TPU kernel
   ``_kernel``): activations already quantized to int8, a scalar scale
-  epilogue, any K and N (the kernel masks the ragged edges).
+  epilogue, any K and N, on the int8 tensor cores (``cim_int8_plan`` picks
+  the block tile and the aligned or masked load path).
 
 ``cim_matmul_fused`` takes the float activation (M, K), quantizes it
 against the scalar ``x_scale`` (round half to even, clip at +-qmax), takes
@@ -34,6 +35,32 @@ import torch
 from repro_torch.core import prng, quant
 from repro_torch.core.cim import MACRO_ROWS
 from repro_torch.kernels import _build
+from repro_torch.kernels._attn import SM_COUNT
+
+INT8_BLOCK_N = 128       # output columns a block of the int8 kernel
+INT8_STAGE_K = 128       # K bytes a pipeline stage (eight to a macro tile)
+
+
+def cim_int8_plan(m: int, k: int, n: int, x_ptr: int = 0,
+                  w_ptr: int = 0, noise: bool = True) -> dict:
+    """Launch plan of the int8 kernel: ``block_m`` x ``INT8_BLOCK_N`` output
+    tiles, ``block_m`` the smallest of 32, 64 whose grid fits one wave
+    (``SM_COUNT`` blocks: a block's stages run in series, so a smaller tile
+    shortens the wave), else 128 with ``noise`` and 64 without (then two
+    64-row blocks share an SM, the noise's shared slots left out, and ran
+    faster on the H100 than one 128-row block, PERF.md); the cp.async
+    path (``aligned``) when K and N are multiples of 16 and both operands
+    start on 16 bytes, else masked byte loads; ``stages`` of
+    ``INT8_STAGE_K`` bytes over K and ``tiles`` macro tiles (noise draws per
+    output)."""
+    cols = -(-n // INT8_BLOCK_N)
+    bm = next((b for b in (32, 64) if cols * -(-m // b) <= SM_COUNT),
+              128 if noise else 64)
+    aligned = k % 16 == 0 and n % 16 == 0 and x_ptr % 16 == 0 \
+        and w_ptr % 16 == 0
+    return {"block_m": bm, "block_n": INT8_BLOCK_N,
+            "grid": (cols, -(-m // bm)), "aligned": aligned,
+            "stages": -(-k // INT8_STAGE_K), "tiles": -(-k // MACRO_ROWS)}
 
 
 def _tile_sums(xq: torch.Tensor, wq: torch.Tensor,
@@ -163,15 +190,20 @@ def cim_matmul_int8(xq: torch.Tensor, wq: torch.Tensor, seed: Seed,
         raise ValueError("xq and wq must be on one device")
     xq = xq.contiguous()
     wq = wq.contiguous()
-    qp = torch.stack([torch.ones((), dtype=torch.float32, device=xq.device),
-                      _scale_tensor(scale, xq.device)])
+    # a device scale is read by the kernel where it lies (no launch to
+    # pack it); a host one travels as an argument
+    sc = (_scale_tensor(scale, xq.device)
+          if isinstance(scale, torch.Tensor) else None)
     words = resolve_seed(seed)
     noise = words is not None and sigma > 0.0
     s0, s1 = words if noise else (0, 0)
     out = torch.empty((m, n), dtype=torch.float32, device=xq.device)
+    plan = cim_int8_plan(m, k, n, xq.data_ptr(), wq.data_ptr(), noise)
     rc = _build.library().cim_matmul_int8(
-        xq.data_ptr(), wq.data_ptr(), qp.data_ptr(), out.data_ptr(), m, k, n,
-        float(sigma) if noise else 0.0, s0, s1, int(noise),
+        xq.data_ptr(), wq.data_ptr(), None if sc is None else sc.data_ptr(),
+        1.0 if scale is None or sc is not None else float(scale),
+        out.data_ptr(), m, k, n, float(sigma) if noise else 0.0, s0, s1,
+        int(noise), plan["block_m"], int(plan["aligned"]),
         _build.stream_ptr(xq.device))
     _build.check(rc, "cim_matmul_int8")
     cim_matmul_int8.launches += 1

@@ -11,8 +11,8 @@ values (training and cross-attention shapes, heads folded into rows),
 causal or not, with optional per-row start offsets (causal only), head dims
 64 and 128, float32 or bfloat16. CPU tensors take ``flash_attention_plain``,
 which follows the kernel's arithmetic (online softmax over the same blocks
-of ``MHA_BLOCK_K`` keys, p rounded to v's dtype before p @ V); CUDA tensors
-launch the kernel or raise.
+of ``MHA_BLOCK_K[dtype]`` keys, p rounded to v's dtype before p @ V); CUDA
+tensors launch the kernel or raise.
 
 Queries (B, S, H, D) of the S freshly written tokens against the
 (B, T, KV, D) slot cache; query i of row b sits at ``start[b] + i`` and
@@ -36,7 +36,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._attn import (SM_TARGET, arrival_counters,
+from repro_torch.kernels._attn import (HEAD_DIMS, SM_TARGET,
+                                       arrival_counters,
                                        check_cache_operands)
 
 BLOCK_K = 32       # keys per step (a key block)
@@ -76,10 +77,42 @@ def flash_gqa_plan(b: int, s: int, t: int, h: int, kv: int, d: int,
             "part_ml": (b * kv * n_q * n_split, MMA_ROWS, 2),
             "counters": b * kv * n_q}
 
-MHA_BLOCK_K = 32                    # keys per step of the MHA kernel
-MHA_BLOCK_Q = {64: 32, 128: 16}     # query rows per block, by head dim
+MHA_BLOCK_Q = 64      # query rows per block of the MHA kernel (both bodies)
+# keys per key block, by dtype: the tensor-core body (bf16) measured faster
+# at 32 than at 64 on the H100 (PERF.md); the f32 body's tile is 64
+MHA_BLOCK_K = {torch.bfloat16: 32, torch.float32: 64}
 MHA_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 NEG_INF = -1e30
+
+
+def flash_mha_plan(bh: int, s: int, t: int, d: int,
+                   dtype: torch.dtype) -> dict:
+    """Launch plan of the MHA kernel: ``MHA_BLOCK_Q`` query rows and
+    ``block_k`` = ``MHA_BLOCK_K[dtype]`` keys per block of the count
+    witness, ``n_q`` q blocks, and for the tensor-core body (bf16) the
+    key blocks of a q block in groups of ``kbps`` over ``n_split`` blocks:
+    split until the grid (n_split, n_q, BH) reaches about ``SM_TARGET``
+    blocks, at most ``MAX_SPLITS``. The f32 body takes one block per (q
+    block, row): grid (n_q, BH)."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: kernel takes head_dim in "
+                         f"{HEAD_DIMS}, got {d}")
+    n_q = -(-s // MHA_BLOCK_Q)
+    mma = dtype == torch.bfloat16
+    block_k = MHA_BLOCK_K[dtype]
+    n_kb = -(-t // block_k)
+    if mma:
+        want = min(-(-SM_TARGET // (n_q * bh)), MAX_SPLITS)
+        kbps = -(-n_kb // want)
+        n_split = -(-n_kb // kbps)
+        grid = (n_split, n_q, bh)
+    else:
+        kbps, n_split, grid = n_kb, 1, (n_q, bh)
+    return {"block_q": MHA_BLOCK_Q, "block_k": block_k, "n_q": n_q,
+            "kbps": kbps, "n_split": n_split, "grid": grid,
+            "part_o": (bh * n_q * n_split, MMA_ROWS, d),
+            "part_ml": (bh * n_q * n_split, MMA_ROWS, 2),
+            "counters": bh * n_q}
 
 
 def flash_gqa_plain(q, k, v, start=None, ks=None, vs=None) -> torch.Tensor:
@@ -159,8 +192,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           start: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version of the MHA kernel, in its arithmetic: f32 scores
     times 1/sqrt(D), masked to -1e30, online softmax over blocks of
-    ``MHA_BLOCK_K`` keys in order, p rounded to v's dtype before p @ V, f32
-    sums, denominator max(l, 1e-30), output in q's dtype. Blocks past a
+    ``MHA_BLOCK_K[q.dtype]`` keys (64 for other dtypes) in order, p rounded
+    to v's dtype before p @ V, f32 sums, denominator max(l, 1e-30), output
+    in q's dtype. Blocks past a
     causal frontier are fully masked here, where the kernel skips them: they
     add p = 0 and alpha = 1 exactly (block 0 holds key 0, live in every row,
     so the running max is finite from the first block on)."""
@@ -178,9 +212,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = torch.full((bh, s), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((bh, s), dtype=torch.float32, device=q.device)
     acc = torch.zeros((bh, s, d), dtype=torch.float32, device=q.device)
-    for j0 in range(0, t, MHA_BLOCK_K):
-        kb = k[:, j0:j0 + MHA_BLOCK_K].to(torch.float32)
-        vb = v[:, j0:j0 + MHA_BLOCK_K].to(torch.float32)
+    bk = MHA_BLOCK_K.get(q.dtype, MHA_BLOCK_K[torch.float32])
+    for j0 in range(0, t, bk):
+        kb = k[:, j0:j0 + bk].to(torch.float32)
+        vb = v[:, j0:j0 + bk].to(torch.float32)
         sc = torch.einsum("bsd,btd->bst", qf, kb) * scale
         kj = torch.arange(j0, j0 + kb.shape[1], device=q.device)
         live = kj[None, None, :] < kv_end[:, None, None]
@@ -202,7 +237,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     return_block_counts: bool = False):
     """(BH, S, D) queries, (BH, T, D) keys and values -> (BH, S, D) in q's
     dtype [, (BH, n_q) int32 counts of the key blocks each query block of
-    ``MHA_BLOCK_Q[D]`` rows visited, in blocks of ``MHA_BLOCK_K`` keys]."""
+    ``MHA_BLOCK_Q`` rows visited, in blocks of ``MHA_BLOCK_K[q.dtype]``
+    keys, summed over the blocks its key range is split over]."""
     if start is not None and not causal:
         raise ValueError("per-row start offsets require causal attention")
     if q.device.type == "cpu":
@@ -212,6 +248,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_plain(q, k, v, causal, start)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    out, counts = flash_mha_launch(q, k, v, causal, start,
+                                   return_block_counts)
+    return (out, counts) if return_block_counts else out
+
+
+def flash_mha_launch(q, k, v, causal, start, with_counts):
+    """Check the CUDA operands, plan (``flash_mha_plan``) and launch the MHA kernel once; returns (out, counts or None)."""
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
         raise ValueError(f"flash_attention: q (BH, S, D), k and v (BH, T, D), "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -221,9 +264,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[0] != bh or k.shape[2] != d:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)} differ in BH or D")
-    if d not in MHA_BLOCK_Q:
-        raise ValueError(f"flash_attention: kernel takes head_dim in "
-                         f"{sorted(MHA_BLOCK_Q)}, got {d}")
     if q.dtype not in MHA_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: q, k, v must share one dtype of "
                          f"float32 or bfloat16, got {q.dtype}, {k.dtype}, "
@@ -232,26 +272,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention: operands on different devices")
     if s == 0 or t == 0:
         raise ValueError(f"flash_attention: empty S={s} or T={t}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    bounded = start is not None
-    st = (start.to(device=q.device, dtype=torch.int32).reshape(-1).contiguous()
-          if bounded else None)
-    if bounded and st.numel() != bh:
-        raise ValueError(f"flash_attention: start has {st.numel()} rows, "
-                         f"q has {bh}")
+    plan = flash_mha_plan(bh, s, t, d, q.dtype)
+    # the kernels copy rows in 16-byte pieces: a view whose data does not
+    # start on 16 bytes is copied to a fresh (aligned) tensor
+    q, k, v = (x.contiguous() for x in (q, k, v))
+    q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v))
+    st = None
+    if start is not None:
+        st = start.to(device=q.device, dtype=torch.int32).reshape(-1)
+        st = st.contiguous()
+        if st.numel() != bh:
+            raise ValueError(f"flash_attention: start has {st.numel()} rows, "
+                             f"q has {bh}")
     out = torch.empty_like(q)
-    n_q = -(-s // MHA_BLOCK_Q[d])
-    counts = (torch.empty((bh, n_q), dtype=torch.int32, device=q.device)
-              if return_block_counts else None)
+    counts = (torch.zeros((bh, plan["n_q"]), dtype=torch.int32,
+                          device=q.device) if with_counts else None)
+    part_o = part_ml = counters = None
+    if plan["n_split"] > 1:
+        part_o = torch.empty(plan["part_o"], dtype=torch.float32,
+                             device=q.device)
+        part_ml = torch.empty(plan["part_ml"], dtype=torch.float32,
+                              device=q.device)
+        counters = arrival_counters(q.device, plan["counters"])
+    ptr = (lambda x: None if x is None else x.data_ptr())
     rc = _build.library().flash_mha(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if st is None else st.data_ptr(), out.data_ptr(),
-        None if counts is None else counts.data_ptr(), bh, s, t, d,
-        int(causal), int(bounded), MHA_DTYPES[q.dtype], 1.0 / math.sqrt(d),
-        _build.stream_ptr(q.device))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(st), out.data_ptr(),
+        ptr(counts), ptr(part_o), ptr(part_ml), ptr(counters), bh, s, t, d,
+        int(causal), MHA_DTYPES[q.dtype], plan["kbps"], plan["n_split"],
+        1.0 / math.sqrt(d), _build.stream_ptr(q.device))
     _build.check(rc, "flash_attention")
     flash_attention.launches += 1
-    return (out, counts) if return_block_counts else out
+    return out, counts
 
 
 flash_attention.launches = 0

@@ -26,7 +26,9 @@ from repro.kernels import ref as jref
 from repro.kernels.cim_matmul import cim_matmul_pallas
 from repro_torch.core import cim, prng, quant
 from repro_torch.kernels import ops
-from repro_torch.kernels.cim_matmul import (cim_matmul_int8,
+from repro_torch.kernels._attn import SM_COUNT
+from repro_torch.kernels.cim_matmul import (INT8_BLOCK_N, cim_int8_plan,
+                                            cim_matmul_int8,
                                             cim_matmul_int8_plain,
                                             resolve_seed)
 
@@ -187,3 +189,46 @@ def test_cim_matmul_raises_above_eight_bits(bits):
     spec = cim.CIMSpec(in_bits=bits[0], w_bits=bits[1])
     with pytest.raises(ValueError, match="8 bits"):
         ops.cim_matmul(torch.randn(4, 64), torch.randn(64, 8), spec, None)
+
+
+@pytest.mark.parametrize("noise", [True, False])
+@pytest.mark.parametrize("k,n,block_m,grid", [
+    (896, 896, 64, (7, 16)),        # q, o: one wave at 64 rows
+    (896, 128, 32, (1, 32)),        # k, v: 32-row blocks, twice the SMs
+    (896, 4864, 128, (38, 8)),      # gate, up: more than a wave at any
+    (4864, 896, 64, (7, 16)),       # down: five macro tiles
+])
+def test_int8_plan_at_the_qwen2_projections(k, n, block_m, grid, noise):
+    """The int8 kernel's plan at qwen2-0.5b's projections (M = 1024): the
+    smallest block height whose grid fits one wave of the SMs, else 128
+    with noise and 64 without; the cp.async path; K stages of 128 bytes
+    and its macro tiles."""
+    if block_m == 128 and not noise:
+        block_m, grid = 64, (grid[0], 16)
+    plan = cim_int8_plan(1024, k, n, noise=noise)
+    assert (plan["block_m"], plan["grid"]) == (block_m, grid)
+    assert plan["block_n"] == INT8_BLOCK_N == 128
+    assert plan["aligned"] and plan["stages"] == -(-k // 128)
+    assert plan["tiles"] == -(-k // 1024)
+    if grid[0] * grid[1] <= SM_COUNT:
+        assert grid[0] * -(-1024 // (block_m // 2)) > SM_COUNT \
+            or block_m == 32
+    else:
+        assert grid[0] * -(-1024 // 64) > SM_COUNT
+
+
+@pytest.mark.parametrize("m,k,n,x_off,w_off,aligned", [
+    (100, 2048, 130, 0, 0, False),  # N not a multiple of 16
+    (1, 1024, 1, 0, 0, False),
+    (8, 512, 8, 0, 0, False),
+    (33, 2 * 512 + 61, 77, 0, 0, False),   # ragged K and N
+    (64, 1040, 96, 1, 0, False),    # xq off 16 bytes
+    (64, 1040, 96, 0, 8, False),    # wq off 16 bytes
+    (64, 1040, 96, 32, 48, True),   # both on 16 bytes
+])
+def test_int8_plan_masks_ragged_or_unaligned(m, k, n, x_off, w_off,
+                                             aligned):
+    """The B2 ragged shapes and unaligned operands take the masked loads."""
+    plan = cim_int8_plan(m, k, n, 4096 + x_off, 4096 + w_off)
+    assert plan["aligned"] == aligned
+    assert plan["grid"] == (-(-n // 128), -(-m // plan["block_m"]))

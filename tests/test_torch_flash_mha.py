@@ -21,9 +21,12 @@ import torch
 
 from repro.kernels.flash_attention import flash_attention as jflash
 from repro.kernels.ref import flash_attention_ref
-from repro_torch.kernels.flash_attention import (MHA_BLOCK_K,
+from repro_torch.kernels._attn import SM_TARGET
+from repro_torch.kernels.flash_attention import (MAX_SPLITS, MHA_BLOCK_K,
+                                                 MHA_BLOCK_Q,
                                                  flash_attention,
-                                                 flash_attention_plain)
+                                                 flash_attention_plain,
+                                                 flash_mha_plan)
 
 FLASH_SHAPES = [
     (4, 256, 256, 64, True),    # square causal, block-aligned
@@ -115,7 +118,7 @@ def test_plain_is_block_invariant_in_f32():
     mask = torch.arange(70)[None, :] <= torch.arange(70)[:, None]
     p = torch.softmax(torch.where(mask, sc, torch.tensor(-1e30)), -1)
     torch.testing.assert_close(y, p @ tv, rtol=2e-5, atol=2e-5)
-    assert MHA_BLOCK_K < 70          # more than one key block was walked
+    assert MHA_BLOCK_K[torch.float32] < 70   # more than one key block walked
 
 
 def test_start_without_causal_raises():
@@ -132,3 +135,78 @@ def test_block_counts_on_cpu_raise():
     q = torch.zeros((2, 4, 64))
     with pytest.raises(ValueError, match="block counts"):
         flash_attention(q, q, q, return_block_counts=True)
+
+
+# the chip smoke test's five MHA shapes (BH, S, T, D, causal, starts per
+# row or None) and, for bf16, the key blocks a q block splits over
+B5_SHAPES = [
+    ((112, 128, 128, 64, True, None), 2),
+    ((56, 32, 320, 64, True, [0, 96, 160, 288] * 14), 5),
+    ((384, 65, 65, 64, False, None), 1),
+    ((16, 512, 1536, 128, False, None), 3),
+    ((16, 2048, 2048, 128, True, None), 1),
+]
+
+
+def _visited(plan, bh, s, t, causal, starts):
+    """Key blocks each q block visits, summed over its splits, as the
+    kernel's blocks walk them: split sp takes key blocks [sp * kbps,
+    (sp + 1) * kbps) below the q block's frontier."""
+    bq, bk, kbps = plan["block_q"], plan["block_k"], plan["kbps"]
+    out = []
+    for b in range(bh):
+        st = 0 if starts is None else starts[b]
+        kv_end = min(t, st + s) if causal else t
+        row = []
+        for i in range(plan["n_q"]):
+            npos = min(bq, s - i * bq)
+            front = min(st + i * bq + npos, kv_end) if causal else kv_end
+            nkb = -(-front // bk)
+            row.append(sum(min(sp * kbps + kbps, nkb) - sp * kbps
+                           for sp in range(plan["n_split"])
+                           if sp * kbps < nkb))
+        out.append(row)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,splits", B5_SHAPES)
+def test_mha_plan_at_the_b5_shapes(dtype, shape, splits):
+    """The launch plan at the main shapes: 64-row q blocks, the dtype's key
+    block, bf16 key ranges split until the grid reaches SM_TARGET blocks
+    (at most MAX_SPLITS), f32 unsplit; the splits cover every key block
+    once, so the summed counts equal the closed form the card checks."""
+    bh, s, t, d, causal, starts = shape
+    plan = flash_mha_plan(bh, s, t, d, dtype)
+    n_q = -(-s // MHA_BLOCK_Q)
+    n_kb = -(-t // MHA_BLOCK_K[dtype])
+    assert plan["block_q"] == MHA_BLOCK_Q == 64
+    assert plan["block_k"] == MHA_BLOCK_K[dtype] and plan["n_q"] == n_q
+    if dtype == torch.float32:
+        assert plan["n_split"] == 1 and plan["grid"] == (n_q, bh)
+    else:
+        assert plan["n_split"] == splits <= MAX_SPLITS
+        assert plan["grid"] == (splits, n_q, bh)
+        assert (splits - 1) * plan["kbps"] < n_kb <= splits * plan["kbps"]
+        assert splits == 1 or splits * n_q * bh >= SM_TARGET \
+            or splits == MAX_SPLITS or plan["kbps"] == 1
+        assert plan["part_o"] == (bh * n_q * splits, 64, d)
+    st = [0] * bh if starts is None else starts
+    bk = plan["block_k"]
+    closed = [[-(-min(st[b] + min((i + 1) * 64, s), t) // bk) if causal
+               else -(-t // bk) for i in range(n_q)] for b in range(bh)]
+    assert _visited(plan, bh, s, t, causal, starts) == closed
+
+
+@pytest.mark.parametrize("bh,s,t,d,want", [
+    (2, 64, 1000, 128, (16, 2)),     # capped at MAX_SPLITS
+    (1, 1, 1, 64, (1, 1)),           # one key
+    (300, 64, 4096, 64, (1, 128)),   # a full grid: no split
+])
+def test_mha_plan_split_edges(bh, s, t, d, want):
+    plan = flash_mha_plan(bh, s, t, d, torch.bfloat16)
+    assert (plan["n_split"], plan["kbps"]) == want
+    with pytest.raises(ValueError, match="64, 128"):
+        flash_mha_plan(bh, s, t, 96, torch.bfloat16)
+    f32 = flash_mha_plan(bh, s, t, d, torch.float32)   # never split
+    assert (f32["block_k"], f32["n_split"]) == (64, 1)

@@ -41,7 +41,8 @@ from repro_torch.configs.registry import get_config
 from repro_torch.core import cim, quant, sac
 from repro_torch.core.deploy import init_params
 from repro_torch.kernels import ops
-from repro_torch.kernels.cim_matmul import (cim_matmul_fused,
+from repro_torch.kernels.cim_matmul import (cim_int8_plan,
+                                            cim_matmul_fused,
                                             cim_matmul_fused_plain,
                                             cim_matmul_int8,
                                             cim_matmul_int8_plain)
@@ -51,6 +52,7 @@ from repro_torch.kernels.decode_attention import (decode_attention,
 from repro_torch.kernels.flash_attention import (MHA_BLOCK_K, MHA_BLOCK_Q,
                                                  flash_attention,
                                                  flash_attention_plain,
+                                                 flash_mha_plan,
                                                  flash_gqa_attention,
                                                  flash_gqa_plain,
                                                  flash_gqa_plan)
@@ -467,6 +469,40 @@ def test_cim_int8_kernel_matches_plain(cuda, m, k, n):
     assert cim_matmul_int8.launches == 3
 
 
+@pytest.mark.parametrize("m,k,n,offsets", [
+    (100, 1024, 256, (0, 0)),       # aligned, 32-row blocks, M ragged
+    (1024, 1280, 896, (0, 0)),      # aligned, 64-row blocks, two tiles
+    (1024, 896, 4864, (0, 0)),      # aligned, 128-row blocks with noise,
+                                    # 64 without (gate / up)
+    (130, 2048 + 16, 272, (0, 0)),  # three macro tiles, ragged last tile
+    (64, 1040, 96, (1, 0)),         # K, N multiples of 16, xq unaligned
+    (40, 1024, 48, (0, 3)),         # wq unaligned
+    (7, 1100, 33, (0, 0)),          # ragged K and N
+    (1000, 520, 900, (0, 0)),       # masked, 64-row blocks
+    (2048, 100, 4100, (0, 0))])     # masked, 128 / 64-row blocks
+def test_cim_int8_kernel_paths_match_plain(cuda, m, k, n, offsets):
+    """Both load paths and the three block heights against the plain
+    version: exact without noise, within the JAX package's slack with it."""
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    # contiguous views that start offsets[i] bytes into a fresh buffer
+    xb = torch.randint(-127, 128, (m * k + offsets[0],), generator=g,
+                       device=cuda, dtype=torch.int8)
+    wb = torch.randint(-127, 128, (k * n + offsets[1],), generator=g,
+                       device=cuda, dtype=torch.int8)
+    xq = xb[offsets[0]:].view(m, k)
+    wq = wb[offsets[1]:].view(k, n)
+    plan = cim_int8_plan(m, k, n, xq.data_ptr(), wq.data_ptr())
+    assert plan["aligned"] == (k % 16 == 0 and n % 16 == 0
+                               and offsets == (0, 0))
+    scale = torch.tensor(0.0125, device=cuda)
+    assert torch.equal(cim_matmul_int8(xq, wq, None, 0.0, scale),
+                       cim_matmul_int8_plain(xq, wq, None, 0.0, scale))
+    seed = (0x2468ACE0, 0x13579BDF)
+    torch.testing.assert_close(cim_matmul_int8(xq, wq, seed, 2.5, scale),
+                               cim_matmul_int8_plain(xq, wq, seed, 2.5, scale),
+                               rtol=5e-6, atol=2e-3 * 0.0125)
+
+
 def test_cim_matmul_ste_on_card(cuda):
     spec = sac.paper_sac().mlp
     g = torch.Generator(device=cuda).manual_seed(4)
@@ -496,10 +532,11 @@ def test_cim_matmul_ste_on_card(cuda):
                                rtol=1e-6, atol=0)
 
 
-def mha_counts(bh, s, t, d, causal, start):
-    """Closed form of the MHA kernel's block counts: causal query block i
-    visits the key blocks up to its frontier, non-causal every block."""
-    bq, bk = MHA_BLOCK_Q[d], MHA_BLOCK_K
+def mha_counts(bh, s, t, d, causal, start, dtype):
+    """Closed form of the MHA kernel's block counts (summed over a q
+    block's splits): causal query block i visits the key blocks up to its
+    frontier, non-causal every block."""
+    bq, bk = MHA_BLOCK_Q, MHA_BLOCK_K[dtype]
     n_q = -(-s // bq)
     st = [0] * bh if start is None else start.tolist()
     if not causal:
@@ -538,7 +575,33 @@ def test_flash_mha_kernel_matches_plain(cuda, dtype, bh, s, t, d, causal,
     assert flash_attention.launches == 1 and out.dtype == dtype
     ref = flash_attention_plain(q, k, v, causal, st)
     assert not mha_rows_off(out, ref, dtype).any()
-    assert counts.tolist() == mha_counts(bh, s, t, d, causal, st)
+    assert counts.tolist() == mha_counts(bh, s, t, d, causal, st, dtype)
+
+
+@pytest.mark.parametrize("bh,s,t,d,causal,start", [
+    (56, 32, 320, 64, True, [0, 96, 160, 288] * 14),  # five splits, starts
+    (2, 64, 1000, 128, False, None),     # non-causal T > S, 16 splits
+    (3, 200, 77, 64, False, None),       # non-causal T < S, ragged
+    (2, 40, 50, 128, True, [30, 5]),     # frontier past T
+    (4, 129, 129, 64, True, None)])      # one query past a q block
+def test_flash_mha_splits_match_plain(cuda, bh, s, t, d, causal, start):
+    """The bf16 body, split over blocks where the grid is small, against
+    the plain version (2^-7 of the row max); counts summed over the splits
+    equal the closed form."""
+    g = torch.Generator(device=cuda).manual_seed(bh + s + t)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).bfloat16()
+               for shape in ((bh, s, d), (bh, t, d), (bh, t, d)))
+    st = (None if start is None
+          else torch.tensor(start, dtype=torch.int32, device=cuda))
+    assert flash_mha_plan(bh, s, t, d, torch.bfloat16)["n_split"] > 1
+    flash_attention.launches = 0
+    out, counts = flash_attention(q, k, v, causal, st,
+                                  return_block_counts=True)
+    assert flash_attention.launches == 1
+    ref = flash_attention_plain(q, k, v, causal, st)
+    assert not mha_rows_off(out, ref, torch.bfloat16).any()
+    assert counts.tolist() == mha_counts(bh, s, t, d, causal, st,
+                                         torch.bfloat16)
 
 
 def test_flash_mha_head_dims(cuda):
