@@ -24,9 +24,11 @@ must catch) and the CIM kernel at deepseek-v2's shapes, card-vs-CPU greedy
 tokens of the reduced deepseek-v2 in off and sim mode, deepseek-v2-236b at
 every published width and 4 of its 60 layers served with exact launch
 counts and its peak memory, a profile of one decode step and the kernel's
-times (CUDA events) beside one scaled_dot_product_attention call. The
-f32-query GQA prefill of the float32 cells is held against its plain
-version and timed at their chunk shape beside SDPA in f32. Last, the two
+times (CUDA events) beside one scaled_dot_product_attention call and the
+earlier body's time. The f32-query GQA prefill of the float32 cells is
+held against its plain version, its block counts against their closed
+form, and timed at their chunk shape beside SDPA in f32 and the earlier
+body's time. Last, the two
 entry-point kernels at qwen2-0.5b width: the int8 CIM kernel against its
 plain version at the seven projections (M = 1024) and at ragged shapes
 (with a shifted-tile variant that the tolerance must catch), the
@@ -1370,6 +1372,16 @@ def phase_times_fused(params32):
     return res
 
 
+# the two kernels' times before their split-key designs (CUDA events, the
+# last chip_smoke.py run of the earlier bodies, H100 80GB HBM3 at 700 W):
+# the f32 queries of the GQA prefill on a CUDA-core body of scalar shared
+# loads, MLA on 4-head CUDA-core blocks walking every key tile; printed
+# beside the new times for comparison, not measured here
+PREVIOUS_GQA_F32_MLA_MS = {"flash_gqa[f32]": 1.722,
+                           "flash_gqa[f32,int8]": 1.739,
+                           "mla_decode_attention": 0.312}
+
+
 def phase_times_gqa_f32():
     """The f32-query GQA prefill of the float32 cells C (f32 cache) and D
     (int8 cache): one 32-token chunk (24 layers, start 128, qwen2-0.5b
@@ -1378,18 +1390,20 @@ def phase_times_gqa_f32():
     2e-5 |ref| per element; the max abs error returned), whose reach is
     checked on the plain version (a result that drops each query's last 32
     visible keys must fail every row), timed with CUDA events (queued_ms)
-    and the profiler, beside its plain version, one
+    and the profiler, beside the earlier body's time, its plain version, one
     scaled_dot_product_attention call per layer in f32 on the f32 cache
     (enable_gqa, a boolean mask; its events time the host - the calls do
     not queue behind the kernel - so ``library_ms`` is the profiler's
     device time and the events figure is kept as
     ``library_host_bound_queued_ms``), and the bound: the live cache rows (and int8 scales) and the queries in
     and out over 3.35 TB/s against 4 D operations per live (query head,
-    key) pair over the f32 peak."""
+    key) pair over the f32 peak. The block counts of one launch equal
+    their closed form (flash_counts), and the launch plan is printed."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_gqa_attention,
-                                                     flash_gqa_plain)
+                                                     flash_gqa_plain,
+                                                     flash_gqa_plan)
     cfg = full_config32(False)
     L, h, kv, hd = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     t, s, start = 320, 32, 128
@@ -1426,6 +1440,13 @@ def phase_times_gqa_f32():
         if reach < 1.0:
             fail(f"flash_gqa f32 q tolerance too loose: dropping the last "
                  f"32 visible keys fails only {reach:.3f} of the rows")
+        counts = flash_gqa_attention(qf, *caches[0][:2], st, *caches[0][2:],
+                                     return_block_counts=True)[1]
+        want = flash_counts(qf, caches[0][0], kv, start)
+        if counts[0].tolist() != want:
+            fail(f"flash_gqa f32 q block counts {counts[0].tolist()} != "
+                 f"closed form {want}")
+        plan = flash_gqa_plan(1, s, t, h, kv, hd, False)
         esz = 1 if int8 else 4
         nbytes = L * (2 * keys * kv * hd * esz + (2 * keys * kv * 4 if int8
                                                   else 0) + 2 * qf.numel() * 4)
@@ -1453,9 +1474,16 @@ def phase_times_gqa_f32():
             bound_ms=1e3 * max(nbytes / HBM_BPS, ops / FP32_OPS),
             bound_by="bytes" if nbytes / HBM_BPS >= ops / FP32_OPS
             else "operations",
+            previous_body_ms=PREVIOUS_GQA_F32_MLA_MS[
+                "flash_gqa[f32" + (",int8]" if int8 else "]")],
             unit=f"one prefill chunk of cell {'D' if int8 else 'C'}: {L} "
                  f"layers, S={s}, start={start}, f32 queries",
-            launches_per_chunk=L)
+            launches_per_chunk=L,
+            plan={k: plan[k] for k in ("block_q", "block_k", "n_q", "kbps",
+                                       "n_split", "grid")},
+            blocks_reading_keys=sum(-(-c // plan["kbps"])
+                                    for row in want for c in row),
+            block_counts=want)
         errs[name] = worst
         emit("time", kernel=name, **res[name], bytes=nbytes, f32_ops=ops,
              max_abs_err=worst, tol="2e-5+2e-5*|ref|",
@@ -1975,14 +2003,17 @@ def phase_times_mla():
     layer its own cache, lens 301/138/96/212), the plain version's, one
     scaled_dot_product_attention call per layer over the same inputs (the
     yardstick: query [q_lat | q_rope], key [ckv | krope] and value ckv
-    broadcast over the heads, a boolean length mask), and the bound: the
-    f32 operations (2 (L + R) per score and 2 L per weighted latent row, per
-    head and live key) over the f32 peak against the live latent and rope
-    rows, queries and outputs over 3.35 TB/s."""
+    broadcast over the heads, a boolean length mask), the earlier body's
+    time, and the bound of the tensor-core body: the live latent and rope
+    rows, queries and outputs over 3.35 TB/s against the operations (2 (L +
+    R) per score and 2 L per weighted latent row, per head and live key)
+    over the bf16 peak; the f32-operations figure of the CUDA-core design
+    beside it."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.mla_decode import (mla_decode_attention,
-                                                mla_decode_attention_plain)
+                                                mla_decode_attention_plain,
+                                                mla_decode_plan)
     b, h, lat, rope, t = 4, 128, 512, 64, 320
     layers = [mla_inputs(torch.bfloat16, MLA_LENS, t, 70 + i)
               for i in range(MLA_LAYERS)]
@@ -2019,11 +2050,19 @@ def phase_times_mla():
     k_ms = queued_ms(run_k, 10)
     lib_ms = queued_ms(run_lib, 10)
     p_ms = device_ms(run_p, 3)
-    bound = 1e3 * max(nbytes / HBM_BPS, ops / FP32_OPS)
+    bound = 1e3 * max(nbytes / HBM_BPS, ops / BF16_OPS)
+    plan = mla_decode_plan(b, h, t, lat, torch.bfloat16)
     res = dict(ms=k_ms, profiler_ms=device_ms(run_k, 10),
                wall_ms=wall_ms(run_k, 10), plain_ms=p_ms, bound_ms=bound,
-               bound_by="bytes" if nbytes / HBM_BPS >= ops / FP32_OPS
-               else "operations", library_ms=lib_ms,
+               bound_by="bytes" if nbytes / HBM_BPS >= ops / BF16_OPS
+               else "operations",
+               bound_f32_ops_ms=1e3 * ops / FP32_OPS,
+               bound_bytes_ms=1e3 * nbytes / HBM_BPS,
+               previous_body_ms=PREVIOUS_GQA_F32_MLA_MS[
+                   "mla_decode_attention"],
+               plan={k: plan[k] for k in ("heads", "block_k", "kbps",
+                                          "n_split", "grid")},
+               library_ms=lib_ms,
                library_profiler_ms=device_ms(run_lib, 3),
                library="scaled_dot_product_attention, bf16, kernels "
                        + ", ".join(top_kernels(run_lib)),
@@ -2031,7 +2070,7 @@ def phase_times_mla():
                     f"L={lat}, R={rope}, T={t}, lens {list(MLA_LENS)}, bf16",
                launches_per_decode_step=MLA_LAYERS)
     emit("time", kernel="mla_decode_attention", **res, bytes=nbytes,
-         f32_ops=ops)
+         ops=ops)
     return {"mla_decode_attention": res}
 
 

@@ -1,8 +1,8 @@
-// Device helpers of the split-key GQA attention kernels
-// (decode_attention.cu, the bf16 body of flash_gqa.cu): 16-byte cp.async
-// copies into shared memory with zero fill, ldmatrix loads, the bf16
-// m16n8k16 tensor-core product with f32 accumulation, and the partial
-// merge of a key range split over blocks.
+// Device helpers of the split-key attention kernels (decode_attention.cu,
+// the flash bodies flash_mma.cuh and flash_f32.cuh, mla_decode.cu):
+// 16-byte cp.async copies into shared memory with zero fill, ldmatrix
+// loads, the bf16 m16n8k16 tensor-core product with f32 accumulation, and
+// the partial merge of a key range split over blocks.
 //
 // cp.async with a source size of 0 writes zeros: keys at or past a row's
 // bound are never read from device memory, and the shared tile holds zeros
@@ -12,6 +12,10 @@
 #include "common.cuh"
 
 namespace rt {
+
+// blocks the key range of a flash q block splits over, at most (the merge
+// weights' buffer; kernels/flash_attention.py MAX_SPLITS)
+constexpr int FLASH_MAX_SPLITS = 16;
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -49,6 +53,12 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
                "[%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
+}
+
+// two 8x8 b16 matrices; lanes 0-15 address rows of matrix lane / 8
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_addr(p)));
 }
 
 __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {

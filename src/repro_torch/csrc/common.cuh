@@ -14,6 +14,8 @@
 
 namespace rt {
 
+constexpr float NEG_INF = -1e30f;   // the masked score of the attention kernels
+
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_float(int8_t v) { return (float)v; }

@@ -48,7 +48,6 @@
 // the running max of the block's own key range rather than the whole row's;
 // the denominator sums the unrounded p. The plain version's tolerance
 // (2^-6 of each head's row max) covers the difference.
-#include "attn_common.cuh"
 #include "attn_mma.cuh"
 
 namespace {

@@ -35,13 +35,11 @@
 //    at once.
 #pragma once
 
-#include "attn_common.cuh"
 #include "attn_mma.cuh"
 
 namespace {
 
 constexpr int MWARPS = 4, MTHREADS = 32 * MWARPS, MROWS = 16 * MWARPS;
-constexpr int MAX_SPLITS = 16;   // blocks a q block's key range at most
 // keys a key block: on the H100 a 64-key tile measured slower for MHA
 // (0.272 against 0.223 ms over its five shapes, PERF.md)
 constexpr int MBK = 32;
@@ -78,7 +76,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int BK = MBK;
   constexpr int P = L::P, NKT = D / 16, NDT = D / 8, NT = BK / 8;
   static_assert(BK % 16 == 0, "P @ V steps 16 keys");
-  static_assert(2 * MAX_SPLITS * MROWS * 4 <= L::Q * 2,
+  static_assert(2 * rt::FLASH_MAX_SPLITS * MROWS * 4 <= L::Q * 2,
                 "the merge weights fit the Q tile");
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -345,7 +343,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
   rt::merge_splits<MTHREADS, J, D == 64 ? 2 : 1>(
       part_ml + bhq * n_split * MROWS * 2, MROWS * 2,
       part_o + bhq * n_split * MROWS * D, (size_t)MROWS * D, n_live, rows,
-      rows * (D / 4), D / 4, w_s, w_s + MAX_SPLITS * MROWS, r);
+      rows * (D / 4), D / 4, w_s, w_s + rt::FLASH_MAX_SPLITS * MROWS, r);
 #pragma unroll
   for (int j = 0; j < J; ++j) {
     const int e = t + j * MTHREADS;

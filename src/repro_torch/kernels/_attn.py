@@ -59,3 +59,14 @@ def arrival_counters(device: torch.device, n: int) -> torch.Tensor:
         buf = torch.zeros((max(n, 1024),), dtype=torch.int32, device=device)
         _COUNTERS[device] = buf
     return buf
+
+
+def split_plan(n_kb: int, blocks: int, max_splits: int):
+    """The key blocks of a work item (``n_kb`` of them) in groups of
+    ``kbps`` over ``n_split`` blocks, for a grid that holds ``blocks``
+    blocks without the split: split until the grid reaches about
+    ``SM_TARGET`` blocks, at most ``max_splits`` (the merge's buffer).
+    Returns (kbps, n_split)."""
+    want = min(-(-SM_TARGET // blocks), max_splits)
+    kbps = -(-n_kb // want)
+    return kbps, -(-n_kb // kbps)

@@ -42,7 +42,7 @@ _SIGNATURES = {
     "flash_gqa": [_P] * 11 + [_I] * 11 + [_F, _P],
     "fused_dense_layer": [_P, _P],
     "ssm_decode_step": [_P] * 11 + [_I] * 8 + [_P],
-    "mla_decode_attention": [_P] * 6 + [_I] * 6 + [_F, _P],
+    "mla_decode_attention": [_P] * 9 + [_I] * 8 + [_F, _P],
     "flash_mha": [_P] * 9 + [_I] * 8 + [_F, _P],
 }
 

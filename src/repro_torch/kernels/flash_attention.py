@@ -21,9 +21,10 @@ in-kernel, the cache streams as stored (int8 dequantized in-kernel), key
 blocks past each query block's causal frontier are never read, and
 ``return_block_counts`` adds the (B, KV, n_q) count of key blocks visited
 (the kernel's blocks: ``block_q`` query positions and ``block_k`` keys of
-``flash_gqa_plan``). bf16 queries run the tensor-core body, whose key
-blocks may split over several blocks of the grid; f32 queries the
-CUDA-core body.
+``flash_gqa_plan``). bf16 queries run the tensor-core body, f32 queries
+the register-tiled CUDA-core body (each shared with the MHA kernel); in
+both the key blocks of a q block may split over several blocks of the
+grid.
 For ``flash_gqa_attention`` CPU tensors take ``flash_gqa_plain`` (twin of
 ``ref.flash_gqa_ref``); CUDA tensors launch the kernel or raise.
 """
@@ -36,51 +37,43 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._attn import (HEAD_DIMS, SM_TARGET,
-                                       arrival_counters,
-                                       check_cache_operands)
+from repro_torch.kernels._attn import (HEAD_DIMS, arrival_counters,
+                                       check_cache_operands, split_plan)
 
-BLOCK_K = 32       # keys per step (a key block)
-MMA_ROWS = 64      # query rows (positions x grouped heads) per block, bf16 q
-F32_ROWS = {64: 56, 128: 16}   # the same for f32 queries, by head dim
-F32_BLOCK_Q = 8    # query positions per block for f32 queries (at most)
+BLOCK_ROWS = 64    # query rows (positions x grouped heads) per block
 MAX_SPLITS = 16    # blocks a q block's key blocks split over, at most
+# keys per key block, by the queries' dtype (the body): the tensor-core body
+# (bf16) measured faster at 32 than at 64 on the H100 (PERF.md); the
+# register-tiled f32 body's tile is 64
+BLOCK_K = {torch.bfloat16: 32, torch.float32: 64}
 
 
 def flash_gqa_plan(b: int, s: int, t: int, h: int, kv: int, d: int,
                    tensor_cores: bool) -> dict:
-    """Launch plan of the GQA prefill kernel: ``block_q`` query positions
-    and ``block_k`` keys per block of the count witness, ``n_q`` q blocks,
-    and for the tensor-core body (bf16 queries) the key blocks of a q
-    block in groups of ``kbps`` over ``n_split`` blocks: split until the
-    grid (n_split, n_q, B * KV) reaches about ``SM_TARGET`` blocks, at
-    most ``MAX_SPLITS`` (the merge's buffer). f32
-    queries take one block per (q block, KV head, row), grid (n_q, KV, B)."""
+    """Launch plan of the GQA prefill kernel: ``block_q`` = 64 // G query
+    positions (``BLOCK_ROWS`` rows of positions x grouped heads) and
+    ``block_k`` keys (32 for the tensor-core body of bf16 queries, 64 for
+    the f32 body) per block of the count witness, ``n_q`` q blocks, and the
+    key blocks of a q block in groups of ``kbps`` over ``n_split`` blocks:
+    split until the grid (n_split, n_q, B * KV) reaches about ``SM_TARGET``
+    blocks, at most ``MAX_SPLITS`` (the merge's buffer)."""
     g = h // kv
-    rows = MMA_ROWS if tensor_cores else F32_ROWS[d]
-    if h % kv or g > rows:
+    if h % kv or g > BLOCK_ROWS:
         raise ValueError(f"flash_gqa_attention: H={h}, KV={kv} needs a group "
-                         f"of at most {rows} at head_dim {d}")
-    bq = rows // g if tensor_cores else min(F32_BLOCK_Q, rows // g)
+                         f"of at most {BLOCK_ROWS}")
+    bq = BLOCK_ROWS // g
+    block_k = BLOCK_K[torch.bfloat16 if tensor_cores else torch.float32]
     n_q = -(-s // bq)
-    n_kb = -(-t // BLOCK_K)
-    if tensor_cores:
-        want = min(-(-SM_TARGET // (n_q * kv * b)), MAX_SPLITS)
-        kbps = -(-n_kb // want)
-        n_split = -(-n_kb // kbps)
-        grid = (n_split, n_q, b * kv)
-    else:
-        kbps, n_split, grid = n_kb, 1, (n_q, kv, b)
-    return {"block_q": bq, "block_k": BLOCK_K, "n_q": n_q, "kbps": kbps,
-            "n_split": n_split, "grid": grid,
-            "part_o": (b * kv * n_q * n_split, MMA_ROWS, d),
-            "part_ml": (b * kv * n_q * n_split, MMA_ROWS, 2),
+    kbps, n_split = split_plan(-(-t // block_k), n_q * kv * b, MAX_SPLITS)
+    return {"block_q": bq, "block_k": block_k, "n_q": n_q, "kbps": kbps,
+            "n_split": n_split, "grid": (n_split, n_q, b * kv),
+            "part_o": (b * kv * n_q * n_split, BLOCK_ROWS, d),
+            "part_ml": (b * kv * n_q * n_split, BLOCK_ROWS, 2),
             "counters": b * kv * n_q}
 
-MHA_BLOCK_Q = 64      # query rows per block of the MHA kernel (both bodies)
-# keys per key block, by dtype: the tensor-core body (bf16) measured faster
-# at 32 than at 64 on the H100 (PERF.md); the f32 body's tile is 64
-MHA_BLOCK_K = {torch.bfloat16: 32, torch.float32: 64}
+
+MHA_BLOCK_Q = BLOCK_ROWS   # query rows per block of the MHA kernel
+MHA_BLOCK_K = BLOCK_K
 MHA_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 NEG_INF = -1e30
 
@@ -93,25 +86,21 @@ def flash_mha_plan(bh: int, s: int, t: int, d: int,
     key blocks of a q block in groups of ``kbps`` over ``n_split`` blocks:
     split until the grid (n_split, n_q, BH) reaches about ``SM_TARGET``
     blocks, at most ``MAX_SPLITS``. The f32 body takes one block per (q
-    block, row): grid (n_q, BH)."""
+    block, row): grid (1, n_q, BH)."""
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: kernel takes head_dim in "
                          f"{HEAD_DIMS}, got {d}")
     n_q = -(-s // MHA_BLOCK_Q)
-    mma = dtype == torch.bfloat16
     block_k = MHA_BLOCK_K[dtype]
     n_kb = -(-t // block_k)
-    if mma:
-        want = min(-(-SM_TARGET // (n_q * bh)), MAX_SPLITS)
-        kbps = -(-n_kb // want)
-        n_split = -(-n_kb // kbps)
-        grid = (n_split, n_q, bh)
+    if dtype == torch.bfloat16:
+        kbps, n_split = split_plan(n_kb, n_q * bh, MAX_SPLITS)
     else:
-        kbps, n_split, grid = n_kb, 1, (n_q, bh)
+        kbps, n_split = n_kb, 1
     return {"block_q": MHA_BLOCK_Q, "block_k": block_k, "n_q": n_q,
-            "kbps": kbps, "n_split": n_split, "grid": grid,
-            "part_o": (bh * n_q * n_split, MMA_ROWS, d),
-            "part_ml": (bh * n_q * n_split, MMA_ROWS, 2),
+            "kbps": kbps, "n_split": n_split, "grid": (n_split, n_q, bh),
+            "part_o": (bh * n_q * n_split, BLOCK_ROWS, d),
+            "part_ml": (bh * n_q * n_split, BLOCK_ROWS, 2),
             "counters": bh * n_q}
 
 
@@ -156,8 +145,7 @@ def flash_gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _, t, kvh, _ = k.shape
     qd, kd, (q, k, v, ks, vs) = check_cache_operands(q, k, v, ks, vs,
                                                      "flash_gqa_attention")
-    mma = q.dtype == torch.bfloat16
-    plan = flash_gqa_plan(b, s, t, h, kvh, d, mma)
+    plan = flash_gqa_plan(b, s, t, h, kvh, d, q.dtype == torch.bfloat16)
     if start is None:
         start = torch.zeros((b,), dtype=torch.int32, device=q.device)
     start = start.to(device=q.device, dtype=torch.int32).contiguous()

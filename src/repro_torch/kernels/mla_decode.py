@@ -3,10 +3,12 @@ plain PyTorch version.
 
 Replaces ``src/repro/kernels/mla_decode.py`` ``mla_decode_attention``
 (TPU kernel ``_kernel`` :43, ``pl.pallas_call`` at :144); the kernel is
-``csrc/mla_decode.cu``, whose note gives its bound on the H100 (the f32
-operations of the scores and of the weighted latent rows) and its design
-(one block per group of heads and batch row; each latent tile loaded into
-shared memory once and used twice, as scores operand and as values).
+``csrc/mla_decode.cu``, whose note gives its bound on the H100 and its
+designs: bf16 operands on the tensor cores, 16 heads a block against each
+32-key tile of [ckv | krope] loaded into shared memory once and used twice
+(scores operand and values), the key tiles of a row split over blocks with
+the merge in the same launch (``mla_decode_plan``); f32 operands on the
+CUDA cores, one block per 4 heads and batch row.
 
 One query token per batch row: ``q_lat`` (B, H, L) has W_uk folded in,
 ``q_rope`` (B, H, R) is the rope channel; ``ckv`` (B, T, L) is the latent
@@ -27,10 +29,38 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._attn import arrival_counters, split_plan
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 L_MAX = 512        # latent width the kernel's accumulator holds
 R_MAX = 64         # rope width
+BLOCK_K = 32       # keys a tile, both bodies
+HEADS = {torch.bfloat16: 16, torch.float32: 4}   # heads a block, by dtype
+MAX_SPLITS = 16    # blocks a (row, head group) at most (the merge's buffer)
+
+
+def mla_decode_plan(b: int, h: int, t: int, lat: int,
+                    dtype: torch.dtype) -> dict:
+    """Launch plan of the kernel for B rows, H heads, T cache slots and
+    latent width L: ``heads`` per block, ``block_k`` keys a tile, and the
+    tiles of a batch row in groups of ``kbps`` over ``n_split`` blocks.
+    bf16 (the tensor-core body) splits until the grid (n_split, head
+    groups, B) reaches about ``SM_TARGET`` blocks, at most ``MAX_SPLITS``;
+    f32 (the CUDA-core body) takes one block per (4 heads, row): grid
+    (head groups, B). Blocks past a row's live tiles exit at once."""
+    heads = HEADS[dtype]
+    n_hg = -(-h // heads)
+    n_kb = -(-t // BLOCK_K)
+    if dtype == torch.bfloat16:
+        kbps, n_split = split_plan(n_kb, n_hg * b, MAX_SPLITS)
+        grid = (n_split, n_hg, b)
+    else:
+        kbps, n_split, grid = n_kb, 1, (n_hg, b)
+    return {"heads": heads, "block_k": BLOCK_K, "kbps": kbps,
+            "n_split": n_split, "grid": grid,
+            "part_o": (b * n_hg * n_split, heads, lat),
+            "part_ml": (b * n_hg * n_split, heads, 2),
+            "counters": b * n_hg}
 
 
 def mla_decode_attention_plain(q_lat, q_rope, ckv, krope, lens,
@@ -92,10 +122,20 @@ def mla_decode_attention(q_lat: torch.Tensor, q_rope: torch.Tensor,
                          "aligned operands")
     lens = lens.to(torch.int32).contiguous()
     out = torch.empty_like(q_lat)
+    plan = mla_decode_plan(b, h, t, lat, q_lat.dtype)
+    part_o = part_ml = counters = None
+    if plan["n_split"] > 1:
+        part_o = torch.empty(plan["part_o"], dtype=torch.float32,
+                             device=q_lat.device)
+        part_ml = torch.empty(plan["part_ml"], dtype=torch.float32,
+                              device=q_lat.device)
+        counters = arrival_counters(q_lat.device, plan["counters"])
+    ptr = (lambda x: None if x is None else x.data_ptr())
     rc = _build.library().mla_decode_attention(
         q_lat.data_ptr(), q_rope.data_ptr(), ckv.data_ptr(),
-        krope.data_ptr(), lens.data_ptr(), out.data_ptr(), b, h, t, lat,
-        rope, _DTYPES[q_lat.dtype], float(scale),
+        krope.data_ptr(), lens.data_ptr(), out.data_ptr(), ptr(part_o),
+        ptr(part_ml), ptr(counters), b, h, t, lat, rope,
+        _DTYPES[q_lat.dtype], plan["kbps"], plan["n_split"], float(scale),
         _build.stream_ptr(q_lat.device))
     _build.check(rc, "mla_decode_attention")
     mla_decode_attention.launches += 1

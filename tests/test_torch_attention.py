@@ -165,8 +165,9 @@ def test_flash_plan_at_the_main_path_and_edges():
     """qwen2-0.5b prefill chunk (B 1, S 32, start 128 of T 320, G 7):
     bf16 queries take 64-row blocks of 9 positions, each of the 5 key
     blocks below the frontier in its own block (80 in the grid, 40 that
-    read keys, against 8 before); f32 queries keep one block per 8
-    positions and KV head."""
+    read keys, against 8 before); f32 queries the same 64-row blocks over
+    64-key blocks, each of the 3 below the frontier in its own block (40
+    in the grid, 24 that read keys, against 8 before)."""
     plan = flash_gqa_plan(1, 32, 320, 14, 2, 64, tensor_cores=True)
     assert (plan["block_q"], plan["block_k"], plan["n_q"], plan["kbps"],
             plan["n_split"], plan["grid"]) == (9, 32, 4, 1, 10, (10, 4, 2))
@@ -178,19 +179,21 @@ def test_flash_plan_at_the_main_path_and_edges():
                                                             128))
     assert 2 * live == 40
     f32 = flash_gqa_plan(1, 32, 320, 14, 2, 64, tensor_cores=False)
-    assert (f32["block_q"], f32["n_q"], f32["n_split"], f32["grid"]) == (
-        8, 4, 1, (4, 2, 1))
-    assert _flash_counts(f32, 32, 320, 128) == [5, 5, 5, 5]
+    assert (f32["block_q"], f32["block_k"], f32["n_q"], f32["kbps"],
+            f32["n_split"], f32["grid"]) == (9, 64, 4, 1, 5, (5, 4, 2))
+    assert f32["part_o"] == (40, 64, 64) and f32["counters"] == 8
+    assert _flash_counts(f32, 32, 320, 128) == [3, 3, 3, 3]
+    assert 2 * sum(_flash_counts(f32, 32, 320, 128)) == 24
     for g, d, bq in ((2, 128, 32), (4, 128, 16), (8, 128, 8), (8, 64, 8)):
-        assert flash_gqa_plan(1, 32, 320, 2 * g, 2, d, True)[
-            "block_q"] == bq
-    assert flash_gqa_plan(1, 32, 320, 16, 2, 128, False)["block_q"] == 2
+        for tc in (True, False):
+            assert flash_gqa_plan(1, 32, 320, 2 * g, 2, d, tc)[
+                "block_q"] == bq
     long = flash_gqa_plan(1, 32, 4096, 14, 2, 64, True)
     assert (long["kbps"], long["n_split"]) == (8, 16)     # capped at 16
     big = flash_gqa_plan(64, 512, 512, 14, 2, 64, True)
     assert big["n_split"] == 1 and big["kbps"] == 16
     with pytest.raises(ValueError, match="group"):
-        flash_gqa_plan(1, 32, 320, 34, 2, 128, False)
+        flash_gqa_plan(1, 32, 320, 130, 2, 128, False)
 
 
 def test_row_update_clamps_like_dynamic_update_slice():

@@ -183,7 +183,7 @@ def test_mha_plan_at_the_b5_shapes(dtype, shape, splits):
     assert plan["block_q"] == MHA_BLOCK_Q == 64
     assert plan["block_k"] == MHA_BLOCK_K[dtype] and plan["n_q"] == n_q
     if dtype == torch.float32:
-        assert plan["n_split"] == 1 and plan["grid"] == (n_q, bh)
+        assert plan["n_split"] == 1 and plan["grid"] == (1, n_q, bh)
     else:
         assert plan["n_split"] == splits <= MAX_SPLITS
         assert plan["grid"] == (splits, n_q, bh)

@@ -62,6 +62,7 @@ from repro_torch.kernels import fused_step
 from repro_torch.kernels.fused_step import (fused_dense_layer,
                                             fused_dense_layer_plain)
 from repro_torch.kernels.mla_decode import (mla_decode_attention,
+                                            mla_decode_plan,
                                             mla_decode_attention_plain)
 from repro_torch.kernels.ssm_scan import (ssm_decode_step,
                                           ssm_decode_step_plain)
@@ -144,7 +145,9 @@ def test_gqa_kernels_match_plain_all_dtypes(cuda, d, g, qdt, kvdt):
     """The split-key decode and flash kernels against their plain versions
     in every dtype combination they take, at head dims 64 and 128: each
     query head's row within 2^-6 of its max |value|, lens == 0 rows zero,
-    decode lengths on the split edges, flash block counts in closed form."""
+    decode lengths on the split edges, flash block counts in closed form.
+    With f32 queries the flash kernel is also held at the f32 limit, 2e-5
+    + 2e-5 |ref| per element, at S 1, 32 and 33."""
     b, t, kv = 4, 320, 2
     h = g * kv
     gen = torch.Generator(device=cuda).manual_seed(d + g)
@@ -170,17 +173,21 @@ def test_gqa_kernels_match_plain_all_dtypes(cuda, d, g, qdt, kvdt):
         for i, n in enumerate(lens):
             if n == 0:
                 assert a[i].abs().max().item() == 0.0
-    qf = torch.randn((1, 32, h, d), generator=gen, device=cuda).to(qd)
     one = [None if x is None else x[:1] for x in (kc, vc, ks, vs)]
-    for start in (0, 128, 300):
-        st = torch.tensor([start], dtype=torch.int32, device=cuda)
-        a, counts = flash_gqa_attention(qf, one[0], one[1], st, one[2],
-                                        one[3], return_block_counts=True)
-        p = flash_gqa_plain(qf, one[0], one[1], st, one[2], one[3]).float()
-        a = a.float()
-        assert ((a - p).abs() <= 2 ** -6 * p.abs().amax(-1, keepdim=True)
-                ).all()
-        assert counts[0].tolist() == [_gqa_counts(qf, start)] * kv
+    for s in ((1, 32, 33) if qdt == "f32" else (32,)):
+        qf = torch.randn((1, s, h, d), generator=gen, device=cuda).to(qd)
+        for start in (0, 128, 300):
+            st = torch.tensor([start], dtype=torch.int32, device=cuda)
+            a, counts = flash_gqa_attention(qf, one[0], one[1], st, one[2],
+                                            one[3], return_block_counts=True)
+            p = flash_gqa_plain(qf, one[0], one[1], st, one[2],
+                                one[3]).float()
+            a = a.float()
+            assert ((a - p).abs() <= 2 ** -6 * p.abs().amax(-1, keepdim=True)
+                    ).all()
+            if qdt == "f32":
+                assert ((a - p).abs() <= 2e-5 + 2e-5 * p.abs()).all()
+            assert counts[0].tolist() == [_gqa_counts(qf, start)] * kv
 
 
 def test_reduced_model_tokens_card_equal_cpu(cuda):
@@ -404,9 +411,19 @@ def _mla_case(dev, dtype, h, lat, rope, t, lens):
     (128, 512, 64, 512, (301, 138, 96, 212)),     # deepseek-v2
     (128, 512, 64, 512, (0, 512, 1, 33)),
     (4, 64, 16, 128, (0, 128, 5, 70)),            # the reduced model
+    (128, 512, 64, 4096, (4096, 1, 0, 2000)),     # many tiles a split
+    (16, 96, 16, 320, (0, 320, 33, 32)),          # H 16, L 96, odd R / 16
+    (16, 128, 32, 32, (32, 1, 0, 17)),            # one split (one tile)
+    (20, 128, 64, 100, (100, 99, 17, 3)),         # head rows past H
 ])
 def test_mla_kernel_matches_plain(cuda, dtype, h, lat, rope, t, lens):
+    """Every output row within the dtype's tolerance of the plain version,
+    lens == 0 rows exactly zero, at lens that give one split of the key
+    tiles and many (bf16: ``mla_decode_plan``)."""
     args = _mla_case(cuda, dtype, h, lat, rope, t, lens)
+    plan = mla_decode_plan(len(lens), h, t, lat, dtype)
+    if dtype == torch.bfloat16:
+        assert (plan["n_split"] == 1) == (t == 32)
     mla_decode_attention.launches = 0
     out = mla_decode_attention(*args)
     ref = mla_decode_attention_plain(*args)
