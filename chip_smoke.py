@@ -7,7 +7,9 @@ kernel against its plain PyTorch version at the main path's shapes, checks
 greedy-token parity of the reduced model between the card (kernels) and
 the CPU (plain versions), serves full-width qwen2-0.5b in CIM sim mode
 through the kernels with the bf16 and the int8 KV cache, and times each
-kernel against its bound. Then the per-layer decode megakernel
+kernel against its bound (the CIM kernel per decode step and per 32-row
+prefill chunk, beside torch._int_mm, with its split-K launch plans).
+Then the per-layer decode megakernel
 (``fuse_layer=True``) on float32 qwen2-0.5b: the kernel against its plain
 version at full width (with two deliberately wrong plain versions that the
 tolerance must catch), full-width serving with both caches and exact
@@ -710,18 +712,27 @@ def phase_fuse_fallback():
 
 
 # ------------------------------------------------------------ phase 5
-# The GQA kernels' device ms per step / chunk of the kernel bodies the
-# split-key kernels replaced, from an earlier chip_smoke.py run (H100 80GB
-# HBM3 at 700 W): printed beside the new times for comparison, not measured
-# here.
+# Device ms of the bodies that later designs replaced, printed beside the
+# new times for comparison, not measured here (H100 80GB HBM3 at 700 W): the
+# GQA kernels per step / chunk before the split-key kernels (an earlier
+# chip_smoke.py run); the fused CIM kernel per decode step (a chip_smoke.py
+# run) and per prefill chunk (tools/cim_fused_time.py) before the split-K
+# designs; the fused layer per step (a chip_smoke.py run) before its split
+# stages.
 PREVIOUS_BODY_MS = {"decode_attention": 1.212,
                     "decode_attention[int8]": 1.251, "flash_gqa": 1.875,
-                    "flash_gqa[int8]": 1.882}
+                    "flash_gqa[int8]": 1.882, "cim_matmul_fused": 3.387,
+                    "cim_matmul_fused[chunk]": 5.703,
+                    "fused_dense_layer": 3.727,
+                    "fused_dense_layer[int8]": 3.713}
 
 
 def phase_times(params, cfg):
     """Kernel, plain and library device times (torch.profiler) at the main
-    path's shapes, per decode step or per prefill chunk of all 24 layers;
+    path's shapes, per decode step or per prefill chunk of all 24 layers
+    (the CIM kernel both: M = 4 on its split-K GEMV, M = 32 on its
+    tensor-core tile, beside torch._int_mm on the same int8 shapes without
+    the quantization and the noise, and with both launch plans printed);
     ``wall_ms`` is the kernel's event-timed rate, which the host's launch
     overhead bounds for these small grids, and ``queued_ms`` (the GQA
     kernels and their library call) the same launches timed with CUDA
@@ -736,7 +747,8 @@ def phase_times(params, cfg):
     from repro_torch.core.deploy import deploy
     from repro_torch.core.cim import output_noise_std_int_per_tile
     from repro_torch.core.sac import paper_sac
-    from repro_torch.kernels.cim_matmul import (cim_matmul_fused,
+    from repro_torch.kernels.cim_matmul import (cim_fused_plan,
+                                                cim_matmul_fused,
                                                 cim_matmul_fused_plain)
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_plain)
@@ -749,48 +761,79 @@ def phase_times(params, cfg):
     pol = paper_sac()
     dp = deploy(cfg, params)
     blocks = dp["blocks"]
-    L, m = cfg.n_layers, 4
-    # one decode step's CIM work: 7 projections x 24 layers at M = 4 slots;
-    # the planes (358 MB) exceed the 50 MB L2, so each launch streams cold
-    calls = []
-    for i in range(L):
-        for grp, name, spec in (("attn", "q", pol.attn), ("attn", "k", pol.attn),
-                                ("attn", "v", pol.attn), ("attn", "o", pol.attn),
-                                ("mlp", "gate", pol.mlp), ("mlp", "up", pol.mlp),
-                                ("mlp", "down", pol.mlp)):
-            wq = blocks[grp][name][f"wq{spec.w_bits}"][i]
-            k, n = wq.shape
-            x = torch.randn((m, k), generator=g, device=dev).bfloat16()
-            xs = (4.0 * torch.sqrt(torch.mean(x.float() ** 2))
-                  / (2 ** (spec.in_bits - 1) - 1))
-            qp = torch.stack([xs, xs * 1e-2])
-            calls.append((x, wq, qp, output_noise_std_int_per_tile(spec, k),
-                          spec.in_bits))
+    L = cfg.n_layers
     seed = prng.seed_from_key(prng.PRNGKey(9))
+    res = {}
+    # one decode step's CIM work: 7 projections x 24 layers at M = 4 slots,
+    # and one prefill chunk's at M = 32; the planes (358 MB) exceed the 50
+    # MB L2, so each launch streams cold
+    for m, name in ((4, "cim_matmul_fused"), (32, "cim_matmul_fused[chunk]")):
+        calls = []
+        for i in range(L):
+            for grp, proj, spec in (
+                    ("attn", "q", pol.attn), ("attn", "k", pol.attn),
+                    ("attn", "v", pol.attn), ("attn", "o", pol.attn),
+                    ("mlp", "gate", pol.mlp), ("mlp", "up", pol.mlp),
+                    ("mlp", "down", pol.mlp)):
+                wq = blocks[grp][proj][f"wq{spec.w_bits}"][i]
+                k, n = wq.shape
+                x = torch.randn((m, k), generator=g, device=dev).bfloat16()
+                xs = (4.0 * torch.sqrt(torch.mean(x.float() ** 2))
+                      / (2 ** (spec.in_bits - 1) - 1))
+                qp = torch.stack([xs, xs * 1e-2])
+                calls.append((x, wq, qp,
+                              output_noise_std_int_per_tile(spec, k),
+                              spec.in_bits))
 
-    def run_k():
-        for x, wq, qp, s, b in calls:
-            cim_matmul_fused(x, wq, qp, seed, s, b)
+        def run_k():
+            for x, wq, qp, s, b in calls:
+                cim_matmul_fused(x, wq, qp, seed, s, b)
 
-    def run_p():
-        for x, wq, qp, s, b in calls:
-            cim_matmul_fused_plain(x, wq, qp, seed, s, b)
+        def run_p():
+            for x, wq, qp, s, b in calls:
+                cim_matmul_fused_plain(x, wq, qp, seed, s, b)
 
-    bytes1 = sum(wq.numel() + x.numel() * 2 + 8 + x.shape[0] * wq.shape[1] * 4
-                 for x, wq, *_ in calls)
-    ops1 = sum(2 * x.shape[0] * wq.shape[0] * wq.shape[1]
-               for x, wq, *_ in calls)
-    k_ms = device_ms(run_k, 10)
-    p_ms = device_ms(run_p, 2)
-    bound1 = 1e3 * max(bytes1 / HBM_BPS, ops1 / INT8_OPS)
-    res = {"cim_matmul_fused": dict(
-        ms=k_ms, wall_ms=wall_ms(run_k, 10), plain_ms=p_ms, bound_ms=bound1,
-        bound_by="bytes" if bytes1 / HBM_BPS >= ops1 / INT8_OPS
-        else "operations", library_ms=None,
-        unit="one decode step: 7 projections x 24 layers, M=4",
-        launches_per_decode_step=7 * L, bound_us=1e3 * bound1)}
-    emit("time", kernel="cim_matmul_fused", **res["cim_matmul_fused"],
-         bytes=bytes1, ops=ops1)
+        bytes1 = sum(wq.numel() + x.numel() * 2 + 8
+                     + x.shape[0] * wq.shape[1] * 4 for x, wq, *_ in calls)
+        ops1 = sum(2 * x.shape[0] * wq.shape[0] * wq.shape[1]
+                   for x, wq, *_ in calls)
+        k_ms = device_ms(run_k, 10)
+        p_ms = device_ms(run_p, 2)
+        bound1 = 1e3 * max(bytes1 / HBM_BPS, ops1 / INT8_OPS)
+        lib_ms = library = None
+        if m > 16:
+            # the yardstick: torch._int_mm on the same int8 shapes (the
+            # plane column-major, as _int_mm takes it), no quantization
+            # and no noise
+            lib = [(torch.randint(-31, 32, (m, wq.shape[0]), generator=g,
+                                  device=dev, dtype=torch.int8),
+                    wq.t().contiguous().t()) for _, wq, *_ in calls]
+
+            def run_lib():
+                for xq, wcol in lib:
+                    torch._int_mm(xq, wcol)
+
+            lib_ms = device_ms(run_lib, 10)
+            library = ("torch._int_mm(xq, wq): the same int8 products "
+                       "without the quantization and the readout noise; "
+                       "kernels " + ", ".join(top_kernels(run_lib)))
+            del lib
+        plans = {f"{proj} {k}x{n}": cim_fused_plan(m, k, n)
+                 for proj, k, n in (("q/o", 896, 896), ("k/v", 896, 128),
+                                    ("gate/up", 896, 4864),
+                                    ("down", 4864, 896))}
+        res[name] = dict(
+            ms=k_ms, wall_ms=wall_ms(run_k, 10), plain_ms=p_ms,
+            bound_ms=bound1,
+            bound_by="bytes" if bytes1 / HBM_BPS >= ops1 / INT8_OPS
+            else "operations", library_ms=lib_ms, library=library,
+            previous_body_ms=PREVIOUS_BODY_MS[name],
+            unit=f"one {'decode step' if m == 4 else 'prefill chunk'}: 7 "
+                 f"projections x 24 layers, M={m}",
+            launches=7 * L, bound_us=1e3 * bound1,
+            grids={p_: [pl["path"], pl["grid"], pl["nspan"], pl["klen"]]
+                   for p_, pl in plans.items()})
+        emit("time", kernel=name, **res[name], bytes=bytes1, ops=ops1)
 
     # the launch floor: 24 launches (a step's or a chunk's worth) of a
     # one-element in-place add, queued as the kernels' queued_ms are
@@ -1312,7 +1355,8 @@ def phase_times_fused(params32):
     from repro_torch.core import prng
     from repro_torch.core.deploy import deploy
     from repro_torch.kernels.fused_step import (fused_dense_layer,
-                                                fused_dense_layer_plain)
+                                                fused_dense_layer_plain,
+                                                fused_layer_plan)
     from repro_torch.models import transformer as tf
     from repro_torch.models.layers import Ctx
 
@@ -1355,6 +1399,7 @@ def phase_times_fused(params32):
         # the same step with one key per row: what is left without the
         # attention stage's walk over the cache
         k1_ms = device_ms(run(fused_dense_layer, (0,) * b), 10)
+        plan = fused_layer_plan(b, d, h, kv, f, 320)
         p_ms = device_ms(run(fused_dense_layer_plain), 2)
         bound = 1e3 * max(nbytes / HBM_BPS, t_ops)
         name = "fused_dense_layer" + ("[int8]" if int8 else "")
@@ -1366,6 +1411,11 @@ def phase_times_fused(params32):
                               + str([n + 1 for n in FUSED_OLD_LENS]),
                          launches_per_decode_step=L,
                          grid=fused_dense_layer.grid,
+                         previous_body_ms=PREVIOUS_BODY_MS[name],
+                         splits={k_: [s_["units"] * s_["planes"],
+                                      s_["n_split"], s_["klen"]]
+                                 for k_, s_ in plan["stages"].items()},
+                         attn_key_tiles=plan["attn_tiles"],
                          ms_one_key_per_row=k1_ms)
         emit("time", kernel=name, **res[name], bytes=nbytes,
              int8_ops=int8_ops, f32_ops=f32_ops)

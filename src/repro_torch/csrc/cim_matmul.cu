@@ -15,27 +15,29 @@
 // K is cut into macro tiles of 1024 rows (one readout-noise draw per tile,
 // part of the macro model). The f32 sum over tiles runs in tile order.
 //
-// Bound on the H100. Decode (the fused entry, M = 1-8 rows): the int8
+// Bound on the H100. Decode (the fused entry, M = 1-16 rows): the int8
 // weight stream. The kernel does about 2*M operations per weight byte, far
 // below the card's ~590 int8 operations per byte of HBM: at decode one
 // layer's seven planes (q, k, v, o, gate, up, down; 14.9 MB at qwen2-0.5b
-// width) take at least 4.4 us at 3.35 TB/s. Training shapes (the int8
-// entry, M = 1024): the readout noise. Every output element of every tile
-// draws one normal, about 85 integer operations of Threefry on the CUDA
-// cores (see PERF.md), which at qwen2-0.5b width outweighs both the int8
-// products and the bytes.
+// width) take at least 4.4 us at 3.35 TB/s, and a launch of a small plane
+// is bound by its latency chain (the plane's loads, the partials' write,
+// the arrival, the merge), which the split shortens by spreading the plane
+// over the grid. Training shapes (the int8 entry, M = 1024): the readout
+// noise. Every output element of every tile draws one normal, about 85
+// integer operations of Threefry on the CUDA cores (see PERF.md), which at
+// qwen2-0.5b width outweighs both the int8 products and the bytes.
 //
-// The fused entry (decode shapes) streams each weight byte once per block
-// row: a block owns BN = 32 output columns and BM = 8 rows (M is not padded
-// to 64; rows past M are zero in shared memory and never stored), reads the
-// plane with 32-bit loads (4 columns of one row per thread, four rows in
-// flight per step), transposes the bytes in registers (__byte_perm) and
-// takes the int32 dot with __dp4a. The quantized activations of the tile
-// live in shared memory (the ragged last tile is zero-padded there, never
-// in device memory). Inside one tile the int32 partial sums of the 32
-// k-slices reduce exactly (integers) through warp shuffles and shared
-// memory; each thread then owns one (m, n) output, adds the tile's noise
-// and keeps the f32 accumulator across tiles in a register.
+// The fused entry has two bodies, picked by the wrapper's plan
+// (cim_fused_plan), both split over K inside macro tiles with the merge of
+// cim_gemv.cuh in the same launch (the last block of a column unit to
+// arrive sums the splits' int32 partials per tile, adds the tile's noise
+// and sums the tiles in f32 in order). Decode (M <= 16 rows): the split-K
+// GEMV of cim_gemv.cuh, activations quantized only for the rows that
+// exist and the split's K range, while the plane's first loads are in
+// flight. Prefill (M > 16): the int8 tensor-core tile of the int8 entry
+// below, each block taking a K range of its column tile; the float
+// activations are quantized (the same IEEE division, rintf and clamp) as
+// they are staged into shared memory, one stage ahead through registers.
 //
 // The int8 entry (training shapes, M in the hundreds or thousands) runs on
 // the int8 tensor cores. A block owns a BM x 128 output tile (BM = 32, 64
@@ -64,115 +66,102 @@
 // (about 680, the same at 16 or 32 MMAs a warp), not to waiting for bytes
 // or to the tensor cores.
 #include "attn_mma.cuh"
+#include "cim_gemv.cuh"
 #include "common.cuh"
+
+#ifdef CIM_GEMV_CLOCK
+// Stage probe of the decode GEMV (tools/cim_fused_time.py --clock builds
+// with this flag; the main build never does): thread 0 of every block
+// stamps %globaltimer at its start, once its activation is staged (the
+// plane's first loads issued), after its partial's reduction, after the
+// arrival and at its end (after the merge in the last block).
+constexpr int GV_STAMPS = 5;
+__device__ long long* gv_clock_p = nullptr;
+#define GV_STAMP(i)                                                        \
+  do {                                                                     \
+    if (threadIdx.x == 0 && gv_clock_p != nullptr) {                       \
+      long long g_;                                                        \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g_));               \
+      gv_clock_p[((size_t)blockIdx.y * gridDim.x + blockIdx.x) * GV_STAMPS \
+                 + (i)] = g_;                                              \
+    }                                                                      \
+  } while (0)
+#else
+#define GV_STAMP(i)
+#endif
 
 namespace {
 
-constexpr int TILE = 1024;           // macro rows per K tile
+constexpr int TILE = rt::MACRO_ROWS;  // macro rows per K tile
 
 // ------------------------------------------------ fused entry (decode)
-constexpr int BM = 8;                // output rows per block
-constexpr int BN = 32;               // output columns per block
-constexpr int THREADS = 256;
-constexpr int CG = BN / 4;           // column groups of 4 (one 32-bit load)
-constexpr int KSL = THREADS / CG;    // k-slices, 4 rows each
-constexpr int KSTEP = KSL * 4;       // rows swept per step
-constexpr int WARPS = THREADS / 32;
-static_assert(BM * BN == THREADS, "one output element per thread");
-static_assert(KSL % 4 == 0 && CG == 8, "warp holds 4 k-slices of 8 groups");
-
-// XT = float / bfloat16, quantized in the prologue. K % 4 == 0, N % 4 == 0
-// and an aligned plane: the plane is read with 32-bit loads.
-template <typename XT>
-__global__ void __launch_bounds__(THREADS)
-cim_kernel(const XT* __restrict__ x, const int8_t* __restrict__ wq,
-           const float* __restrict__ qp, float* __restrict__ out, int M,
-           int K, int N, int qmax, float sigma, uint32_t seed0,
-           uint32_t seed1, int noise) {
-  __shared__ __align__(16) int8_t xs[BM][TILE];
-  __shared__ int red[WARPS][BM][BN];
-
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int cg = t % CG, ks = t / CG;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int col = n0 + cg * 4;
-  const int om = t / BN, on = t % BN;          // this thread's output
-  const int mrows = min(BM, M - m0);
-  const float x_scale = qp[0], out_scale = qp[1];
-  const float fq = (float)qmax;
-  const int n_tiles = (K + TILE - 1) / TILE;
-  float acc = 0.0f;
-
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int kb = tile * TILE;
-    const int len = min(TILE, K - kb);
-    __syncthreads();                           // xs / red free again
-    for (int i = t; i < BM * TILE; i += THREADS) {
-      const int r = i / TILE, k = i % TILE;
-      int8_t q = 0;
-      if (r < mrows && k < len) {
-        const float v = rt::to_float(x[(size_t)(m0 + r) * K + kb + k]);
-        q = (int8_t)fminf(fmaxf(rintf(__fdiv_rn(v, x_scale)), -fq), fq);
-      }
-      xs[r][k] = q;
-    }
-    __syncthreads();
-
-    int part[BM][4];
-#pragma unroll
-    for (int r = 0; r < BM; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) part[r][c] = 0;
-    if (col < N) {
-#pragma unroll 2
-      for (int k = ks * 4; k < len; k += KSTEP) {
-        const int8_t* wp = wq + (size_t)(kb + k) * N + col;
-        const uint32_t w0 = __ldg(reinterpret_cast<const uint32_t*>(wp));
-        const uint32_t w1 = __ldg(reinterpret_cast<const uint32_t*>(wp + N));
-        const uint32_t w2 =
-            __ldg(reinterpret_cast<const uint32_t*>(wp + 2 * (size_t)N));
-        const uint32_t w3 =
-            __ldg(reinterpret_cast<const uint32_t*>(wp + 3 * (size_t)N));
-        // rows k..k+3 x columns c..c+3 -> per column the 4 bytes of k..k+3
-        const uint32_t t0 = __byte_perm(w0, w1, 0x5140);
-        const uint32_t t1 = __byte_perm(w2, w3, 0x5140);
-        const uint32_t t2 = __byte_perm(w0, w1, 0x7362);
-        const uint32_t t3 = __byte_perm(w2, w3, 0x7362);
-        const int wc[4] = {(int)__byte_perm(t0, t1, 0x5410),
-                           (int)__byte_perm(t0, t1, 0x7632),
-                           (int)__byte_perm(t2, t3, 0x5410),
-                           (int)__byte_perm(t2, t3, 0x7632)};
-#pragma unroll
-        for (int r = 0; r < BM; ++r) {
-          const int xw = *reinterpret_cast<const int*>(&xs[r][k]);
-#pragma unroll
-          for (int c = 0; c < 4; ++c) part[r][c] = __dp4a(xw, wc[c], part[r][c]);
-        }
-      }
-    }
-    // exact integer reduction: 4 k-slices per warp, then 8 warps
-#pragma unroll
-    for (int r = 0; r < BM; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        int v = part[r][c];
-        v += __shfl_xor_sync(0xffffffffu, v, 8);
-        v += __shfl_xor_sync(0xffffffffu, v, 16);
-        if (lane < CG) red[warp][r][cg * 4 + c] = v;
-      }
-    __syncthreads();
-    int s = 0;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) s += red[w][om][on];
-    float sf = __int2float_rn(s);
+// One split of one column unit (blockIdx.x: unit, .y: split) of the
+// (M <= MB, K) x (K, N) product; XT = float / bfloat16 activations.
+template <typename XT, int MB, int VB, int NSPAN>
+__global__ void __launch_bounds__(rt::GV_THREADS)
+cim_gemv(const XT* __restrict__ x, const int8_t* __restrict__ wq,
+         const float* __restrict__ qp, float* __restrict__ out, int M, int K,
+         int N, int klen, int qmax, float sigma, uint32_t seed0,
+         uint32_t seed1, int noise, int* __restrict__ part,
+         float* __restrict__ nz, int* __restrict__ counters) {
+  __shared__ __align__(16) int8_t xs[MB * rt::MACRO_ROWS];   // [M][klen]
+  // the partial's reduction, then the merge's group sums
+  constexpr int RED_WORDS = MB * NSPAN > 4 * rt::GV_THREADS
+                                ? MB * NSPAN
+                                : 4 * rt::GV_THREADS;
+  __shared__ __align__(16) int red[RED_WORDS];
+  __shared__ int last_s;
+  const rt::Splits sp = rt::Splits::make(K, klen);
+  constexpr int nspan = NSPAN;
+  const int unit = blockIdx.x, j = blockIdx.y, n0 = unit * nspan;
+  const int t = threadIdx.x, P = M * nspan, tile = sp.tile(j);
+  int k0, k1, lo, hi;
+  sp.range(j, k0, k1);
+  sp.noise_share(j, P, lo, hi);
+  const float x_scale = qp[0], fq = (float)qmax;
+  float* nz_unit = noise ? nz + (size_t)unit * sp.tiles * P : nullptr;
+  GV_STAMP(0);
+  using XV = typename std::conditional<sizeof(XT) == 4, float4, uint2>::type;
+  rt::gemv_partial<true, MB, VB, NSPAN>(wq, N, k0, k1, n0, M, xs, klen, red,
+                                        [&] {
+    rt::stage_rows(
+        M, k0, k1,
+        [&](int r, int k) {
+          return rt::widen4(
+              __ldg(reinterpret_cast<const XV*>(x + (size_t)r * K + k)));
+        },
+        [&](int r, int k, const float4& v) {
+          *reinterpret_cast<uint32_t*>(xs + r * klen + k) =
+              rt::quant4(v, x_scale, fq);
+        });
     if (noise)
-      sf = __fadd_rn(sf, __fmul_rn(sigma, rt::tile_gaussian(
-               seed0, seed1, (uint32_t)tile, (uint32_t)(m0 + om),
-               (uint32_t)(n0 + on))));
-    acc = __fadd_rn(acc, sf);
+      for (int p = lo + t; p < hi; p += rt::GV_THREADS) {
+        const int m = p / nspan, n = n0 + p % nspan;
+        nz_unit[(size_t)tile * P + p] =
+            n < N ? __fmul_rn(sigma, rt::tile_gaussian(
+                                         seed0, seed1, (uint32_t)tile,
+                                         (uint32_t)m, (uint32_t)n))
+                  : 0.0f;
+      }
+    GV_STAMP(1);
+  });
+  GV_STAMP(2);
+  int* part_unit = part + (size_t)unit * sp.n_split * P;
+  for (int e = t; e < P; e += rt::GV_THREADS)
+    part_unit[(size_t)j * P + e] = red[e];
+  const bool last = rt::arrive_last(&counters[unit], sp.n_split, &last_s);
+  GV_STAMP(3);
+  if (!last) {
+    GV_STAMP(4);
+    return;
   }
-  if (om < mrows && n0 + on < N)
-    out[(size_t)(m0 + om) * N + n0 + on] = __fmul_rn(acc, out_scale);
+  const float out_scale = qp[1];
+  rt::merge_unit(part_unit, nz_unit, sp, P, red, [&](int p, float v) {
+    const int n = n0 + p % nspan;
+    if (n < N) out[(size_t)(p / nspan) * N + n] = __fmul_rn(v, out_scale);
+  });
+  __syncthreads();
+  GV_STAMP(4);
 }
 
 // ------------------------------------- int8 entry (int8 tensor cores)
@@ -219,6 +208,16 @@ __device__ __forceinline__ int raw_off(int k, int chunk) {
   return k * MN + ((chunk ^ (((k >> 2) & 3) * 2 + (k & 1))) << 4);
 }
 
+// The fused entry's prefill launches (SPLIT): each block takes the K range
+// of split blockIdx.z of its column tile; the merge is cim_gemv.cuh's.
+struct SplitArgs {
+  const float* qp;         // device [x_scale, out_scale]
+  int qmax, klen;
+  int* part;               // [units][n_split][TM * 128] int32 partials
+  float* nz;               // [units][tiles][TM * 128] noise, or null
+  int* counters;           // [units], zero; left at zero
+};
+
 // One TM x 128 output tile, warps of WTM x WTN (MI m16 by NI n8
 // fragments; WTN by block height, I8Smem). ALIGNED: K % 16 == 0,
 // N % 16 == 0 and 16-byte aligned operands (cp.async of whole 16-byte
@@ -228,12 +227,16 @@ __device__ __forceinline__ int raw_off(int k, int chunk) {
 // __byte_perm give it four consecutive k of one column: the B fragments of
 // an even and an odd column, so n8 fragment 2 np of a warp holds columns
 // wn + 16 np + even and fragment 2 np + 1 the odd ones (ncol).
-template <int TM, bool ALIGNED>
+// XT: int8 activations as given (the int8 entry), or float / bfloat16
+// ones (SPLIT, the fused entry's prefill), quantized against qp[0] while
+// staged: fetched one stage ahead into registers, quantized and stored
+// once the stage's MMAs are issued.
+template <int TM, bool ALIGNED, typename XT = int8_t, bool SPLIT = false>
 __global__ void __launch_bounds__(I8Smem<TM>::THREADS)
-cim_int8_mma(const int8_t* __restrict__ x, const int8_t* __restrict__ wq,
+cim_int8_mma(const XT* __restrict__ x, const int8_t* __restrict__ wq,
              const float* __restrict__ scale_p, float scale_v,
              float* __restrict__ out, int M, int K, int N, float sigma,
-             uint32_t seed0, uint32_t seed1, int noise) {
+             uint32_t seed0, uint32_t seed1, int noise, SplitArgs sa) {
   using L = I8Smem<TM>;
   constexpr int NST = L::NST, NTHREADS = L::THREADS;
   constexpr int WTN = L::WTN, NI = L::NI, NFRAG = L::NFRAG;
@@ -247,42 +250,79 @@ cim_int8_mma(const int8_t* __restrict__ x, const int8_t* __restrict__ wq,
   const int n0 = blockIdx.x * MN, m0 = blockIdx.y * TM;
   const int wm = warp / (MN / WTN) * WTM, wn = warp % (MN / WTN) * WTN;
   const int g8 = lane >> 2, t4 = lane & 3;
-  const int n_steps = (K + KS - 1) / KS;
+  int k_begin = 0, k_end = K, split = 0;
+  rt::Splits sp{};
+  if constexpr (SPLIT) {
+    sp = rt::Splits::make(K, sa.klen);
+    split = blockIdx.z;
+    sp.range(split, k_begin, k_end);
+  }
+  const int n_steps = (k_end - k_begin + KS - 1) / KS;
   // the output column of n8 fragment ni, fragment element e (see above)
   auto ncol = [&](int ni, int e) {
     return n0 + wn + (ni >> 1) * 16 + 4 * t4 + 2 * (e & 1) + (ni & 1);
   };
 
+  // SPLIT: x of a stage, 4 elements a chunk, XIT chunks a thread
+  constexpr int XIT = SPLIT ? TM * (KS / 4) / NTHREADS : 1;
+  using XV = typename std::conditional<sizeof(XT) == 4, float4, uint2>::type;
+  XV xr[XIT];
+  const float x_scale = SPLIT ? sa.qp[0] : 1.0f, fq = (float)sa.qmax;
+  auto x_fetch = [&](int step) {
+    const int k0 = k_begin + step * KS;
+#pragma unroll
+    for (int i = 0; i < XIT; ++i) {
+      const int c = t + i * NTHREADS, r = c / (KS / 4);
+      const int m = m0 + r, kk = k0 + (c % (KS / 4)) * 4;
+      xr[i] = m < M && kk < k_end
+                  ? __ldg(reinterpret_cast<const XV*>(x + (size_t)m * K + kk))
+                  : XV{};
+    }
+  };
+  auto x_store = [&](int step) {
+    unsigned char* a_s = as + step % NST * L::A;
+#pragma unroll
+    for (int i = 0; i < XIT; ++i) {
+      const int c = t + i * NTHREADS, r = c / (KS / 4);
+      *reinterpret_cast<uint32_t*>(a_s + r * A_PITCH + (c % (KS / 4)) * 4) =
+          rt::quant4(rt::widen4(xr[i]), x_scale, fq);
+    }
+  };
+
   auto load = [&](int step) {
-    const int k0 = step * KS;
+    const int k0 = k_begin + step * KS;
     unsigned char* a_s = as + step % NST * L::A;
     unsigned char* r_s = raw + step % NST * L::RAW;
     if constexpr (ALIGNED) {
-      for (int c = t; c < TM * (KS / 16); c += NTHREADS) {
-        const int r = c / (KS / 16), ch = c % (KS / 16);
-        const int m = m0 + r, kk = k0 + ch * 16;
-        const bool ok = m < M && kk < K;
-        rt::cp_async16(a_s + r * A_PITCH + ch * 16,
-                       x + (ok ? (size_t)m * K + kk : 0), ok);
+      if constexpr (!SPLIT) {
+        for (int c = t; c < TM * (KS / 16); c += NTHREADS) {
+          const int r = c / (KS / 16), ch = c % (KS / 16);
+          const int m = m0 + r, kk = k0 + ch * 16;
+          const bool ok = m < M && kk < K;
+          rt::cp_async16(a_s + r * A_PITCH + ch * 16,
+                         x + (ok ? (size_t)m * K + kk : 0), ok);
+        }
       }
       for (int c = t; c < KS * (MN / 16); c += NTHREADS) {
         const int r = c / (MN / 16), ch = c % (MN / 16);
         const int kk = k0 + r, n = n0 + ch * 16;
-        const bool ok = kk < K && n < N;
+        const bool ok = kk < k_end && n < N;
         rt::cp_async16(r_s + raw_off(r, ch),
                        wq + (ok ? (size_t)kk * N + n : 0), ok);
       }
     } else {
-      for (int e = t; e < TM * (KS / 4); e += NTHREADS) {
-        const int r = e / (KS / 4), kk = k0 + (e % (KS / 4)) * 4;
-        const int m = m0 + r;
-        uint32_t word = 0;
+      if constexpr (!SPLIT) {
+        for (int e = t; e < TM * (KS / 4); e += NTHREADS) {
+          const int r = e / (KS / 4), kk = k0 + (e % (KS / 4)) * 4;
+          const int m = m0 + r;
+          uint32_t word = 0;
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (m < M && kk + i < K)
-            word |= (uint32_t)(uint8_t)x[(size_t)m * K + kk + i] << (8 * i);
-        *reinterpret_cast<uint32_t*>(a_s + r * A_PITCH + (e % (KS / 4)) * 4) =
-            word;
+          for (int i = 0; i < 4; ++i)
+            if (m < M && kk + i < K)
+              word |= (uint32_t)(uint8_t)x[(size_t)m * K + kk + i] << (8 * i);
+          *reinterpret_cast<uint32_t*>(a_s + r * A_PITCH +
+                                       (e % (KS / 4)) * 4) = word;
+        }
       }
       for (int e = t; e < KS * (MN / 4); e += NTHREADS) {
         const int r = e / (MN / 4), c4 = e % (MN / 4);
@@ -290,7 +330,7 @@ cim_int8_mma(const int8_t* __restrict__ x, const int8_t* __restrict__ wq,
         uint32_t word = 0;
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-          if (kk < K && n + i < N)
+          if (kk < k_end && n + i < N)
             word |= (uint32_t)(uint8_t)wq[(size_t)kk * N + n + i] << (8 * i);
         *reinterpret_cast<uint32_t*>(r_s + raw_off(r, c4 >> 2) +
                                      (c4 & 3) * 4) = word;
@@ -341,14 +381,23 @@ cim_int8_mma(const int8_t* __restrict__ x, const int8_t* __restrict__ wq,
   // groups of stages up to s are complete, NST - 2 may be in flight
 #pragma unroll
   for (int i = 0; i < NST - 1; ++i) {
-    if (i < n_steps) load(i);
+    if (i < n_steps) {
+      load(i);
+      if constexpr (SPLIT) {
+        x_fetch(i);
+        x_store(i);
+      }
+    }
     rt::cp_async_commit();
   }
   for (int step = 0; step < n_steps; ++step) {
     rt::cp_async_wait<NST - 2>();              // stage step
     __syncthreads();               // stage step visible; the slots of
                                    // stage step - 1 are free
-    if (step + NST - 1 < n_steps) load(step + NST - 1);
+    if (step + NST - 1 < n_steps) {
+      load(step + NST - 1);
+      if constexpr (SPLIT) x_fetch(step + NST - 1);
+    }
     rt::cp_async_commit();
     const unsigned char* a_s = as + step % NST * L::A;
     const unsigned char* r_s = raw + step % NST * L::RAW;
@@ -374,6 +423,10 @@ cim_int8_mma(const int8_t* __restrict__ x, const int8_t* __restrict__ wq,
         for (int ni = 0; ni < NI; ++ni)
           mma_s8(acc[mi][ni], af[mi], bf[ni][0], bf[ni][1]);
     }
+    if constexpr (SPLIT) {
+      if (step + NST - 1 < n_steps) x_store(step + NST - 1);
+      continue;                    // one macro tile at most: no epilogue
+    }
     const uint32_t tile = (uint32_t)(step / (TILE / KS));
     const bool tile_end =
         (step + 1) % (TILE / KS) == 0 || step + 1 == n_steps;
@@ -398,6 +451,48 @@ cim_int8_mma(const int8_t* __restrict__ x, const int8_t* __restrict__ wq,
             accf[mi][ni][e] = __fadd_rn(accf[mi][ni][e], sf);
           }
     }
+  }
+  if constexpr (SPLIT) {
+    // the split's int32 partial, its share of the tile's noise, arrive;
+    // the unit's last block merges (cim_gemv.cuh)
+    __shared__ int last_s;
+    static_assert(NTHREADS == rt::GV_THREADS, "the merge's thread count");
+    constexpr int P = TM * MN;
+    const int unit = blockIdx.y * gridDim.x + blockIdx.x;
+    int* part_unit = sa.part + (size_t)unit * sp.n_split * P;
+    int* slot = part_unit + (size_t)split * P;
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          slot[(wm + mi * 16 + g8 + (e >> 1) * 8) * MN + ncol(ni, e) - n0] =
+              acc[mi][ni][e];
+    float* nz_unit = noise ? sa.nz + (size_t)unit * sp.tiles * P : nullptr;
+    if (noise) {
+      int lo, hi;
+      sp.noise_share(split, P, lo, hi);
+      const int tile = sp.tile(split);
+      for (int p = lo + t; p < hi; p += NTHREADS) {
+        const int m = m0 + p / MN, n = n0 + p % MN;
+        nz_unit[(size_t)tile * P + p] =
+            m < M && n < N
+                ? __fmul_rn(sigma, rt::tile_gaussian(seed0, seed1,
+                                                     (uint32_t)tile,
+                                                     (uint32_t)m, (uint32_t)n))
+                : 0.0f;
+      }
+    }
+    if (!rt::arrive_last(&sa.counters[unit], sp.n_split, &last_s)) return;
+    const float out_scale = sa.qp[1];
+    // the ring's stages are consumed: its first 4 KB hold the group sums
+    rt::merge_unit(part_unit, nz_unit, sp, P, reinterpret_cast<int*>(smem8),
+                   [&](int p, float v) {
+      const int m = m0 + p / MN, n = n0 + p % MN;
+      if (m < M && n < N) out[(size_t)m * N + n] = __fmul_rn(v, out_scale);
+    });
+    return;
   }
   const float out_scale = scale_p != nullptr ? *scale_p : scale_v;
   // columns ncol(2 np, 0) .. + 3 of rows g8, g8 + 8: even, odd, even, odd
@@ -445,35 +540,113 @@ int launch_int8(const int8_t* x, const int8_t* w, const float* scale_p,
       noise ? I8Smem<TM>::bytes : I8Smem<TM>::bytes_noiseless;
   const dim3 grid((N + MN - 1) / MN, (M + TM - 1) / TM);
   cim_int8_mma<TM, ALIGNED><<<grid, I8Smem<TM>::THREADS, bytes, s>>>(
-      x, w, scale_p, scale_v, o, M, K, N, sigma, seed0, seed1, noise);
+      x, w, scale_p, scale_v, o, M, K, N, sigma, seed0, seed1, noise,
+      SplitArgs{});
   return (int)cudaGetLastError();
+}
+
+// The fused entry's launches: grid (column units, splits) for the GEMV,
+// (column tiles, row blocks, splits) for the tensor-core tile.
+template <typename XT, int MB, int VB, int NSPAN>
+int launch_gemv(const XT* x, const int8_t* w, float* o, int M, int K, int N,
+                float sigma, uint32_t seed0, uint32_t seed1, int noise,
+                const SplitArgs& sa, cudaStream_t s) {
+  const rt::Splits sp = rt::Splits::make(K, sa.klen);
+  const dim3 grid((N + NSPAN - 1) / NSPAN, sp.n_split);
+  cim_gemv<XT, MB, VB, NSPAN><<<grid, rt::GV_THREADS, 0, s>>>(
+      x, w, sa.qp, o, M, K, N, sa.klen, sa.qmax, sigma, seed0, seed1, noise,
+      sa.part, sa.nz, sa.counters);
+  return (int)cudaGetLastError();
+}
+
+template <typename XT, int TM, bool ALIGNED>
+int launch_split_mma(const XT* x, const int8_t* w, float* o, int M, int K,
+                     int N, float sigma, uint32_t seed0, uint32_t seed1,
+                     int noise, const SplitArgs& sa, cudaStream_t s) {
+  constexpr int bytes = I8Smem<TM>::bytes_noiseless;   // no noise slots
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        cim_int8_mma<TM, ALIGNED, XT, true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  const rt::Splits sp = rt::Splits::make(K, sa.klen);
+  const dim3 grid((N + MN - 1) / MN, (M + TM - 1) / TM, sp.n_split);
+  cim_int8_mma<TM, ALIGNED, XT, true><<<grid, I8Smem<TM>::THREADS, bytes,
+                                         s>>>(
+      x, w, nullptr, 0.0f, o, M, K, N, sigma, seed0, seed1, noise, sa);
+  return (int)cudaGetLastError();
+}
+
+template <typename XT>
+int launch_fused(const XT* x, const int8_t* w, float* o, int M, int K, int N,
+                 float sigma, uint32_t seed0, uint32_t seed1, int noise,
+                 int block_m, int vec, int nspan, int aligned,
+                 const SplitArgs& sa, cudaStream_t s) {
+#define GEMV(MB, VB)                                                      \
+  if (block_m == MB && vec == VB && nspan == 64)                          \
+    return launch_gemv<XT, MB, VB, 64>(x, w, o, M, K, N, sigma, seed0,    \
+                                       seed1, noise, sa, s);              \
+  if (block_m == MB && vec == VB && nspan == 32)                          \
+    return launch_gemv<XT, MB, VB, 32>(x, w, o, M, K, N, sigma, seed0,    \
+                                       seed1, noise, sa, s);
+  GEMV(4, 16) GEMV(4, 8) GEMV(4, 4) GEMV(8, 8) GEMV(8, 4) GEMV(16, 4)
+#undef GEMV
+#define MMA(TM, AL)                                                       \
+  if (block_m == TM && aligned == AL)                                     \
+    return launch_split_mma<XT, TM, AL>(x, w, o, M, K, N, sigma, seed0,   \
+                                        seed1, noise, sa, s);
+  MMA(32, 1) MMA(32, 0) MMA(64, 1) MMA(64, 0)
+#undef MMA
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// x: (M, K) float32 (x_dtype 0) or bfloat16 (1), row-major; wq: (K, N)
-// int8 row-major; qp: device [x_scale, out_scale]; out: (M, N) float32.
-// Requires K % 4 == 0, N % 4 == 0 and 4-byte aligned wq (checked by the
-// Python wrapper). Returns cudaGetLastError() after the launch.
+#ifdef CIM_GEMV_CLOCK
+extern "C" int cim_gemv_clock_set(void* p) {
+  return (int)cudaMemcpyToSymbol(gv_clock_p, &p, sizeof(p));
+}
+#endif
+
+// x: (M, K) float32 (x_dtype 0) or bfloat16 (1), row-major, 16-byte
+// aligned; wq: (K, N) int8 row-major; qp: device [x_scale, out_scale];
+// out: (M, N) float32. The plan (kernels/cim_matmul.py cim_fused_plan):
+// block_m 4, 8 or 16 (the GEMV's rows, M <= block_m; vec its load bytes,
+// N % vec == 0 and wq on vec bytes; nspan, 64 or 32, columns a unit) or
+// 32, 64 (the tensor-core tile's rows; aligned: K % 16 == 0, N % 16 == 0
+// and wq on 16 bytes; 128 columns a unit); klen rows a split. part: int32
+// scratch of
+// units x splits x (rows x columns of a unit); nz: f32 scratch of units x
+// tiles x the same (noise only); counters: units ints, zero (left zero).
+// Requires K % 4 == 0, N % 4 == 0 (checked by the Python wrapper). Returns
+// cudaGetLastError() after the launch.
 extern "C" int cim_matmul_fused(const void* x, int x_dtype, const void* wq,
                                 const void* qp, void* out, int M, int K,
                                 int N, int qmax, float sigma,
                                 unsigned int seed0, unsigned int seed1,
-                                int noise, void* stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+                                int noise, void* part, void* nz,
+                                void* counters, int block_m, int vec,
+                                int nspan, int klen, int aligned,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int8_t* w = static_cast<const int8_t*>(wq);
-  const float* q = static_cast<const float*>(qp);
   float* o = static_cast<float*>(out);
+  const SplitArgs sa{static_cast<const float*>(qp), qmax, klen,
+                     static_cast<int*>(part), static_cast<float*>(nz),
+                     static_cast<int*>(counters)};
+  if (klen <= 0 || klen % 16 || (block_m > 16 && klen % KS) ||
+      M > (block_m > 16 ? 1 << 30 : block_m))
+    return (int)cudaErrorInvalidValue;
   if (x_dtype == 0)
-    cim_kernel<float><<<grid, THREADS, 0, s>>>(
-        static_cast<const float*>(x), w, q, o, M, K, N, qmax, sigma, seed0,
-        seed1, noise);
-  else
-    cim_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), w, q, o, M, K, N, qmax, sigma,
-        seed0, seed1, noise);
-  return (int)cudaGetLastError();
+    return launch_fused(static_cast<const float*>(x), w, o, M, K, N, sigma,
+                        seed0, seed1, noise, block_m, vec, nspan, aligned, sa,
+                        s);
+  return launch_fused(static_cast<const __nv_bfloat16*>(x), w, o, M, K, N,
+                      sigma, seed0, seed1, noise, block_m, vec, nspan,
+                      aligned, sa, s);
 }
 
 // xq: (M, K) int8 row-major; wq: (K, N) int8 row-major; scale_p: a device

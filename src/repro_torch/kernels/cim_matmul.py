@@ -5,7 +5,10 @@ bounds each on the H100 and how each streams the plane):
 
 * ``cim_matmul_fused`` replaces ``src/repro/kernels/cim_matmul.py``
   ``cim_matmul_fused_pallas`` (TPU kernel ``_fused_kernel``): float
-  activations, quantized in the kernel's prologue;
+  activations, quantized in the kernel; ``cim_fused_plan`` splits K
+  inside macro tiles over the grid and picks the body: the split-K GEMV
+  of ``csrc/cim_gemv.cuh`` at decode (M <= 16) or the int8 tensor-core
+  tile at prefill, the splits merged in the same launch;
 * ``cim_matmul_int8`` replaces ``cim_matmul_pallas`` (TPU kernel
   ``_kernel``): activations already quantized to int8, a scalar scale
   epilogue, any K and N, on the int8 tensor cores (``cim_int8_plan`` picks
@@ -35,10 +38,111 @@ import torch
 from repro_torch.core import prng, quant
 from repro_torch.core.cim import MACRO_ROWS
 from repro_torch.kernels import _build
-from repro_torch.kernels._attn import SM_COUNT
+from repro_torch.kernels._attn import SM_COUNT, arrival_counters
 
 INT8_BLOCK_N = 128       # output columns a block of the int8 kernel
 INT8_STAGE_K = 128       # K bytes a pipeline stage (eight to a macro tile)
+GEMV_ROWS = 16           # the largest M the split-K GEMV takes
+GEMV_SPANS = (64, 32)    # column units the GEMV can take
+
+
+def split_geometry(k: int, klen: int) -> Tuple[int, int, int]:
+    """How a K axis is cut into splits of ``klen`` rows that never straddle
+    a macro tile (the kernels' ``rt::Splits``): returns (splits per full
+    tile ``spt``, splits ``n_split``, tiles). Split j covers rows
+    ``split_range(k, klen, j)``."""
+    spt = -(-MACRO_ROWS // klen)
+    tiles = -(-k // MACRO_ROWS)
+    last = k - (tiles - 1) * MACRO_ROWS
+    return spt, (tiles - 1) * spt + -(-last // klen), tiles
+
+
+def split_range(k: int, klen: int, j: int) -> Tuple[int, int, int]:
+    """(tile, k0, k1) of split j (``rt::Splits::range``)."""
+    spt = split_geometry(k, klen)[0]
+    t = j // spt
+    k0 = t * MACRO_ROWS + (j - t * spt) * klen
+    return t, k0, min(k0 + klen, (t + 1) * MACRO_ROWS, k)
+
+
+def split_lengths(k: int, align: int):
+    """Split lengths, longest first: a tile (or the whole K, if shorter)
+    cut into 1, 2, 3, ... balanced pieces, rounded up to ``align`` rows."""
+    rows = min(k, MACRO_ROWS)
+    seen = set()
+    for s in range(1, -(-rows // align) + 1):
+        klen = -(-(-(-rows // s)) // align) * align
+        if klen not in seen:
+            seen.add(klen)
+            yield klen
+
+
+def cim_fused_plan(m: int, k: int, n: int, w_ptr: int = 0) -> dict:
+    """Launch plan of the fused CIM kernel (one launch either way).
+
+    M <= ``GEMV_ROWS`` (decode): the split-K GEMV. ``block_m`` rows (4, 8
+    or 16, the least that holds M) and ``vec``-byte plane loads (16, 8 or
+    4: the widest that divides N and the plane's address, at most 64 /
+    block_m, which bounds a thread's accumulators). Columns in units of
+    ``nspan`` (64 or 32), K in splits of ``klen`` rows (a multiple of 16):
+    for each unit width the longest balanced split whose grid reaches
+    ``SM_COUNT`` blocks; among the widths, the one whose merge reads the
+    fewest partials (splits x width, 32-column units counted four times
+    over for their 32-byte row pieces), the wider on a tie. No width
+    reaching ``SM_COUNT`` (narrow shapes outside the served models): the
+    most blocks.
+
+    M > 16 (prefill): the int8 tensor-core tile, ``block_m`` 32 or 64 rows
+    x 128 columns, ``aligned`` (cp.async plane) when K and N are multiples
+    of 16 and the plane starts on 16 bytes; splits of a multiple of 128
+    rows, picked by a cost in pipeline stages: the waves of two blocks an
+    SM times a block's stages, plus the merge's partials (block_m / 64 of a
+    stage each).
+
+    ``slot``: values of one split's partial (rows x columns of a unit);
+    ``part_ints`` and ``noise_floats`` the scratch the wrapper allocates."""
+    tiles = -(-k // MACRO_ROWS)
+    if m <= GEMV_ROWS:
+        rows = next(r for r in (4, 8, 16) if m <= r)
+        vec = min(next(v for v in (16, 8, 4) if n % v == 0 and w_ptr % v == 0),
+                  64 // rows)
+        best = None
+        for nspan in GEMV_SPANS:
+            units = -(-n // nspan)
+            for klen in split_lengths(k, 16):
+                n_split = split_geometry(k, klen)[1]
+                if units * n_split >= SM_COUNT:
+                    break
+            blocks = units * n_split
+            cost = n_split * nspan * (4 if nspan == 32 else 1)
+            key = (blocks < SM_COUNT, -blocks if blocks < SM_COUNT else cost)
+            if best is None or key < best[0]:
+                best = (key, nspan, klen, units, n_split)
+        _, nspan, klen, units, n_split = best
+        grid = (units, n_split)
+        slot = m * nspan
+        plan = {"path": "gemv", "block_m": rows, "vec": vec, "aligned": False}
+    else:
+        bm = 32 if m <= 32 else 64
+        spans, rb = -(-n // INT8_BLOCK_N), -(-m // bm)
+        nspan, units = INT8_BLOCK_N, spans * rb
+        best = None
+        for klen in split_lengths(k, INT8_STAGE_K):
+            n_split = split_geometry(k, klen)[1]
+            waves = -(-units * n_split // (2 * SM_COUNT))
+            cost = waves * klen // INT8_STAGE_K + n_split * bm / 64
+            if best is None or cost < best[0]:
+                best = (cost, klen, n_split)
+        _, klen, n_split = best
+        grid = (spans, rb, n_split)
+        slot = bm * nspan
+        aligned = k % 16 == 0 and n % 16 == 0 and w_ptr % 16 == 0
+        plan = {"path": "mma", "block_m": bm, "vec": 16, "aligned": aligned}
+    plan.update(nspan=nspan, klen=klen, units=units, n_split=n_split,
+                tiles=tiles, grid=grid, slot=slot,
+                part_ints=units * n_split * slot,
+                noise_floats=units * tiles * slot)
+    return plan
 
 
 def cim_int8_plan(m: int, k: int, n: int, x_ptr: int = 0,
@@ -117,6 +221,8 @@ def cim_matmul_fused(x: torch.Tensor, wq: torch.Tensor, qp: torch.Tensor,
     if in_bits > 8:
         raise ValueError(f"kernel takes in_bits <= 8, got {in_bits}")
     x = x.contiguous()
+    if x.data_ptr() % 16:          # rows are read in 16-byte pieces
+        x = x.clone()
     wq = wq.contiguous()
     qp = qp.contiguous()
     if k % 4 or n % 4 or wq.data_ptr() % 4:
@@ -125,11 +231,19 @@ def cim_matmul_fused(x: torch.Tensor, wq: torch.Tensor, qp: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     noise = seed is not None and sigma > 0.0
     s0, s1 = seed if noise else (0, 0)
+    plan = cim_fused_plan(m, k, n, wq.data_ptr())
+    # the splits' partials and (with noise) their tiles' draws, one buffer
+    scratch = torch.empty(plan["part_ints"] + (plan["noise_floats"] if noise
+                                               else 0),
+                          dtype=torch.int32, device=x.device)
+    counters = arrival_counters(x.device, plan["units"])
     rc = _build.library().cim_matmul_fused(
         x.data_ptr(), 0 if x.dtype == torch.float32 else 1, wq.data_ptr(),
         qp.data_ptr(), out.data_ptr(), m, k, n, quant.qmax(in_bits),
         float(sigma) if noise else 0.0, s0, s1, int(noise),
-        _build.stream_ptr(x.device))
+        scratch.data_ptr(), scratch.data_ptr() + 4 * plan["part_ints"],
+        counters.data_ptr(), plan["block_m"], plan["vec"], plan["nspan"],
+        plan["klen"], int(plan["aligned"]), _build.stream_ptr(x.device))
     _build.check(rc, "cim_matmul_fused")
     cim_matmul_fused.launches += 1
     return out

@@ -4,8 +4,11 @@ Replaces ``src/repro/kernels/fused_step.py`` ``fused_dense_layer`` (TPU
 kernel ``_kernel``, ``pl.pallas_call`` at :327); the kernel is
 ``csrc/fused_layer.cu``, whose note gives its bound on the H100 (the seven
 int8 weight planes) and its design (one cooperative launch, five stages
-between grid-wide barriers, every block computing the batch-global
-activation scales itself in one fixed order).
+between grid-wide barriers; every projection on the split-K GEMV of
+``csrc/cim_gemv.cuh``, split as ``fused_layer_plan`` says, attention split
+over key ranges, each merged in the stage by the last block to arrive;
+every block computing the batch-global activation scales itself in one
+fixed order).
 
 ``fused_dense_layer(ctx, p, x, cache)`` has the reference's contract: x
 (B, 1, d) float32, the layer's cache view ``{k, v[, ks, vs], len}``;
@@ -35,7 +38,9 @@ import torch
 from repro_torch.core import prng, quant
 from repro_torch.core.cim import CIMSpec, output_noise_std_int_per_tile
 from repro_torch.kernels import _build
-from repro_torch.kernels.cim_matmul import cim_matmul_fused_plain
+from repro_torch.kernels._attn import SM_COUNT, arrival_counters
+from repro_torch.kernels.cim_matmul import (cim_matmul_fused_plain,
+                                            split_geometry, split_lengths)
 from repro_torch.kernels.decode_attention import decode_attention_plain
 
 # projection order == the unfused layer's dense-call (and next_key) order
@@ -46,7 +51,8 @@ _LEAVES = (("attn", "q"), ("attn", "k"), ("attn", "v"), ("attn", "o"),
 ROWS_MAX = 8       # batch rows the kernel holds
 HEAD_DIM = 64
 GROUP_MAX = 8      # query heads per KV head
-COLS = 32          # output columns of one o / gate / up / down unit
+COLS = 64          # output columns of a projection unit (one head)
+ATTN_TILE = 32     # keys of an attention tile
 
 
 _P = ctypes.c_void_p
@@ -60,14 +66,50 @@ class _Params(ctypes.Structure):
         ("bias", _P * 3), ("freqs", _P), ("kc", _P), ("vc", _P),
         ("ksc", _P), ("vsc", _P), ("lens", _P), ("q", _P), ("attn", _P),
         ("x1", _P), ("hm", _P), ("out", _P), ("scales", _P),
+        ("part", _P), ("nz", _P), ("apart", _P), ("aml", _P), ("ssq", _P),
+        ("counters", _P),
         ("seed0", ctypes.c_uint * 7), ("seed1", ctypes.c_uint * 7),
         ("sigma", ctypes.c_float * 7), ("qmax", ctypes.c_int * 7),
+        ("klen", ctypes.c_int * 4),
         ("B", ctypes.c_int), ("d", ctypes.c_int), ("H", ctypes.c_int),
         ("KV", ctypes.c_int), ("F", ctypes.c_int), ("T", ctypes.c_int),
         ("eps", ctypes.c_float), ("clip_k", ctypes.c_float),
         ("attn_scale", ctypes.c_float), ("sim", ctypes.c_int),
         ("int8", ctypes.c_int), ("grid", ctypes.c_int),
     ]
+
+
+def fused_layer_plan(b: int, d: int, h: int, kv: int, f: int, t: int,
+                     hd: int = HEAD_DIM) -> dict:
+    """How the kernel cuts its work: per projection stage ("qkv", "o",
+    "gate_up", "down") its units of ``COLS`` columns, planes a unit, K and
+    split length ``klen`` (the longest balanced split, a multiple of 16,
+    whose units x planes x splits reach ``SM_COUNT`` items, as
+    ``cim_fused_plan`` splits the decode GEMV), splits and tiles; the
+    attention's key tiles a cache row (``ATTN_TILE`` keys, split over the
+    grid by the kernel); ``counters`` (arrival counters of all stages) and
+    the split scratch in 4-byte words, ``part`` and ``noise`` (the largest
+    stage's)."""
+    stages = {}
+    for name, units, planes, k in (("qkv", h + 2 * kv, 1, d),
+                                   ("o", d // COLS, 1, h * hd),
+                                   ("gate_up", f // COLS, 2, d),
+                                   ("down", d // COLS, 1, f)):
+        for klen in split_lengths(k, 16):
+            n_split = split_geometry(k, klen)[1]
+            if units * planes * n_split >= SM_COUNT:
+                break
+        tiles = split_geometry(k, klen)[2]
+        stages[name] = {"units": units, "planes": planes, "k": k,
+                        "klen": klen, "n_split": n_split, "tiles": tiles,
+                        "items": units * planes * n_split}
+    slot = b * COLS
+    n_t = -(-t // ATTN_TILE)
+    return {"stages": stages, "attn_tiles": n_t,
+            "counters": h + 2 * kv + b * kv + 2 * (d // COLS) + f // COLS,
+            "part": max(s["items"] for s in stages.values()) * slot,
+            "noise": max(s["units"] * s["planes"] * s["tiles"]
+                         for s in stages.values()) * slot}
 
 
 @functools.lru_cache(maxsize=None)
@@ -213,9 +255,9 @@ def _check(ctx, p, x, cache) -> None:
         raise ValueError(f"fused_dense_layer: kernel takes B <= {ROWS_MAX}, "
                          f"head_dim {HEAD_DIM}, H / KV <= {GROUP_MAX}; got "
                          f"B={b}, head_dim={hd}, H={h}, KV={kv}")
-    if d % COLS or cfg.d_ff % COLS or h * hd % COLS:
-        raise ValueError(f"fused_dense_layer: d_model, d_ff and H * hd must "
-                         f"be multiples of {COLS}")
+    if d % COLS or cfg.d_ff % COLS:
+        raise ValueError(f"fused_dense_layer: d_model and d_ff must be "
+                         f"multiples of {COLS}")
     int8 = "ks" in cache
     want = torch.int8 if int8 else torch.float32
     if cache["k"].dtype != want or cache["v"].dtype != want:
@@ -226,6 +268,9 @@ def _check(ctx, p, x, cache) -> None:
             raise ValueError(f"fused_dense_layer: cache[{name!r}] must be a "
                              f"contiguous tensor on {x.device} (it is "
                              f"written in place)")
+    if cache["k"].data_ptr() % 16 or cache["v"].data_ptr() % 16:
+        raise ValueError("fused_dense_layer: cache rows are read in 16-byte "
+                         "pieces; the k and v caches must start on 16 bytes")
     if cache["len"].dtype != torch.int32:
         raise ValueError("fused_dense_layer: cache['len'] must be int32")
 
@@ -263,7 +308,8 @@ def _launch(ctx, p, x, cache, probe: Optional[dict]) -> torch.Tensor:
     prm.g2 = ptr(p["n2"]["g"], torch.float32, (d,))
     for i in range(7):
         if lay.sim:
-            prm.w[i] = ptr(lay.weights[i], torch.int8, (n_in[i], n_out[i]))
+            prm.w[i] = ptr(lay.weights[i], torch.int8, (n_in[i], n_out[i]),
+                           align=8)
             prm.ws[i] = ptr(lay.wscales[i].reshape(()), torch.float32)
         else:
             prm.w[i] = ptr(lay.weights[i], torch.float32,
@@ -280,12 +326,21 @@ def _launch(ctx, p, x, cache, probe: Optional[dict]) -> torch.Tensor:
     if int8:
         prm.ksc, prm.vsc = cache["ks"].data_ptr(), cache["vs"].data_ptr()
     prm.lens = cache["len"].data_ptr()
-    # one buffer: roped q, attention output, x1, hm, out, scales
-    sizes = (b * h * hd, b * h * hd, b * d, b * f, b * d, 7)
+    plan = fused_layer_plan(b, d, h, kv, f, t, hd)
+    # one buffer: roped q, attention output, x1, hm, out, scales (padded to
+    # 16 bytes), the split partials, their noise, the attention ranges'
+    # outputs and (m, l), hm's sums of squares (f64)
+    n_at = plan["attn_tiles"] * b * kv
+    sizes = (b * h * hd, b * h * hd, b * d, b * f, b * d, 8, plan["part"],
+             plan["noise"], n_at * GROUP_MAX * hd, n_at * 2 * GROUP_MAX,
+             2 * (f // COLS))
     buf = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
     parts = torch.split(buf, sizes)
-    prm.q, prm.attn, prm.x1, prm.hm, prm.out, prm.scales = (
-        t_.data_ptr() for t_ in parts)
+    (prm.q, prm.attn, prm.x1, prm.hm, prm.out, prm.scales, prm.part, prm.nz,
+     prm.apart, prm.aml, prm.ssq) = (t_.data_ptr() for t_ in parts)
+    prm.counters = arrival_counters(x.device, plan["counters"]).data_ptr()
+    for i, name in enumerate(("qkv", "o", "gate_up", "down")):
+        prm.klen[i] = plan["stages"][name]["klen"]
     prm.B, prm.d, prm.H, prm.KV, prm.F, prm.T = b, d, h, kv, f, t
     prm.eps = cfg.norm_eps
     prm.clip_k = cfg.cim.act_clip_sigmas
@@ -297,7 +352,7 @@ def _launch(ctx, p, x, cache, probe: Optional[dict]) -> torch.Tensor:
     fused_dense_layer.launches += 1
     fused_dense_layer.grid = prm.grid
     if probe is not None:
-        probe["scales"] = parts[5]
+        probe["scales"] = parts[5][:7]
         probe["attn"] = parts[1].view(b, h * hd)
     return parts[4].view(b, 1, d)
 

@@ -81,22 +81,62 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("m", [1, 4, 8, 32])
-@pytest.mark.parametrize("k,n", [(896, 128), (896, 4864), (4864, 896)])
-def test_cim_kernel_matches_plain(cuda, m, k, n):
-    g = torch.Generator(device=cuda).manual_seed(m)
-    x = torch.randn((m, k), generator=g, device=cuda).bfloat16()
-    wq = torch.randint(-31, 32, (k, n), generator=g, device=cuda,
+def _cim_fused_check(dev, m, k, n, seed=0, sigma=None):
+    """The fused CIM kernel against its plain version on a random bf16
+    input: (integer part equal, noisy max error, tolerance); ``sigma``
+    defaults to the paper_sac MLP figure at this K."""
+    g = torch.Generator(device=dev).manual_seed(m + seed)
+    x = torch.randn((m, k), generator=g, device=dev).bfloat16()
+    wq = torch.randint(-31, 32, (k, n), generator=g, device=dev,
                        dtype=torch.int8)
     xs = 4.0 * torch.sqrt(torch.mean(x.float() ** 2)) / quant.qmax(6)
     qp = torch.stack([xs, torch.ones_like(xs)])
-    assert torch.equal(cim_matmul_fused(x, wq, qp, None, 0.0, 6),
-                       cim_matmul_fused_plain(x, wq, qp, None, 0.0, 6))
-    sigma = cim.output_noise_std_int_per_tile(sac.paper_sac().mlp, k)
+    exact = torch.equal(cim_matmul_fused(x, wq, qp, None, 0.0, 6),
+                        cim_matmul_fused_plain(x, wq, qp, None, 0.0, 6))
+    if sigma is None:
+        sigma = cim.output_noise_std_int_per_tile(sac.paper_sac().mlp, k)
     yk = cim_matmul_fused(x, wq, qp, (5, 6), sigma, 6)
     yp = cim_matmul_fused_plain(x, wq, qp, (5, 6), sigma, 6)
     tol = 1e-6 * -(-k // 1024) * yp.abs().max().item() + 1e-5 * sigma
-    assert (yk - yp).abs().max().item() <= tol
+    return exact, (yk - yp).abs().max().item(), tol
+
+
+# qwen2-0.5b, mamba2-130m (in_proj 768 x 3352, out_proj 1536 x 768) and
+# deepseek-v2 (dq, dkv, uq, o, the shared expert's down) shapes, decode
+# (split-K GEMV) and prefill (tensor-core tile) row counts, ragged edges
+@pytest.mark.parametrize("m", [1, 4, 8, 16, 17, 32, 33])
+@pytest.mark.parametrize("k,n", [(896, 128), (896, 4864), (4864, 896),
+                                 (768, 3352), (1536, 768), (5120, 1536),
+                                 (5120, 576), (1536, 24576), (16384, 5120),
+                                 (3072, 5120), (1000, 4), (1000, 3352)])
+def test_cim_kernel_matches_plain(cuda, m, k, n):
+    exact, err, tol = _cim_fused_check(cuda, m, k, n)
+    assert exact
+    assert err <= tol
+
+
+@pytest.mark.parametrize("flag", ["-DCIM_DROP_SPLIT", "-DCIM_TILE0_NOISE"])
+def test_cim_kernel_check_catches_wrong_builds(cuda, monkeypatch, tmp_path,
+                                               flag):
+    """A build whose merge drops each tile's last split fails the exact
+    integer check; one that gives every tile's sum the first tile's noise
+    fails the noisy tolerance; on both bodies (M 4 and 32). The
+    noise check runs at sigma = 100 LSB: at the paper_sac figure the noise
+    is about 1e-7 of max|y|, below the tolerance's 1e-6 * tiles * max|y|
+    term; the right build passes at that sigma too."""
+    from repro_torch.kernels import _build
+    for m in (4, 32):
+        exact, err, tol = _cim_fused_check(cuda, m, 4864, 896, sigma=100.0)
+        assert exact and err <= tol
+    monkeypatch.setattr(_build, "FLAGS", _build.FLAGS + [flag])
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_LIB", None)
+    for m in (4, 32):
+        exact, err, tol = _cim_fused_check(cuda, m, 4864, 896, sigma=100.0)
+        if flag == "-DCIM_DROP_SPLIT":
+            assert not exact
+        else:
+            assert exact and err > tol
 
 
 @pytest.mark.parametrize("int8", [False, True])
@@ -205,9 +245,10 @@ def test_reduced_model_tokens_card_equal_cpu(cuda):
 
 
 OLD_LENS = (0, 5, 60, 100)
+LENS_BY_ROWS = {1: (60,), 4: OLD_LENS, 8: OLD_LENS + (127, 31, 32, 33)}
 
 
-def _fused_case(dev, mode, int8):
+def _fused_case(dev, mode, int8, lens=OLD_LENS):
     base = get_config("qwen2-0.5b").reduced()
     cfg = dataclasses.replace(base, kv_cache_int8=int8, cim=dataclasses.replace(
         base.cim, mode=mode, use_kernel=True))
@@ -216,7 +257,7 @@ def _fused_case(dev, mode, int8):
         params = deploy(cfg, params)
     layer = tf._index(params["blocks"], 1)
     g = torch.Generator(device=dev).manual_seed(3)
-    b, t, kv, hd = len(OLD_LENS), 128, cfg.n_kv_heads, cfg.hd
+    b, t, kv, hd = len(lens), 128, cfg.n_kv_heads, cfg.hd
     x = torch.randn((b, 1, cfg.d_model), generator=g, device=dev)
     kf = torch.randn((b, t, kv, hd), generator=g, device=dev)
     vf = torch.randn((b, t, kv, hd), generator=g, device=dev)
@@ -225,7 +266,7 @@ def _fused_case(dev, mode, int8):
         cache = {"k": kq, "v": vq, "ks": ks, "vs": vs}
     else:
         cache = {"k": kf, "v": vf}
-    cache["len"] = torch.tensor(OLD_LENS, dtype=torch.int32, device=dev)
+    cache["len"] = torch.tensor(lens, dtype=torch.int32, device=dev)
     kc, kp = {k: v.clone() for k, v in cache.items()}, {}
     ko, _ = fused_dense_layer(Ctx.make(cfg, prng.PRNGKey(4), mode=mode),
                               layer, x, kc, probe=kp)
@@ -244,16 +285,18 @@ def _rows_off(a, b, tol):
     return ((a - b).abs() > tol * b.abs().amax(-1, keepdim=True)).any(-1)
 
 
-def _written(cache, name):
-    at = torch.arange(len(OLD_LENS), device=cache[name].device)
-    pos = torch.tensor(OLD_LENS, device=cache[name].device)
+def _written(cache, name, lens=OLD_LENS):
+    at = torch.arange(len(lens), device=cache[name].device)
+    pos = torch.tensor(lens, device=cache[name].device)
     return cache[name][at, pos].float()
 
 
+@pytest.mark.parametrize("rows", [1, 4, 8])
 @pytest.mark.parametrize("mode", ["off", "sim"])
 @pytest.mark.parametrize("int8", [False, True])
-def test_fused_layer_kernel_matches_plain(cuda, mode, int8):
-    (ko, kc, kp), plain = _fused_case(cuda, mode, int8)
+def test_fused_layer_kernel_matches_plain(cuda, mode, int8, rows):
+    lens = LENS_BY_ROWS[rows]
+    (ko, kc, kp), plain = _fused_case(cuda, mode, int8, lens)
     po, pc, pp = plain()
     assert not _rows_off(ko[:, 0], po[:, 0], 2 ** -10).any()
     b = ko.shape[0]
@@ -261,22 +304,24 @@ def test_fused_layer_kernel_matches_plain(cuda, mode, int8):
                          pp["attn"].view(b, -1, 64), 2 ** -12).any()
     assert torch.equal(kc["len"], pc["len"])
     for name in ("k", "v"):
-        a, r = _written(kc, name), _written(pc, name)
+        a, r = _written(kc, name, lens), _written(pc, name, lens)
         if int8:
             assert (a - r).abs().max().item() <= 1
-            assert not _rows_off(_written(kc, name + "s"),
-                                 _written(pc, name + "s"), 1e-6).any()
+            assert not _rows_off(_written(kc, name + "s", lens),
+                                 _written(pc, name + "s", lens), 1e-6).any()
         else:
             assert not _rows_off(a, r, 1e-6).any()
 
 
+@pytest.mark.parametrize("rows", [1, 4, 8])
 @pytest.mark.parametrize("int8", [False, True])
 def test_fused_layer_tolerance_catches_wrong_variants(cuda, monkeypatch,
-                                                      int8):
+                                                      int8, rows):
     """Attention without the current token fails the attention check in
     every row; k and v noise seeds swapped fail the cache-row check in
     every written row."""
-    (ko, kc, kp), plain = _fused_case(cuda, "sim", int8)
+    lens = LENS_BY_ROWS[rows]
+    (ko, kc, kp), plain = _fused_case(cuda, "sim", int8, lens)
     attend, layer_cls = (fused_step.decode_attention_plain,
                          fused_step._Layer)
     monkeypatch.setattr(fused_step, "decode_attention_plain",
@@ -296,7 +341,7 @@ def test_fused_layer_tolerance_catches_wrong_variants(cuda, monkeypatch,
     monkeypatch.setattr(fused_step, "_Layer", Swapped)
     _, pc, _ = plain()
     for name in ("k", "v"):
-        a, r = _written(kc, name), _written(pc, name)
+        a, r = _written(kc, name, lens), _written(pc, name, lens)
         if int8:
             assert ((a - r).abs() > 1).any(-1).all()
         else:
