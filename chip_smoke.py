@@ -16,6 +16,8 @@ tolerance must catch), full-width serving with both caches and exact
 launch counts, a profile of one decode step fused and unfused, fused vs
 unfused tokens and logits, and its times. Then the ssm family: the mamba2
 selective-scan decode kernel against its plain version at full width
+(B 4, 1 and 3, bf16 and f32 windows, bf16 and misaligned conv weights),
+at zamba2-7b's mamba width and at a d_state with no template of its own
 (with two deliberately wrong inputs that the tolerance must catch),
 card-vs-CPU greedy tokens of the reduced mamba2 in off and sim mode,
 full-width mamba2-130m serving with exact launch counts, a profile of one
@@ -1555,15 +1557,24 @@ def ssm_config(mode="sim"):
 
 
 def ssm_inputs(cfg, b, window_dtype, seed):
-    """One layer's decode-step operands at ``cfg``'s width: a random window
-    in ``window_dtype``, a random f32 state, conv weights, the model's
-    decay rates, and ragged dt log-uniform in [1e-3, 1e-1] (mamba2's dt
-    range: every row keeps part of its state, so a wrong state shows)."""
-    import torch
+    """One layer's decode-step operands at ``cfg``'s width (see
+    ``ssm_operands``)."""
     s = cfg.ssm
     d_inner = s.expand * cfg.d_model
-    h, win = d_inner // s.headdim, s.conv_width - 1
-    cd = d_inner + 2 * s.ngroups * s.d_state
+    return ssm_operands(b, d_inner // s.headdim, s.headdim, s.d_state,
+                        s.conv_width - 1, window_dtype, seed)
+
+
+def ssm_operands(b, h, p, n, win, window_dtype, seed, w_dtype=None):
+    """One layer's decode-step operands for B slot rows, H heads of P state
+    rows, d_state N and a window of ``win`` rows: a random window in
+    ``window_dtype``, a random f32 state, conv weights (float32, or
+    ``w_dtype``), the model's decay rates, and ragged dt log-uniform in
+    [1e-3, 1e-1] (mamba2's dt range: every row keeps part of its state, so
+    a wrong state shows). ngroups is 1, as in every config."""
+    import torch
+    d_inner = h * p
+    cd = d_inner + 2 * n
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def r(*shape):
@@ -1572,10 +1583,18 @@ def ssm_inputs(cfg, b, window_dtype, seed):
     dt = torch.exp(torch.rand((b, h), generator=g, device="cuda")
                    * (np.log(0.1) - np.log(1e-3)) + np.log(1e-3))
     a = -torch.linspace(1.0, 16.0, h, device="cuda")
+    w_dtype = w_dtype or torch.float32
     args = [r(b, win, cd).to(window_dtype), r(b, 1, cd).to(window_dtype),
-            0.2 * r(win + 1, cd), 0.1 * r(cd), dt, a, r(h),
-            r(b, h, s.headdim, s.d_state)]
-    return args, (d_inner, s.ngroups, s.d_state)
+            (0.2 * r(win + 1, cd)).to(w_dtype), (0.1 * r(cd)).to(w_dtype),
+            dt, a, r(h), r(b, h, p, n)]
+    return args, (d_inner, 1, n)
+
+
+def misaligned(t):
+    """A contiguous copy of ``t`` one element past an aligned address."""
+    import torch
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return buf[1:].view(t.shape).copy_(t)
 
 
 def ssm_rows(out, ref):
@@ -1596,50 +1615,85 @@ def ssm_rows(out, ref):
                                           .amax(-1, keepdim=True)).max()))
 
 
+# (name, B, H, P, N, window dtype, conv_w / conv_b dtype) of phase
+# ssm_check: mamba2-130m (cell E's width) at B 4 in both window dtypes, at
+# B 1 and 3, with the model's bf16 conv weights widened in the kernel,
+# zamba2-7b's mamba layers (d_inner 7168, N 64, conv_dim 7296), and a
+# d_state with no template of its own (two chunks a row, P 7: one-channel
+# conv loads)
+SSM_CASES = (("mamba2-130m", 4, 24, 64, 128, "bfloat16", "float32"),
+             ("mamba2-130m", 4, 24, 64, 128, "float32", "float32"),
+             ("mamba2-130m", 1, 24, 64, 128, "bfloat16", "float32"),
+             ("mamba2-130m", 3, 24, 64, 128, "bfloat16", "float32"),
+             ("mamba2-130m", 4, 24, 64, 128, "bfloat16", "bfloat16"),
+             ("zamba2-7b", 4, 112, 64, 64, "bfloat16", "float32"),
+             ("zamba2-7b", 4, 112, 64, 64, "float32", "float32"),
+             ("generic", 2, 5, 7, 200, "bfloat16", "bfloat16"))
+
+
 def phase_ssm_check():
-    """The selective-scan kernel against its plain version at full width
-    (B = 4, H = 24, P = 64, N = 128, conv_dim 1792) with a bf16 and an f32
-    window: the new window bit for bit, state and y rows within SSM_TOL of
-    their max; the in-place update (state_out = state) equal to the
-    out-of-place one. Reach: the plain step without the decay (A = 0) and
-    on the wrong slot's state must fail in every state and y row."""
+    """The selective-scan kernel against its plain version at every shape
+    of ``SSM_CASES``: the new window bit for bit, state and y rows within
+    SSM_TOL of their max; the in-place update (state_out = state) equal to
+    the out-of-place one. bf16 conv weights: the plain version takes their
+    float32 widening, and the kernel's result equals its own on the widened
+    weights exactly; misaligned conv weights (the kernel's one-channel
+    loads) give exactly what aligned ones give. Reach: the plain step without the decay (A = 0) and on
+    the wrong slot's state (the next slot's; at B 1 another draw) must fail
+    in every state and y row."""
     import torch
-    from repro_torch.kernels.ssm_scan import (ssm_decode_step,
+    from repro_torch.kernels.ssm_scan import (ssm_decode_plan,
+                                              ssm_decode_step,
                                               ssm_decode_step_plain)
-    cfg = ssm_config()
     worst = 0.0
-    for wdt in (torch.bfloat16, torch.float32):
-        args, dims = ssm_inputs(cfg, 4, wdt, 31)
+    for i, (arch, b, h, p, n, wname, cname) in enumerate(SSM_CASES):
+        wdt, cdt = getattr(torch, wname), getattr(torch, cname)
+        args, dims = ssm_operands(b, h, p, n, 3, wdt, 31 + i, cdt)
+        wide = args[:2] + [args[2].float(), args[3].float()] + args[4:]
         out = ssm_decode_step(*args, *dims)
-        ref = ssm_decode_step_plain(*args, *dims)
+        ref = ssm_decode_step_plain(*wide, *dims)
         res = ssm_rows(out, ref)
         st = args[7].clone()
         y2, _, _ = ssm_decode_step(*args[:7], st, *dims, state_out=st)
         in_place = torch.equal(st, out[2]) and torch.equal(y2, out[0])
         window_equal = (out[1].dtype == wdt and torch.equal(out[1], ref[1]))
+        widened_equal = cdt == torch.float32 or all(
+            torch.equal(u, v)
+            for u, v in zip(out, ssm_decode_step(*wide, *dims)))
+        odd = args[:2] + [misaligned(args[2]), misaligned(args[3])] + args[4:]
+        aligned_equal = all(torch.equal(u, v) for u, v in
+                            zip(out, ssm_decode_step(*odd, *dims)))
         bad = {k: float(res[k].float().mean()) for k in ("state", "y")}
         if (any(bad.values()) or not window_equal or not in_place
+                or not widened_equal or not aligned_equal
                 or not bool(torch.isfinite(out[0]).all())):
-            fail(f"ssm_decode_step window {wdt}: rows out of tolerance "
-                 f"{bad}, window equal {window_equal}, in place {in_place}, "
-                 f"state err {res['state_err']}, y err {res['y_err']}")
+            fail(f"ssm_decode_step {arch} B {b} window {wdt} conv weights "
+                 f"{cdt}: rows out of tolerance {bad}, window equal "
+                 f"{window_equal}, in place {in_place}, widened weights "
+                 f"equal {widened_equal}, misaligned weights equal "
+                 f"{aligned_equal}, state err {res['state_err']}, "
+                 f"y err {res['y_err']}")
         reach = {}
-        no_decay, wrong_slot = list(args), list(args)
+        no_decay, wrong_slot = list(wide), list(wide)
         no_decay[5] = torch.zeros_like(args[5])
-        wrong_slot[7] = args[7].roll(1, dims=0)
+        wrong_slot[7] = (args[7].roll(1, dims=0) if b > 1 else
+                         ssm_operands(b, h, p, n, 3, wdt, 99, cdt)[0][7])
         for kind, v in (("no_decay", no_decay), ("wrong_slot", wrong_slot)):
             r = ssm_rows(out, ssm_decode_step_plain(*v, *dims))
             reach[kind] = {k: float(r[k].float().mean())
                            for k in ("state", "y")}
             if min(reach[kind].values()) < 1.0:
                 fail(f"ssm_decode_step tolerance too loose: the {kind} "
-                     f"variant fails only {reach[kind]} of the rows")
+                     f"variant fails only {reach[kind]} of the rows "
+                     f"({arch} B {b})")
         worst = max(worst, res["state_err"], res["y_err"])
-        emit("ssm_kernel_check", kernel="ssm_decode_step",
-             window_dtype=str(wdt).replace("torch.", ""),
-             shape={"B": 4, "H": args[5].numel(), "P": args[7].shape[2],
-                    "N": args[7].shape[3], "conv_dim": args[0].shape[2]},
+        emit("ssm_kernel_check", kernel="ssm_decode_step", arch=arch,
+             window_dtype=wname, conv_weight_dtype=cname,
+             shape={"B": b, "H": h, "P": p, "N": n,
+                    "conv_dim": args[0].shape[2]},
+             plan=ssm_decode_plan(b, h, p, n),
              window_equal=True, in_place_equal=True,
+             misaligned_weights_equal=True,
              state_max_abs_err=res["state_err"], y_max_abs_err=res["y_err"],
              y_err_over_row_max=res["y_err_over_row_max"],
              tol=f"state and y rows: {SSM_TOL}*max|row|; window exact",
@@ -1751,6 +1805,26 @@ def phase_serve_ssm(params):
     return counts
 
 
+def ssm_step_work(layers):
+    """Bytes and f32 operations of one decode step over ``layers`` (each
+    ``(args, dims)`` of ``ssm_operands``): the f32 state read and written
+    once, the window in and out, xbc, the conv weights, dt, A, D and y
+    once; five operations per state element, three per x channel, and the
+    conv + SiLU of every channel a head reads."""
+    nbytes = ops = 0
+    for args, (d_inner, _, n) in layers:
+        conv, state = args[0], args[7]
+        b, win, _ = conv.shape
+        h, p = state.shape[1:3]
+        nbytes += (2 * state.numel() * 4
+                   + 2 * conv.numel() * conv.element_size()
+                   + sum(t.numel() * t.element_size() for t in args[1:7])
+                   + b * d_inner * 4)
+        ops += b * h * (5 * p * n + 3 * p
+                        + (p + 2 * n) * (2 * (win + 1) + 4))
+    return nbytes, ops
+
+
 def phase_times_ssm():
     """Device ms of one decode step's 24 selective-scan launches (full
     width, B = 4, bf16 window, each layer its own state, updated in place
@@ -1760,21 +1834,15 @@ def phase_times_ssm():
     its f32 operations over the f32 peak. No single PyTorch call computes
     this step, so there is no library time."""
     import torch
-    from repro_torch.kernels.ssm_scan import (ssm_decode_step,
+    from repro_torch.kernels.ssm_scan import (ssm_decode_plan,
+                                              ssm_decode_step,
                                               ssm_decode_step_plain)
     cfg = ssm_config()
     s, L, b = cfg.ssm, cfg.n_layers, 4
     layers = [ssm_inputs(cfg, b, torch.bfloat16, 60 + i) for i in range(L)]
-    args, (d_inner, _, n) = layers[0]
-    h, p, win, cd = (args[5].numel(), s.headdim, s.conv_width - 1,
-                     args[0].shape[2])
-    per_layer = (2 * b * h * p * n * 4                 # state in, out
-                 + 2 * b * win * cd * 2 + b * cd * 2   # window in, out; xbc
-                 + (win + 1) * cd * 4 + cd * 4         # conv_w, conv_b
-                 + b * h * 4 + 2 * h * 4               # dt; A, D
-                 + b * d_inner * 4)                    # y
-    nbytes = L * per_layer
-    ops = L * b * h * (5 * p * n + 3 * p + (p + 2 * n) * (2 * (win + 1) + 4))
+    args, (_, _, n) = layers[0]
+    h, p = args[5].numel(), s.headdim
+    nbytes, ops = ssm_step_work(layers)
 
     def run_k():
         for a, dims in layers:
@@ -1794,7 +1862,8 @@ def phase_times_ssm():
                unit=f"one decode step: {L} layers, B={b}, H={h}, P={p}, "
                     f"N={n}, bf16 window",
                launches_per_decode_step=L)
-    emit("time", kernel="ssm_decode_step", **res, bytes=nbytes, f32_ops=ops)
+    emit("time", kernel="ssm_decode_step", **res, bytes=nbytes, f32_ops=ops,
+         plan=ssm_decode_plan(b, h, p, n))
     return {"ssm_decode_step": res}
 
 

@@ -42,7 +42,7 @@ _SIGNATURES = {
     "decode_attention": [_P] * 10 + [_I] * 9 + [_F, _P],
     "flash_gqa": [_P] * 11 + [_I] * 11 + [_F, _P],
     "fused_dense_layer": [_P, _P],
-    "ssm_decode_step": [_P] * 11 + [_I] * 8 + [_P],
+    "ssm_decode_step": [_P] * 11 + [_I] * 14 + [_P],
     "mla_decode_attention": [_P] * 9 + [_I] * 8 + [_F, _P],
     "flash_mha": [_P] * 9 + [_I] * 8 + [_F, _P],
 }

@@ -185,8 +185,8 @@ def mamba2_block(ctx: Ctx, p: Params, x: torch.Tensor,
             cache["state"].copy_(hT)
     elif cfg.attn_impl == "kernel":
         y, new_conv, _ = ssm_decode_step(
-            cache["conv"], xbc, p["conv_w"].to(f32), p["conv_b"].to(f32),
-            dt[:, 0], A, p["D"], cache["state"], di, g, n,
+            cache["conv"], xbc, p["conv_w"], p["conv_b"], dt[:, 0], A,
+            p["D"], cache["state"], di, g, n,
             state_out=cache["state"])
         cache["conv"].copy_(new_conv)
         y = y.reshape(b, 1, di)

@@ -19,7 +19,8 @@ less), each attention-output row within 2^-12, the written f32 cache rows
 within 1e-6 relative, int8 codes equal or one apart. The mamba2 decode
 step against its plain version: the new conv window bit for bit; every
 state row (one (slot, head, p) over N) and every y row (one (slot, head)
-over P) within 1e-5 of its max |value|. The MLA latent-cache decode kernel
+over P) within 1e-5 of its max |value|, at the reduced and the served widths
+(mamba2-130m, zamba2-7b's mamba layers). The MLA latent-cache decode kernel
 against its plain version: every output row (one (slot, head) over the
 latent width) within 1e-5 of its max |value| in f32 and 2^-7 in bf16 (one
 bf16 rounding of an output); lens == 0 rows exactly zero. The int8 CIM
@@ -415,6 +416,75 @@ def test_ssm_tolerance_catches_wrong_variants(cuda):
     for variant in (no_decay, wrong_slot):
         ref = ssm_decode_step_plain(*variant, *dims)
         assert all(m.all() for m in _ssm_rows_off(out, ref))
+
+
+# (B, H, P, N, window dtype, conv_w / conv_b dtype, window rows): mamba2-130m's
+# width at B 1 and 3 and with its bf16 conv weights, zamba2-7b's mamba
+# layers (d_inner 7168, N 64, conv_dim 7296) with a bf16 and an f32 window,
+# and the kernel's other paths: a d_state without a template of its own
+# (40: one chunk; 200 with P 7: two chunks and one-channel conv loads) and
+# a conv of 6 taps (past the 4 loaded together)
+SSM_WIDE = {"mamba2_b1": (1, 24, 64, 128, torch.bfloat16, torch.float32, 3),
+            "mamba2_b3": (3, 24, 64, 128, torch.bfloat16, torch.float32, 3),
+            "mamba2_bf16_conv_w": (4, 24, 64, 128, torch.bfloat16,
+                                   torch.bfloat16, 3),
+            "zamba2_bf16": (4, 112, 64, 64, torch.bfloat16, torch.float32, 3),
+            "zamba2_f32": (4, 112, 64, 64, torch.float32, torch.float32, 3),
+            "generic_n40": (2, 3, 24, 40, torch.float32, torch.float32, 3),
+            "generic_n200_p7": (2, 5, 7, 200, torch.bfloat16, torch.bfloat16,
+                                3),
+            "conv_width_6": (2, 4, 32, 64, torch.bfloat16, torch.float32, 5)}
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` one element past an aligned address: the
+    kernel takes its one-channel conv loads."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return buf[1:].view(t.shape).copy_(t)
+
+
+@pytest.mark.parametrize("case", list(SSM_WIDE))
+def test_ssm_kernel_matches_plain_served_widths(cuda, case):
+    """The kernel at served widths and on its other paths: the window
+    exact, state and y rows within 1e-5 of their max against the plain
+    version (fed the conv weights widened to f32), in place equal to out of
+    place, one launch a call; bf16 conv weights give exactly what their
+    widening gives, and misaligned conv weights (one-channel loads) exactly
+    what aligned ones give; the wrong variants (no decay; another slot's
+    state) fail every row."""
+    b, h, p, n, wdt, cdt, win = SSM_WIDE[case]
+    gen = torch.Generator(device=cuda).manual_seed(b * n + h)
+    r = lambda *sh: torch.randn(sh, generator=gen, device=cuda)  # noqa: E731
+    cd = h * p + 2 * n
+    dt = torch.exp(torch.rand((b, h), generator=gen, device=cuda)
+                   * (np.log(0.1) - np.log(1e-3)) + np.log(1e-3))
+    args = [r(b, win, cd).to(wdt), r(b, 1, cd).to(wdt),
+            (0.2 * r(win + 1, cd)).to(cdt), (0.1 * r(cd)).to(cdt), dt,
+            -torch.linspace(1.0, 16.0, h, device=cuda), r(h), r(b, h, p, n)]
+    dims = (h * p, 1, n)
+    wide = args[:2] + [args[2].float(), args[3].float()] + args[4:]
+    ssm_decode_step.launches = 0
+    out = ssm_decode_step(*args, *dims)
+    assert ssm_decode_step.launches == 1
+    ref = ssm_decode_step_plain(*wide, *dims)
+    assert out[1].dtype == wdt and torch.equal(out[1], ref[1])
+    assert not any(m.any() for m in _ssm_rows_off(out, ref))
+    st = args[-1].clone()
+    y2, _, st2 = ssm_decode_step(*args[:-1], st, *dims, state_out=st)
+    assert st2 is st and torch.equal(st, out[2]) and torch.equal(y2, out[0])
+    assert ssm_decode_step.launches == 2
+    if cdt != torch.float32:
+        assert all(torch.equal(u, v) for u, v in
+                   zip(out, ssm_decode_step(*wide, *dims)))
+    odd = args[:2] + [_misaligned(args[2]), _misaligned(args[3])] + args[4:]
+    assert all(torch.equal(u, v) for u, v in
+               zip(out, ssm_decode_step(*odd, *dims)))
+    no_decay, wrong_slot = list(wide), list(wide)
+    no_decay[5] = torch.zeros_like(args[5])
+    wrong_slot[7] = args[7].roll(1, dims=0) if b > 1 else r(b, h, p, n)
+    for variant in (no_decay, wrong_slot):
+        off = _ssm_rows_off(out, ssm_decode_step_plain(*variant, *dims))
+        assert all(m.all() for m in off)
 
 
 @pytest.mark.parametrize("mode", ["off", "sim"])
