@@ -49,9 +49,20 @@ the cache's end, and timed beside scaled_dot_product_attention and their
 earlier times. The behavioural sim path (cim.use_kernel=False, what the
 serving CLI's --cim sim runs): reduced-model tokens card vs CPU, and
 full-width qwen2-0.5b served with no CIM kernel launch. And
-Engine(fuse_layer=True) on a bf16 model serves unfused. Every phase prints
-one JSON line; any failure exits non-zero. The last line is the device
-record.
+Engine(fuse_layer=True) on a bf16 model serves unfused.
+
+The serving cells A-E run the engine's main path, ``fused_step``: the
+decode step and each slot's prefill chunk replayed as CUDA graphs. Each
+cell's session is served replayed and per call (``graph_vs_eager``):
+greedy tokens and every kernel's launch count equal, no capture falling
+back, every iteration all replays, one decode replay per pure-decode
+step; the profile phase reads a pure decode step both ways (host step
+ms, device-busy share, device launches, host dispatches). Float32
+qwen2-0.5b with fuse_layer=True at 9 slots, past the fused kernel's 8
+rows, serves unfused with the unfused tokens (``fused_layer_reach``); the
+whole-prompt path and LoopEngine give the CPU's tokens on the reduced
+models (``whole_prompt_loop_parity``). Every phase prints one JSON line;
+any failure exits non-zero. The last line is the device record.
 """
 
 from __future__ import annotations
@@ -486,27 +497,27 @@ def full_config(int8: bool):
         cfg.cim, mode="sim", use_kernel=True))
 
 
-def phase_serve(params, int8: bool):
-    """Full-width qwen2-0.5b, sim mode, through the kernels; the launch
-    counts are zeroed just before the run and read just after."""
+SESSION_LENS = (60, 300, 137, 95, 211, 64)
+
+
+def run_session(cfg, params, kernels, fused_step, fuse_layer=False,
+                slots=4, lens=SESSION_LENS, new=16):
+    """The cells' session (requests of ``lens`` tokens, ``new`` greedy
+    tokens each, ``slots`` slots, chunk 32) on one engine; the launch
+    counts of ``kernels`` are zeroed after the engine is built (its CUDA
+    graph capture and warm-up included) and read after the session.
+    Returns (engine, requests, outputs, counts, wall seconds)."""
     import torch
-    from repro_torch.kernels.cim_matmul import cim_matmul_fused
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_gqa_attention
-    from repro_torch.core import prng
-    from repro_torch.models import transformer as tf
-    from repro_torch.models.layers import Ctx
     from repro_torch.serving.engine import Engine, Request
 
-    cfg = full_config(int8)
-    eng = Engine(cfg, params, max_slots=4, max_len=320, attn_impl="kernel",
-                 record_ttft=True, record_steps=True, device="cuda")
+    eng = Engine(cfg, params, max_slots=slots, max_len=320,
+                 attn_impl="kernel", fuse_layer=fuse_layer,
+                 fused_step=fused_step, record_ttft=True, record_steps=True,
+                 device="cuda")
     rng = np.random.default_rng(5)
-    lens = (60, 300, 137, 95, 211, 64)
     reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n),
-                    max_new_tokens=16, rid=f"r{i}")
+                    max_new_tokens=new, rid=f"r{i}")
             for i, n in enumerate(lens)]
-    kernels = (cim_matmul_fused, decode_attention, flash_gqa_attention)
     for k in kernels:
         k.launches = 0
     torch.cuda.synchronize()
@@ -514,7 +525,73 @@ def phase_serve(params, int8: bool):
     outs = eng.generate(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {k.__name__: k.launches for k in kernels}
+    return eng, reqs, outs, {k.__name__: k.launches for k in kernels}, wall
+
+
+def session_numbers(eng, outs, wall):
+    dec = [e["s"] for e in eng.step_log if e["decode"] and not e["chunks"]]
+    toks = sum(len(o) for o in outs if isinstance(o, list))
+    return {"wall_s": wall, "session_tok_per_s": toks / wall,
+            "pure_decode_step_ms_mean": 1e3 * float(np.mean(dec)),
+            "ttft_ms_mean": 1e3 * float(np.mean(eng.ttft_s)),
+            "ttft_ms_max": 1e3 * float(np.max(eng.ttft_s)),
+            "launch_count": eng.launch_count,
+            "replay_count": eng.replay_count}
+
+
+def graph_vs_eager(cell, cfg, params, kernels, fuse_layer=False):
+    """A cell's session replayed through the engine's CUDA graphs (the
+    main path, ``fused_step=True``) and per call (``fused_step=False``):
+    fails unless the greedy tokens and every kernel's launch count are
+    equal, the capture held (no fallback), every iteration of the replayed
+    run was all replays and every pure-decode step one decode replay.
+    Returns the replayed run (engine, requests, outputs, counts, wall)."""
+    g = run_session(cfg, params, kernels, True, fuse_layer)
+    e = run_session(cfg, params, kernels, False, fuse_layer)
+    eng, _, outs, counts, wall = g
+    log = eng.step_log
+    pure = [x for x in log if x["decode"] and not x["chunks"]]
+    problems = []
+    if outs != e[2]:
+        problems.append("tokens differ")
+    if counts != e[3]:
+        problems.append(f"launches {counts} vs per-call {e[3]}")
+    if not eng.fused_ok or eng.fallbacks:
+        problems.append(f"fell back ({eng.fallbacks})")
+    if not all(x["graph"] for x in log):
+        problems.append("an iteration left the graphs")
+    if not pure or any(x["replays"] != 1 for x in pure):
+        problems.append("a pure-decode step was not one decode replay")
+    if e[0].replay_count:
+        problems.append("the per-call run replayed")
+    if problems:
+        fail(f"graph_vs_eager {cell}: {'; '.join(problems)}")
+    emit("graph_vs_eager", cell=cell, arch=cfg.name, dtype=cfg.dtype,
+         kv_cache_int8=cfg.kv_cache_int8, fuse_layer=fuse_layer,
+         tokens_equal=True, launches_equal=True, launches=counts,
+         iterations=len(log), pure_decode_steps=len(pure),
+         replayed=session_numbers(eng, outs, wall),
+         per_call=session_numbers(e[0], e[2], e[4]))
+    return g
+
+
+def phase_serve(params, int8: bool):
+    """Full-width qwen2-0.5b, sim mode, through the kernels, replayed and
+    per call (``graph_vs_eager``); the launch counts of the replayed run
+    (the main path) are zeroed just before it and read just after."""
+    import torch
+    from repro_torch.kernels.cim_matmul import cim_matmul_fused
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_gqa_attention
+    from repro_torch.core import prng
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import Ctx
+
+    cfg = full_config(int8)
+    kernels = (cim_matmul_fused, decode_attention, flash_gqa_attention)
+    eng, reqs, outs, counts, wall = graph_vs_eager("B" if int8 else "A", cfg,
+                                                   params, kernels)
+    lens = SESSION_LENS
     bad = [o for o in outs if not isinstance(o, list) or len(o) != 16
            or not all(0 <= t < cfg.vocab_size for t in o)]
     if bad:
@@ -534,7 +611,7 @@ def phase_serve(params, int8: bool):
               "decode_attention": L * n_decode,
               "flash_gqa_attention": L * n_chunks}
     for name, n in expect.items():
-        if counts[name] < n or n == 0:
+        if counts[name] != n or n == 0:
             fail(f"int8={int8}: {name} launched {counts[name]} times, "
                  f"expected {n}")
     dec = [e["s"] for e in eng.step_log if e["decode"] and not e["chunks"]]
@@ -546,22 +623,65 @@ def phase_serve(params, int8: bool):
          pure_decode_step_ms_mean=1e3 * float(np.mean(dec)),
          ttft_ms_mean=1e3 * float(np.mean(eng.ttft_s)),
          ttft_ms_max=1e3 * float(np.max(eng.ttft_s)),
-         launches=counts, expected_at_least=expect, logits_finite=True)
+         launches=counts, expected=expect, logits_finite=True, replayed=True)
     return counts, n_decode, n_chunks
 
 
-def phase_profile(params, cfg=None, fuse_layer=False, path=None):
-    """Where a pure decode step's time goes at full width: the device's
-    busy share (union of kernel intervals over the host wall clock) and
-    device time by kernel, from torch.profiler over three steps. ``path``
-    names the sim path in the emitted line."""
+# CUDA runtime and driver calls that hand the card work: a host dispatch
+HOST_DISPATCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                   "cudaLaunchCooperativeKernel", "cudaGraphLaunch",
+                   "cudaMemcpyAsync", "cudaMemsetAsync", "cuLaunchKernel",
+                   "cuLaunchKernelEx", "cuGraphLaunch")
+
+
+# the CUDA kernels each counted wrapper launches, as the profiler names
+# them (whole words of the demangled name)
+KERNEL_NAMES = {"cim_matmul_fused": ("cim_gemv", "cim_int8_mma"),
+                "cim_matmul_int8": ("cim_int8_mma",),
+                "decode_attention": ("decode_kernel",),
+                "flash_gqa_attention": ("flash_mma_kernel",
+                                        "flash_f32_kernel"),
+                "flash_attention": ("flash_mma_kernel", "flash_f32_kernel"),
+                "fused_dense_layer": ("fused_layer_kernel",),
+                "mla_decode_attention": ("mla_f32_kernel", "mla_mma_kernel"),
+                "ssm_decode_step": ("ssm_decode_kernel",)}
+
+
+def kernels_seen(events, names, reps: int) -> dict:
+    """Device kernel events per repetition whose demangled name holds one
+    of ``KERNEL_NAMES[name]`` as a whole word, for each wrapper name."""
+    import re
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.serving.engine import Engine, Request
+    pats = {n: re.compile(r"\b(" + "|".join(KERNEL_NAMES[n]) + r")\b")
+            for n in names}
+    seen = {n: 0 for n in names}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for n, pat in pats.items():
+                if pat.search(e.name):
+                    seen[n] += 1
+    return {n: c / reps for n, c in seen.items()}
+
+
+def phase_profile(params, cfg=None, fuse_layer=False, path=None,
+                  fused_step=None):
+    """Where a pure decode step's time goes at full width: the device's
+    busy share (union of kernel intervals over the host wall clock),
+    device time by kernel and the host's dispatches (the runtime calls of
+    ``HOST_DISPATCHES`` the profiler saw), from torch.profiler over three
+    steps. ``path`` names the sim path in the emitted line; ``fused_step``
+    as the engine takes it (None: replayed where the family allows).
+    Replayed, the wrappers' counts are the launches the decode graph
+    recorded at capture: the profiler's kernel events of each replayed
+    step, counted by name, must equal them and each step must be one
+    replay (per call, both counts are emitted)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.serving.engine import COUNTED, Engine, Request
 
     cfg = cfg or full_config(False)
     eng = Engine(cfg, params, max_slots=4, max_len=320, attn_impl="kernel",
-                 fuse_layer=fuse_layer, device="cuda")
+                 fuse_layer=fuse_layer, fused_step=fused_step, device="cuda")
     rng = np.random.default_rng(6)
     for i in range(4):
         eng.submit(Request(prompt=rng.integers(0, cfg.vocab_size, 128),
@@ -574,33 +694,132 @@ def phase_profile(params, cfg=None, fuse_layer=False, path=None):
         eng.step()
     torch.cuda.synchronize()
     plain_wall = (time.perf_counter() - t0) / 3
+    replayed = eng._graphs is not None
+    # the profiler loses kernels of its first milliseconds (three
+    # fused-layer steps showed 15 + 24 + 24 launches, and 68 of 72 after
+    # one step of warm-up; PERF.md §6, PR 21): a 50 ms spin and one step
+    # run under it first, and only the events inside the "measured" range
+    # are read: on the host its own span, on the card the span of the
+    # kernels launched in it (its device twin; the device clock does not
+    # line up with the host's to within the last kernels of the warm-up)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(3):
-            eng.step()
+        torch.cuda._sleep(int(2e9 * 0.05))
+        eng.step()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / 3
-    by_name, n_kernels = {}, 0
-    for e in prof.events():
+        before = {f.__name__: f.launches for f in COUNTED}
+        replays = eng.replay_count
+        with record_function("measured"):
+            t0 = time.perf_counter()
+            for _ in range(3):
+                eng.step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / 3
+    cuda = torch.autograd.DeviceType.CUDA
+    marks = {e.device_type == cuda: e.time_range for e in prof.events()
+             if e.name == "measured"}
+    events = [e for e in prof.events() if e.name != "measured" and (
+        marks[True].start <= e.time_range.start
+        and e.time_range.end <= marks[True].end
+        if e.device_type == cuda else
+        e.time_range.start >= marks[False].start)]
+    counted = {f.__name__: (f.launches - before[f.__name__]) / 3
+               for f in COUNTED if f.launches != before[f.__name__]}
+    seen = kernels_seen(events, counted, 3)
+    if replayed:
+        recorded = {f.__name__: n
+                    for f, n in eng._graphs["decode"].launches.items()}
+        if (eng.replay_count - replays != 3 or counted != recorded
+                or seen != recorded):
+            fail(f"profile {cfg.name} fuse_layer={fuse_layer}: a replayed "
+                 f"step ran {seen} kernels by the profiler, counted "
+                 f"{counted}, the decode graph recorded {recorded} "
+                 f"({eng.replay_count - replays} replays in 3 steps)")
+    by_name, n_kernels, n_dispatch = {}, 0, 0
+    for e in events:
         if e.device_type == torch.autograd.DeviceType.CUDA:
             n_kernels += 1
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us() / 3e3)
-    busy = busy_ms(prof.events(), 3) if n_kernels else None
+        elif e.name in HOST_DISPATCHES:
+            n_dispatch += 1
+    busy = busy_ms(events, 3) if n_kernels else None
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     emit("profile_decode_step", arch=cfg.name, n_layers=cfg.n_layers,
          slots=4, dtype=cfg.dtype, **({} if path is None else {"path": path}),
          cache="int8" if cfg.kv_cache_int8 else cfg.dtype,
-         fuse_layer=fuse_layer,
+         fuse_layer=fuse_layer, replayed=replayed,
+         counted_launches_per_step=counted,
+         profiler_kernels_per_step=seen,
          step_ms=1e3 * plain_wall, profiled_step_ms=1e3 * wall,
          device_busy_ms=busy,
          device_busy_share_of_step=None if busy is None
          else busy / (1e3 * plain_wall),
-         device_launches=n_kernels // 3,
+         device_launches=n_kernels // 3, host_dispatches=n_dispatch / 3,
          top_device_ms=[[n[:80], ms] for n, ms in top])
     return {"step_ms": 1e3 * plain_wall, "device_busy_ms": busy,
             "launches": n_kernels // 3}
+
+
+# ------------------------------------------------- C10, whole prompt, loop
+def phase_fused_reach(params32):
+    """C10: float32 qwen2-0.5b at full width with fuse_layer=True and 9
+    slots, past the fused kernel's 8 rows: the engine serves unfused
+    (replayed), the fused kernel launches 0 times, and the tokens equal
+    fuse_layer=False's."""
+    from repro_torch.kernels.fused_step import fused_dense_layer
+
+    lens = SESSION_LENS + (40, 120, 33, 77)
+    outs = {}
+    for fuse in (True, False):
+        eng, _, outs[fuse], counts, _ = run_session(
+            full_config32(False), params32, (fused_dense_layer,), True,
+            fuse_layer=fuse, slots=9, lens=lens, new=8)
+        if not eng.fused_ok or not all(e["graph"] for e in eng.step_log):
+            fail(f"fused reach: fuse_layer={fuse} left the graphs")
+        if counts["fused_dense_layer"]:
+            fail(f"fused reach: {counts} fused launches at 9 slots")
+    bad = [o for o in outs[True] if not isinstance(o, list) or len(o) != 8]
+    if bad or outs[True] != outs[False]:
+        fail(f"fused reach: tokens {outs[True]} vs unfused {outs[False]}")
+    emit("fused_layer_reach", dtype="float32", slots=9, requests=len(lens),
+         fused_launches=0, tokens_equal_unfused=True, replayed=True)
+
+
+def phase_whole_prompt_loop_parity():
+    """The reduced qwen2 and mamba2 in off and sim mode: the whole-prompt
+    path (``chunk_size=0``) and ``LoopEngine`` give the CPU's greedy
+    tokens on the card."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.deploy import init_params
+    from repro_torch.serving.engine import Engine, LoopEngine, Request
+
+    rows = []
+    for arch in ("qwen2-0.5b", "mamba2-130m"):
+        for mode in ("off", "sim"):
+            base = get_config(arch).reduced()
+            cfg = dataclasses.replace(base, cim=dataclasses.replace(
+                base.cim, mode=mode, use_kernel=True))
+            params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+            rng = np.random.default_rng(3)
+            prompts = [rng.integers(0, cfg.vocab_size, n)
+                       for n in (40, 1, 57, 9)]
+            for name, make in (
+                    ("whole_prompt", lambda d: Engine(
+                        cfg, params, max_slots=2, max_len=128, chunk_size=0,
+                        attn_impl="kernel", device=d)),
+                    ("loop", lambda d: LoopEngine(
+                        cfg, params, max_slots=2, max_len=128,
+                        attn_impl="kernel", device=d))):
+                outs = [make(d).generate(
+                    [Request(prompt=p, max_new_tokens=6, rid=f"w{i}")
+                     for i, p in enumerate(prompts)]) for d in ("cuda", "cpu")]
+                if outs[0] != outs[1]:
+                    fail(f"{name} {arch} {mode}: card {outs[0]} vs cpu "
+                         f"{outs[1]}")
+                rows.append([arch, mode, name])
+    emit("whole_prompt_loop_parity", equal=True, runs=rows)
 
 
 # ------------------------------------------------------- behavioural sim
@@ -1177,36 +1396,21 @@ def phase_fused_check(params32):
 
 def phase_serve_fused(params32, int8: bool):
     """Full-width float32 qwen2-0.5b with fuse_layer=True: every decode
-    step is one fused launch per layer; prefill chunks stay on the CIM and
-    flash kernels. Launch counts must hold exactly."""
-    import torch
+    step is one fused launch per layer (a cooperative kernel node of the
+    decode graph); prefill chunks stay on the CIM and flash kernels.
+    Replayed and per call (``graph_vs_eager``); launch counts must hold
+    exactly."""
     from repro_torch.kernels.cim_matmul import cim_matmul_fused
-    from repro_torch.kernels.cim_matmul import cim_matmul_int8
     from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_gqa_attention)
+    from repro_torch.kernels.flash_attention import flash_gqa_attention
     from repro_torch.kernels.fused_step import fused_dense_layer
-    from repro_torch.serving.engine import Engine, Request
 
     cfg = full_config32(int8)
-    eng = Engine(cfg, params32, max_slots=4, max_len=320, attn_impl="kernel",
-                 fuse_layer=True, record_ttft=True, record_steps=True,
-                 device="cuda")
-    rng = np.random.default_rng(5)
-    lens = (60, 300, 137, 95, 211, 64)
-    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n),
-                    max_new_tokens=16, rid=f"r{i}")
-            for i, n in enumerate(lens)]
     kernels = (cim_matmul_fused, decode_attention, flash_gqa_attention,
                fused_dense_layer)
-    for k in kernels:
-        k.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    outs = eng.generate(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = {k.__name__: k.launches for k in kernels}
+    eng, reqs, outs, counts, wall = graph_vs_eager(
+        "D" if int8 else "C", cfg, params32, kernels, fuse_layer=True)
+    lens = SESSION_LENS
     bad = [o for o in outs if not isinstance(o, list) or len(o) != 16
            or not all(0 <= t < cfg.vocab_size for t in o)]
     if bad:
@@ -1739,40 +1943,25 @@ def phase_ssm_parity():
 
 def phase_serve_ssm(params):
     """Cell E: full-width mamba2-130m, sim mode, through the CIM and
-    selective-scan kernels, the session of cells A-D. Launch counts must
-    hold exactly: ssm_decode_step 24 per decode step, cim_matmul_fused 2 x
-    24 per chunk and per decode step, no attention kernel."""
+    selective-scan kernels, the session of cells A-D, replayed and per
+    call (``graph_vs_eager``). Launch counts must hold exactly:
+    ssm_decode_step 24 per decode step, cim_matmul_fused 2 x 24 per chunk
+    and per decode step, no attention kernel."""
     import torch
     from repro_torch.core import prng
     from repro_torch.kernels.cim_matmul import cim_matmul_fused
-    from repro_torch.kernels.cim_matmul import cim_matmul_int8
     from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_gqa_attention)
+    from repro_torch.kernels.flash_attention import flash_gqa_attention
     from repro_torch.kernels.fused_step import fused_dense_layer
     from repro_torch.kernels.ssm_scan import ssm_decode_step
     from repro_torch.models import transformer as tf
     from repro_torch.models.layers import Ctx
-    from repro_torch.serving.engine import Engine, Request
 
     cfg = ssm_config()
-    eng = Engine(cfg, params, max_slots=4, max_len=320, attn_impl="kernel",
-                 record_ttft=True, record_steps=True, device="cuda")
-    rng = np.random.default_rng(5)
-    lens = (60, 300, 137, 95, 211, 64)
-    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n),
-                    max_new_tokens=16, rid=f"r{i}")
-            for i, n in enumerate(lens)]
     kernels = (cim_matmul_fused, decode_attention, flash_gqa_attention,
                fused_dense_layer, ssm_decode_step)
-    for k in kernels:
-        k.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    outs = eng.generate(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = {k.__name__: k.launches for k in kernels}
+    eng, reqs, outs, counts, wall = graph_vs_eager("E", cfg, params, kernels)
+    lens = SESSION_LENS
     bad = [o for o in outs if not isinstance(o, list) or len(o) != 16
            or not all(0 <= t < cfg.vocab_size for t in o)]
     if bad:
@@ -2700,10 +2889,13 @@ def main() -> int:
                (params["embed"]["e"], params["blocks"]["mlp"]["down"]["w"])):
         fail("non-finite parameters")
     runs = {int8: phase_serve(params, int8)[0] for int8 in (False, True)}
-    phase_profile(params)
+    for int8 in (False, True):
+        for fused_step in (True, False):
+            phase_profile(params, full_config(int8), fused_step=fused_step)
     times = phase_times(params, cfg)
     phase_behavioural_sim(params)
     phase_fuse_fallback()
+    phase_whole_prompt_loop_parity()
     del params
     params32 = init_params(full_config32(False),
                            torch.Generator(device="cuda").manual_seed(0),
@@ -2714,8 +2906,12 @@ def main() -> int:
              for int8 in (False, True)}
     for int8 in (False, True):
         runs[("fused", int8)] = fused[int8][0]
-    for fuse in (True, False):
-        phase_profile(params32, full_config32(False), fuse_layer=fuse)
+    for int8 in (False, True):
+        for fused_step in (True, False):
+            phase_profile(params32, full_config32(int8), fuse_layer=True,
+                          fused_step=fused_step)
+    phase_profile(params32, full_config32(False), fused_step=False)
+    phase_fused_reach(params32)
     phase_fused_tokens(params32, fused[False][1])
     times.update(phase_times_fused(params32))
     del params32
@@ -2728,7 +2924,8 @@ def main() -> int:
                              torch.Generator(device="cuda").manual_seed(0),
                              "cuda")
     runs["ssm"] = phase_serve_ssm(params_ssm)
-    phase_profile(params_ssm, ssm_config())
+    for fused_step in (True, False):
+        phase_profile(params_ssm, ssm_config(), fused_step=fused_step)
     times.update(phase_times_ssm())
     del params_ssm
     torch.cuda.empty_cache()

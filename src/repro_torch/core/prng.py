@@ -19,12 +19,16 @@ Threefry):
     ``threefry2x32(k, (0, d))``; ``split(k)[i]`` is ``threefry2x32(k, (0, i))``;
     ``random_bits`` xors the two words at counter ``(hi, lo)`` of the flat
     index.
+  * ``seed_table`` — every CIM noise seed of one forward in one vectorized
+    Threefry call, for a table that the kernels read from device memory
+    (``SeedRow`` names one of its rows).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+import dataclasses
+from typing import Tuple, Union
 
 import numpy as np
 import torch
@@ -72,6 +76,15 @@ def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
     return _bits_to_unit(bits) - 1.0
 
 
+def _bf16_uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """u32 bits (int64 tensor) -> bf16 in [0, 1), as ``jax.random.uniform``
+    draws bf16: 8 bits (the low byte, as XLA truncates the word), their top
+    7 under the exponent of 1.0, minus 1."""
+    b = ((bits & 0xFF) >> 1) | 0x3F80
+    return b.to(torch.int16).view(torch.bfloat16) - torch.tensor(
+        1.0, dtype=torch.bfloat16, device=bits.device)
+
+
 def gaussian_from_bits(b0: torch.Tensor, b1: torch.Tensor) -> torch.Tensor:
     """Two u32 words -> one standard normal (Box-Muller, cosine branch)."""
     u1 = 2.0 - _bits_to_unit(b0)
@@ -114,6 +127,44 @@ def seed_from_key(key: Key) -> Key:
     return key_words(key)
 
 
+@dataclasses.dataclass(frozen=True)
+class SeedRow:
+    """Row ``row`` of a (rows, 2) int32 seed table (the uint32 words
+    ``(seed0, seed1)`` as their bits): the noise seed of one CIM call, read
+    by the kernel from where the table lies."""
+
+    table: torch.Tensor
+    row: int
+
+
+Seed = Union[Key, SeedRow]
+
+
+def seed_words(seed: Seed) -> Key:
+    """The (seed0, seed1) words of a pair or of a table row (read back to
+    the host)."""
+    if isinstance(seed, SeedRow):
+        w0, w1 = seed.table[seed.row].tolist()
+        return w0 & M32, w1 & M32
+    return key_words(seed)
+
+
+def seed_table(key: Key, n_layers: int, per_layer: int) -> np.ndarray:
+    """(n_layers * per_layer, 2) int32: row ``l * per_layer + c - 1`` holds
+    ``seed_from_key(fold_in(fold_in(key, l), c))`` for ``c = 1..per_layer``,
+    the seed of the ``c``-th ``Ctx.next_key()`` of layer ``l`` in a forward
+    keyed by ``key``; the words as int32 bits. Two vectorized Threefry
+    calls instead of a host chain of ``n_layers * (per_layer + 1)``."""
+    layers = np.arange(n_layers, dtype=np.int64)
+    l0, l1 = threefry2x32(np.int64(key[0] & M32), np.int64(key[1] & M32),
+                          np.zeros_like(layers), layers)
+    calls = np.arange(1, per_layer + 1, dtype=np.int64)[None, :]
+    s0, s1 = threefry2x32(l0[:, None], l1[:, None], np.zeros_like(calls),
+                          calls)
+    words = np.stack([s0, s1], axis=-1).reshape(-1, 2).astype(np.uint32)
+    return words.view(np.int32)
+
+
 def random_bits(key: Key, shape, device="cpu",
                 start: int = 0) -> torch.Tensor:
     """32-bit ``jax.random.bits``: b0 ^ b1 at counter (hi, lo) of the flat
@@ -127,11 +178,17 @@ def random_bits(key: Key, shape, device="cpu",
 
 
 def uniform(key: Key, shape, minval: float = 0.0, maxval: float = 1.0,
-            device="cpu", start: int = 0) -> torch.Tensor:
-    """f32 ``jax.random.uniform``: floats * (max - min) + min, then max(min, .)."""
-    lo = torch.tensor(minval, dtype=torch.float32, device=device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=device)
-    floats = uniform_from_bits(random_bits(key, shape, device, start))
+            device="cpu", start: int = 0,
+            dtype=torch.float32) -> torch.Tensor:
+    """``jax.random.uniform`` in ``dtype`` (f32 or bf16): floats *
+    (max - min) + min, then max(min, .), each op rounded to ``dtype``."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(f"uniform in {dtype}")
+    lo = torch.tensor(minval, dtype=dtype, device=device)
+    hi = torch.tensor(maxval, dtype=dtype, device=device)
+    bits = random_bits(key, shape, device, start)
+    floats = (uniform_from_bits(bits) if dtype == torch.float32
+              else _bf16_uniform_from_bits(bits))
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 
@@ -171,7 +228,10 @@ def normal(key: Key, shape, device="cpu", start: int = 0) -> torch.Tensor:
                         device=device) * erf_inv(u)
 
 
-def gumbel(key: Key, shape, device="cpu") -> torch.Tensor:
-    """f32 ``jax.random.gumbel`` (default mode)."""
-    tiny = float(np.finfo(np.float32).tiny)
-    return -torch.log(-torch.log(uniform(key, shape, tiny, 1.0, device)))
+def gumbel(key: Key, shape, device="cpu",
+           dtype=torch.float32) -> torch.Tensor:
+    """``jax.random.gumbel`` (default mode) in ``dtype`` (f32 or bf16),
+    each op rounded to ``dtype``: bit for bit what XLA gives in bf16."""
+    tiny = float(torch.finfo(dtype).tiny)
+    return -torch.log(-torch.log(uniform(key, shape, tiny, 1.0, device,
+                                         dtype=dtype)))

@@ -14,6 +14,10 @@
 //
 // K is cut into macro tiles of 1024 rows (one readout-noise draw per tile,
 // part of the macro model). The f32 sum over tiles runs in tile order.
+// The fused entry reads (seed0, seed1) from device memory (two uint32
+// words, a row of the forward's seed table), so that a CUDA graph of a
+// forward replays with the seeds staged before each replay; the int8
+// entry takes them by value.
 //
 // Bound on the H100. Decode (the fused entry, M = 1-16 rows): the int8
 // weight stream. The kernel does about 2*M operations per weight byte, far
@@ -101,9 +105,10 @@ template <typename XT, int MB, int VB, int NSPAN>
 __global__ void __launch_bounds__(rt::GV_THREADS)
 cim_gemv(const XT* __restrict__ x, const int8_t* __restrict__ wq,
          const float* __restrict__ qp, float* __restrict__ out, int M, int K,
-         int N, int klen, int qmax, float sigma, uint32_t seed0,
-         uint32_t seed1, int noise, int* __restrict__ part,
-         float* __restrict__ nz, int* __restrict__ counters) {
+         int N, int klen, int qmax, float sigma,
+         const uint32_t* __restrict__ seeds, int noise,
+         int* __restrict__ part, float* __restrict__ nz,
+         int* __restrict__ counters) {
   __shared__ __align__(16) int8_t xs[MB * rt::MACRO_ROWS];   // [M][klen]
   // the partial's reduction, then the merge's group sums
   constexpr int RED_WORDS = MB * NSPAN > 4 * rt::GV_THREADS
@@ -120,6 +125,8 @@ cim_gemv(const XT* __restrict__ x, const int8_t* __restrict__ wq,
   sp.noise_share(j, P, lo, hi);
   const float x_scale = qp[0], fq = (float)qmax;
   float* nz_unit = noise ? nz + (size_t)unit * sp.tiles * P : nullptr;
+  const uint32_t seed0 = noise ? __ldg(seeds) : 0u,
+                 seed1 = noise ? __ldg(seeds + 1) : 0u;
   GV_STAMP(0);
   using XV = typename std::conditional<sizeof(XT) == 4, float4, uint2>::type;
   rt::gemv_partial<true, MB, VB, NSPAN>(wq, N, k0, k1, n0, M, xs, klen, red,
@@ -216,6 +223,7 @@ struct SplitArgs {
   int* part;               // [units][n_split][TM * 128] int32 partials
   float* nz;               // [units][tiles][TM * 128] noise, or null
   int* counters;           // [units], zero; left at zero
+  const uint32_t* seeds;   // device (seed0, seed1), read when noise
 };
 
 // One TM x 128 output tile, warps of WTM x WTN (MI m16 by NI n8
@@ -256,6 +264,10 @@ cim_int8_mma(const XT* __restrict__ x, const int8_t* __restrict__ wq,
     sp = rt::Splits::make(K, sa.klen);
     split = blockIdx.z;
     sp.range(split, k_begin, k_end);
+    if (noise) {                   // the fused entry's seeds lie on the card
+      seed0 = __ldg(sa.seeds);
+      seed1 = __ldg(sa.seeds + 1);
+    }
   }
   const int n_steps = (k_end - k_begin + KS - 1) / KS;
   // the output column of n8 fragment ni, fragment element e (see above)
@@ -549,20 +561,19 @@ int launch_int8(const int8_t* x, const int8_t* w, const float* scale_p,
 // (column tiles, row blocks, splits) for the tensor-core tile.
 template <typename XT, int MB, int VB, int NSPAN>
 int launch_gemv(const XT* x, const int8_t* w, float* o, int M, int K, int N,
-                float sigma, uint32_t seed0, uint32_t seed1, int noise,
-                const SplitArgs& sa, cudaStream_t s) {
+                float sigma, int noise, const SplitArgs& sa, cudaStream_t s) {
   const rt::Splits sp = rt::Splits::make(K, sa.klen);
   const dim3 grid((N + NSPAN - 1) / NSPAN, sp.n_split);
   cim_gemv<XT, MB, VB, NSPAN><<<grid, rt::GV_THREADS, 0, s>>>(
-      x, w, sa.qp, o, M, K, N, sa.klen, sa.qmax, sigma, seed0, seed1, noise,
+      x, w, sa.qp, o, M, K, N, sa.klen, sa.qmax, sigma, sa.seeds, noise,
       sa.part, sa.nz, sa.counters);
   return (int)cudaGetLastError();
 }
 
 template <typename XT, int TM, bool ALIGNED>
 int launch_split_mma(const XT* x, const int8_t* w, float* o, int M, int K,
-                     int N, float sigma, uint32_t seed0, uint32_t seed1,
-                     int noise, const SplitArgs& sa, cudaStream_t s) {
+                     int N, float sigma, int noise, const SplitArgs& sa,
+                     cudaStream_t s) {
   constexpr int bytes = I8Smem<TM>::bytes_noiseless;   // no noise slots
   static bool attr_set = false;
   if (!attr_set) {
@@ -576,28 +587,27 @@ int launch_split_mma(const XT* x, const int8_t* w, float* o, int M, int K,
   const dim3 grid((N + MN - 1) / MN, (M + TM - 1) / TM, sp.n_split);
   cim_int8_mma<TM, ALIGNED, XT, true><<<grid, I8Smem<TM>::THREADS, bytes,
                                          s>>>(
-      x, w, nullptr, 0.0f, o, M, K, N, sigma, seed0, seed1, noise, sa);
+      x, w, nullptr, 0.0f, o, M, K, N, sigma, 0u, 0u, noise, sa);
   return (int)cudaGetLastError();
 }
 
 template <typename XT>
 int launch_fused(const XT* x, const int8_t* w, float* o, int M, int K, int N,
-                 float sigma, uint32_t seed0, uint32_t seed1, int noise,
-                 int block_m, int vec, int nspan, int aligned,
-                 const SplitArgs& sa, cudaStream_t s) {
+                 float sigma, int noise, int block_m, int vec, int nspan,
+                 int aligned, const SplitArgs& sa, cudaStream_t s) {
 #define GEMV(MB, VB)                                                      \
   if (block_m == MB && vec == VB && nspan == 64)                          \
-    return launch_gemv<XT, MB, VB, 64>(x, w, o, M, K, N, sigma, seed0,    \
-                                       seed1, noise, sa, s);              \
+    return launch_gemv<XT, MB, VB, 64>(x, w, o, M, K, N, sigma, noise,    \
+                                       sa, s);                            \
   if (block_m == MB && vec == VB && nspan == 32)                          \
-    return launch_gemv<XT, MB, VB, 32>(x, w, o, M, K, N, sigma, seed0,    \
-                                       seed1, noise, sa, s);
+    return launch_gemv<XT, MB, VB, 32>(x, w, o, M, K, N, sigma, noise,    \
+                                       sa, s);
   GEMV(4, 16) GEMV(4, 8) GEMV(4, 4) GEMV(8, 8) GEMV(8, 4) GEMV(16, 4)
 #undef GEMV
 #define MMA(TM, AL)                                                       \
   if (block_m == TM && aligned == AL)                                     \
-    return launch_split_mma<XT, TM, AL>(x, w, o, M, K, N, sigma, seed0,   \
-                                        seed1, noise, sa, s);
+    return launch_split_mma<XT, TM, AL>(x, w, o, M, K, N, sigma, noise,   \
+                                        sa, s);
   MMA(32, 1) MMA(32, 0) MMA(64, 1) MMA(64, 0)
 #undef MMA
   return (int)cudaErrorInvalidValue;
@@ -617,36 +627,34 @@ extern "C" int cim_gemv_clock_set(void* p) {
 // block_m 4, 8 or 16 (the GEMV's rows, M <= block_m; vec its load bytes,
 // N % vec == 0 and wq on vec bytes; nspan, 64 or 32, columns a unit) or
 // 32, 64 (the tensor-core tile's rows; aligned: K % 16 == 0, N % 16 == 0
-// and wq on 16 bytes; 128 columns a unit); klen rows a split. part: int32
-// scratch of
-// units x splits x (rows x columns of a unit); nz: f32 scratch of units x
-// tiles x the same (noise only); counters: units ints, zero (left zero).
+// and wq on 16 bytes; 128 columns a unit); klen rows a split. seeds: the
+// device words (seed0, seed1), read only with noise. part: int32 scratch
+// of units x splits x (rows x columns of a unit); nz: f32 scratch of units
+// x tiles x the same (noise only); counters: units ints, zero (left zero).
 // Requires K % 4 == 0, N % 4 == 0 (checked by the Python wrapper). Returns
 // cudaGetLastError() after the launch.
 extern "C" int cim_matmul_fused(const void* x, int x_dtype, const void* wq,
                                 const void* qp, void* out, int M, int K,
                                 int N, int qmax, float sigma,
-                                unsigned int seed0, unsigned int seed1,
-                                int noise, void* part, void* nz,
-                                void* counters, int block_m, int vec,
-                                int nspan, int klen, int aligned,
+                                const void* seeds, int noise, void* part,
+                                void* nz, void* counters, int block_m,
+                                int vec, int nspan, int klen, int aligned,
                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int8_t* w = static_cast<const int8_t*>(wq);
   float* o = static_cast<float*>(out);
   const SplitArgs sa{static_cast<const float*>(qp), qmax, klen,
                      static_cast<int*>(part), static_cast<float*>(nz),
-                     static_cast<int*>(counters)};
+                     static_cast<int*>(counters),
+                     static_cast<const uint32_t*>(seeds)};
   if (klen <= 0 || klen % 16 || (block_m > 16 && klen % KS) ||
-      M > (block_m > 16 ? 1 << 30 : block_m))
+      M > (block_m > 16 ? 1 << 30 : block_m) || (noise && seeds == nullptr))
     return (int)cudaErrorInvalidValue;
   if (x_dtype == 0)
     return launch_fused(static_cast<const float*>(x), w, o, M, K, N, sigma,
-                        seed0, seed1, noise, block_m, vec, nspan, aligned, sa,
-                        s);
+                        noise, block_m, vec, nspan, aligned, sa, s);
   return launch_fused(static_cast<const __nv_bfloat16*>(x), w, o, M, K, N,
-                      sigma, seed0, seed1, noise, block_m, vec, nspan,
-                      aligned, sa, s);
+                      sigma, noise, block_m, vec, nspan, aligned, sa, s);
 }
 
 // xq: (M, K) int8 row-major; wq: (K, N) int8 row-major; scale_p: a device

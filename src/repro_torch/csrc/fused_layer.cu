@@ -16,7 +16,9 @@
 // per 1024-row macro tile; sigma * tile_gaussian(seed, tile, row, col) per
 // tile; an f32 tile sum in tile order; times xs * ws. The seven noise
 // seeds are the ctx.next_key() words in the order q, k, v, o, gate, up,
-// down.
+// down, read from device memory (seven rows of the forward's seed table,
+// or a (7, 2) copy of host keys), so that a CUDA graph of the decode step
+// replays with the seeds staged before each replay.
 //
 // Bound on the H100: the weight stream. At decode B <= 8 rows, so the layer
 // moves its seven int8 planes (14.9 MB at qwen2-0.5b width) and does about
@@ -131,8 +133,7 @@ struct Params {
   float* aml;              // scratch (B * KV, n_at, 2 * GMAX): its m and l
   double* ssq;             // scratch (F / SPAN,): sum of hm^2 per unit
   int* counters;           // zero; left zero: q/k/v, attention, o, mlp, down
-  unsigned int seed0[7];
-  unsigned int seed1[7];
+  const unsigned int* seeds;  // (7, 2) device words (seed0, seed1), sim
   float sigma[7];
   int qmax[7];
   int klen[4];             // split rows: q/k/v, o, gate/up, down
@@ -296,6 +297,8 @@ __device__ bool project_split(const Params& p, int idx, const Src& src,
   sp.noise_share(j, P, lo, hi);
   const float fq = (float)p.qmax[idx], sigma = p.sigma[idx];
   const bool noise = SIM && sigma > 0.0f;
+  const uint32_t seed0 = noise ? __ldg(p.seeds + 2 * idx) : 0u,
+                 seed1 = noise ? __ldg(p.seeds + 2 * idx + 1) : 0u;
   rt::gemv_partial<SIM, BMAX, VB, SPAN>(p.w[idx], N, k0, k1, n0, B, xt, klen,
                                         red, [&] {
     rt::stage_rows(
@@ -311,7 +314,7 @@ __device__ bool project_split(const Params& p, int idx, const Src& src,
     if (noise)
       for (int q = lo + t; q < hi; q += THREADS)
         nz_unit[(size_t)tile * P + q] = __fmul_rn(
-            sigma, rt::tile_gaussian(p.seed0[idx], p.seed1[idx],
+            sigma, rt::tile_gaussian(seed0, seed1,
                                      (uint32_t)tile, (uint32_t)(q / SPAN),
                                      (uint32_t)(n0 + q % SPAN)));
   });

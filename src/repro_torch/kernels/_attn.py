@@ -3,7 +3,7 @@ kernel wrappers (decode and flash prefill)."""
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -48,14 +48,26 @@ def check_cache_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 _COUNTERS: Dict[torch.device, torch.Tensor] = {}
+_OUTGROWN: List[torch.Tensor] = []   # earlier buffers a captured graph may
+                                     # still point at: never freed
 
 
 def arrival_counters(device: torch.device, n: int) -> torch.Tensor:
     """(n,) int32 zeros on ``device`` for the kernels' last-block-merges
     counters. The kernels leave them at zero, so one buffer per device
-    serves every launch on a stream (launches on one stream run in order)."""
+    serves every launch on a stream (launches on one stream run in order).
+    The buffer is made (or grown) by an eager call: under CUDA graph
+    capture its zero fill would only be recorded, so a capture that needs
+    a larger buffer raises (a warm-up forward before the capture makes
+    it)."""
     buf = _COUNTERS.get(device)
     if buf is None or buf.numel() < n:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"arrival counters: {n} needed inside a CUDA graph capture; "
+                "run the captured forward once eagerly first")
+        if buf is not None:
+            _OUTGROWN.append(buf)
         buf = torch.zeros((max(n, 1024),), dtype=torch.int32, device=device)
         _COUNTERS[device] = buf
     return buf

@@ -35,7 +35,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint
 _SIGNATURES = {
-    "cim_matmul_fused": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _U, _U, _I,
+    "cim_matmul_fused": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _P, _I,
                          _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "cim_matmul_int8": [_P, _P, _P, _F, _P, _I, _I, _I, _F, _U, _U, _I, _I, _I,
                         _P],

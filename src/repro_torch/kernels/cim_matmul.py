@@ -21,7 +21,10 @@ the int32 dot with the deployed int8 plane per 1024-row macro tile, adds
 (``core.prng.tile_gaussian``: key (seed0 ^ DOMAIN, seed1 ^ tile), counter
 global (row, col)), sums the tiles in f32 in order and multiplies by
 ``out_scale``. Scales arrive as a device tensor ``qp = [x_scale,
-out_scale]`` so the host never waits for them.
+out_scale]`` so the host never waits for them, and so do the seed words:
+``seed`` is a host pair or a ``prng.SeedRow`` of a seed table, and the
+kernel reads the two words where they lie (a CUDA graph of a forward
+replays with its table staged anew).
 
 CPU tensors take ``cim_matmul_fused_plain`` (twin of
 ``ref.cim_matmul_fused_ref``) and ``cim_matmul_int8_plain`` (twin of
@@ -191,17 +194,45 @@ def _tile_sums(xq: torch.Tensor, wq: torch.Tensor,
 
 
 def cim_matmul_fused_plain(x: torch.Tensor, wq: torch.Tensor,
-                           qp: torch.Tensor, seed: Optional[Tuple[int, int]],
+                           qp: torch.Tensor, seed: Optional[prng.Seed],
                            sigma: float, in_bits: int) -> torch.Tensor:
     """Plain PyTorch version of the fused kernel (same arithmetic, tile by
     tile)."""
     q = quant.qmax(in_bits)
     xq = torch.clamp(torch.round(x.to(torch.float32) / qp[0]), -q, q)
-    return _tile_sums(xq, wq, seed, sigma) * qp[1]
+    words = None if seed is None else prng.seed_words(seed)
+    return _tile_sums(xq, wq, words, sigma) * qp[1]
+
+
+_SEED_WORDS: dict = {}
+
+
+def seed_operand(seed: prng.Seed, device: torch.device) -> torch.Tensor:
+    """The (2,) int32 device words a kernel reads its seed from: the table
+    row of a ``SeedRow`` (a view, no copy), or a host pair copied
+    asynchronously from pinned memory (the last 256 pairs kept, so a
+    loop over one pair copies once)."""
+    if isinstance(seed, prng.SeedRow):
+        t = seed.table
+        if (t.device != device or t.dtype != torch.int32 or t.ndim != 2
+                or t.shape[1] != 2 or not t.is_contiguous()):
+            raise ValueError(f"seed table must be a contiguous (rows, 2) "
+                             f"int32 tensor on {device}")
+        return t[seed.row]
+    words = prng.key_words(seed)
+    key = (device, words)
+    out = _SEED_WORDS.get(key)
+    if out is None:
+        host = torch.from_numpy(np.array(words, np.uint32).view(np.int32))
+        out = host.pin_memory().to(device, non_blocking=True)
+        if len(_SEED_WORDS) >= 256:
+            _SEED_WORDS.clear()
+        _SEED_WORDS[key] = out
+    return out
 
 
 def cim_matmul_fused(x: torch.Tensor, wq: torch.Tensor, qp: torch.Tensor,
-                     seed: Optional[Tuple[int, int]], sigma: float,
+                     seed: Optional[prng.Seed], sigma: float,
                      in_bits: int) -> torch.Tensor:
     """(M, K) float x, (K, N) int8 plane -> (M, N) float32. See module doc."""
     if x.device.type == "cpu":
@@ -230,7 +261,7 @@ def cim_matmul_fused(x: torch.Tensor, wq: torch.Tensor, qp: torch.Tensor,
                          f"plane, got K={k}, N={n}")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     noise = seed is not None and sigma > 0.0
-    s0, s1 = seed if noise else (0, 0)
+    seeds = seed_operand(seed, x.device) if noise else None
     plan = cim_fused_plan(m, k, n, wq.data_ptr())
     # the splits' partials and (with noise) their tiles' draws, one buffer
     scratch = torch.empty(plan["part_ints"] + (plan["noise_floats"] if noise
@@ -240,7 +271,8 @@ def cim_matmul_fused(x: torch.Tensor, wq: torch.Tensor, qp: torch.Tensor,
     rc = _build.library().cim_matmul_fused(
         x.data_ptr(), 0 if x.dtype == torch.float32 else 1, wq.data_ptr(),
         qp.data_ptr(), out.data_ptr(), m, k, n, quant.qmax(in_bits),
-        float(sigma) if noise else 0.0, s0, s1, int(noise),
+        float(sigma) if noise else 0.0,
+        None if seeds is None else seeds.data_ptr(), int(noise),
         scratch.data_ptr(), scratch.data_ptr() + 4 * plan["part_ints"],
         counters.data_ptr(), plan["block_m"], plan["vec"], plan["nspan"],
         plan["klen"], int(plan["aligned"]), _build.stream_ptr(x.device))

@@ -33,6 +33,7 @@ import functools
 import math
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import prng, quant
@@ -67,8 +68,7 @@ class _Params(ctypes.Structure):
         ("ksc", _P), ("vsc", _P), ("lens", _P), ("q", _P), ("attn", _P),
         ("x1", _P), ("hm", _P), ("out", _P), ("scales", _P),
         ("part", _P), ("nz", _P), ("apart", _P), ("aml", _P), ("ssq", _P),
-        ("counters", _P),
-        ("seed0", ctypes.c_uint * 7), ("seed1", ctypes.c_uint * 7),
+        ("counters", _P), ("seeds", _P),
         ("sigma", ctypes.c_float * 7), ("qmax", ctypes.c_int * 7),
         ("klen", ctypes.c_int * 4),
         ("B", ctypes.c_int), ("d", ctypes.c_int), ("H", ctypes.c_int),
@@ -140,7 +140,7 @@ class _Layer:
             [p["attn"][n]["b"] for n in ("q", "k", "v")]
             if "b" in p["attn"]["q"] else None)
         if self.sim:
-            self.specs = [ctx.spec_for(r) for r in _ROLES]
+            self.specs = layer_specs(ctx)
             self.weights = [lf[f"wq{sp.w_bits}"]
                             for lf, sp in zip(leaves, self.specs)]
             self.wscales = [lf[f"ws{sp.w_bits}"]
@@ -148,8 +148,7 @@ class _Layer:
             self.sigmas = [_sigma(sp, w.shape[0])
                            for sp, w in zip(self.specs, self.weights)]
             self.qmaxes = [quant.qmax(sp.in_bits) for sp in self.specs]
-            self.seeds = [prng.seed_from_key(ctx.next_key())
-                          for _ in range(7)]
+            self.seeds = [ctx.next_key() for _ in range(7)]
         else:
             self.specs = [None] * 7
             self.weights = [lf["w"] for lf in leaves]
@@ -169,9 +168,11 @@ class _Layer:
             xs = xs.reshape(())
             qp = torch.stack([xs, xs * self.wscales[idx].to(torch.float32)
                               .reshape(())])
+            seed = self.seeds[idx]
+            if sigma > 0 and not isinstance(seed, prng.SeedRow):
+                seed = prng.seed_from_key(seed)
             y = cim_matmul_fused_plain(
-                h, self.weights[idx], qp,
-                self.seeds[idx] if sigma > 0 else None, sigma,
+                h, self.weights[idx], qp, seed if sigma > 0 else None, sigma,
                 self.specs[idx].in_bits)
         if idx < 3 and self.biases is not None:
             y = y + self.biases[idx]
@@ -244,6 +245,24 @@ def fused_dense_layer_plain(ctx, p, x: torch.Tensor, cache,
     return out[:, None].to(x.dtype), cache
 
 
+def layer_specs(ctx) -> list:
+    """The seven projections' CIM specs (None each in off mode)."""
+    return [ctx.spec_for(r) for r in _ROLES]
+
+
+def kernel_takes(cfg, b: int, specs=()) -> bool:
+    """Whether the kernel takes a layer of ``cfg`` at batch ``b``: B <=
+    ``ROWS_MAX``, head dim ``HEAD_DIM``, H / KV <= ``GROUP_MAX``, d_model
+    and d_ff multiples of ``COLS``, and every projection's ``in_bits`` <= 8
+    (``specs``: the seven projections' CIM specs, None in off mode). The
+    plain version takes any shape."""
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    return (b <= ROWS_MAX and cfg.hd == HEAD_DIM and h % kv == 0
+            and h // kv <= GROUP_MAX and cfg.d_model % COLS == 0
+            and cfg.d_ff % COLS == 0
+            and all(sp is None or sp.in_bits <= 8 for sp in specs))
+
+
 def _check(ctx, p, x, cache) -> None:
     cfg = ctx.cfg
     b, s, d = x.shape
@@ -273,6 +292,24 @@ def _check(ctx, p, x, cache) -> None:
                          "pieces; the k and v caches must start on 16 bytes")
     if cache["len"].dtype != torch.int32:
         raise ValueError("fused_dense_layer: cache['len'] must be int32")
+
+
+def _seed_words(seeds, device) -> torch.Tensor:
+    """The seven seeds as (7, 2) int32 device words: a view of the seed
+    table where they are seven consecutive rows of it (table mode, no
+    copy), else the host keys' words copied from pinned memory."""
+    if all(isinstance(s, prng.SeedRow) for s in seeds):
+        t, r0 = seeds[0].table, seeds[0].row
+        if (all(s.table is t and s.row == r0 + i for i, s in enumerate(seeds))
+                and t.device == device and t.dtype == torch.int32
+                and t.is_contiguous()):
+            return t[r0:r0 + 7]
+        raise ValueError("fused_dense_layer: the seven seeds must be seven "
+                         "consecutive rows of one int32 seed table on the "
+                         "layer's device")
+    words = np.array([prng.seed_from_key(s) for s in seeds], np.uint32)
+    host = torch.from_numpy(words.view(np.int32))
+    return host.pin_memory().to(device, non_blocking=True)
 
 
 def _launch(ctx, p, x, cache, probe: Optional[dict]) -> torch.Tensor:
@@ -314,9 +351,11 @@ def _launch(ctx, p, x, cache, probe: Optional[dict]) -> torch.Tensor:
         else:
             prm.w[i] = ptr(lay.weights[i], torch.float32,
                            (n_in[i], n_out[i]), align=16)
-        prm.seed0[i], prm.seed1[i] = lay.seeds[i]
         prm.sigma[i] = lay.sigmas[i]
         prm.qmax[i] = lay.qmaxes[i]
+    if lay.sim:
+        prm.seeds = ptr(_seed_words(lay.seeds, x.device), torch.int32,
+                        (7, 2))
     if lay.biases is not None:
         for i in range(3):
             prm.bias[i] = ptr(lay.biases[i], torch.float32, (n_out[i],))

@@ -16,7 +16,7 @@ computes them outside any kernel.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 
@@ -27,7 +27,7 @@ from repro_torch.kernels.cim_matmul import cim_matmul_fused, cim_matmul_int8
 
 def cim_matmul_fused_int(x: torch.Tensor, wq: torch.Tensor,
                          x_scale: torch.Tensor,
-                         seed: Optional[Tuple[int, int]], sigma: float,
+                         seed: Optional[prng.Seed], sigma: float,
                          in_bits: int,
                          scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused act-quant CIM matmul of float (M, K) ``x`` on an int8 plane;
@@ -40,9 +40,11 @@ def cim_matmul_fused_int(x: torch.Tensor, wq: torch.Tensor,
 
 
 def cim_matmul_deployed(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
-                        spec: CIMSpec, key: Optional[prng.Key],
+                        spec: CIMSpec, key: Optional[prng.Seed],
                         x_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """y ~ macro(x @ (wq * ws)) with fused activation quantization; f32."""
+    """y ~ macro(x @ (wq * ws)) with fused activation quantization; f32.
+    ``key``: a host key or a ``prng.SeedRow`` of a seed table (whose row
+    holds the key's words)."""
     orig = x.shape
     x2 = x.reshape(-1, orig[-1])
     xs = (x_scale if x_scale is not None
@@ -50,7 +52,10 @@ def cim_matmul_deployed(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
     k = x2.shape[1]
     n = wq.shape[1]
     sigma = output_noise_std_int_per_tile(spec, k)
-    seed = prng.seed_from_key(key) if key is not None and sigma > 0 else None
+    seed = None
+    if key is not None and sigma > 0:
+        seed = key if isinstance(key, prng.SeedRow) else \
+            prng.seed_from_key(key)
     y = cim_matmul_fused_int(x2, wq, xs, seed, sigma, spec.in_bits,
                              scale=xs * ws.to(torch.float32))
     return y.reshape(orig[:-1] + (n,))

@@ -7,6 +7,7 @@
       --cim sim --attn-impl kernel
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \\
       --reduced --cim sim --attn-impl kernel --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --engine loop --reduced
 
 ``--cim sim`` serves the CIM macro model: the weights are deployed once as
 int8 planes and every linear runs the config's sim path, as in the
@@ -19,8 +20,13 @@ per-tile readout noise instead.
 kernels, a deepseek-v2 decode step through the latent-cache MLA kernel,
 and a mamba2 decode step through the selective-scan kernel;
 ``--kv-int8`` changes nothing for an attention-free model or for MLA's
-latent cache, as in the reference. Parameters are random, drawn from
-``--seed``. The entry point runs on the card; ``--device cpu`` runs the
+latent cache, as in the reference. ``--engine fused`` (the default) is the
+slot-batched ``Engine``: chunked prefill, and on the card the decode step
+and each slot's chunk replayed as CUDA graphs where the family and path
+allow (``fused_step``); ``--chunk-size 0`` prefills each prompt whole at
+admission, per call. ``--engine loop`` is the reference's ``LoopEngine``
+baseline (batch-1 caches, one forward per slot per token). Parameters are
+random, drawn from ``--seed``. The entry point runs on the card; ``--device cpu`` runs the
 kernels' plain versions.
 """
 
@@ -36,7 +42,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.registry import get_config
 from repro_torch.core.deploy import init_params, plane_summary
-from repro_torch.serving.engine import Engine, Request, RequestError
+from repro_torch.serving.engine import Engine, LoopEngine, Request, \
+    RequestError
 
 
 def _build_argparser():
@@ -55,7 +62,12 @@ def _build_argparser():
     ap.add_argument("--cim", default="off", choices=["off", "sim"])
     ap.add_argument("--attn-impl", default="config",
                     choices=["config", "einsum", "kernel"])
-    ap.add_argument("--chunk-size", type=int, default=32)
+    ap.add_argument("--chunk-size", type=int, default=32,
+                    help="prefill chunk; 0 prefills each prompt whole at "
+                         "admission")
+    ap.add_argument("--engine", default="fused", choices=["fused", "loop"],
+                    help="fused: the slot-batched Engine; loop: the "
+                         "reference's LoopEngine baseline")
     ap.add_argument("--kv-int8", action="store_true",
                     help="int8 KV cache with per-(token, head) scales "
                          "(no effect on mamba2, which has no KV cache, or "
@@ -77,12 +89,15 @@ def main(argv=None):
         cim=dataclasses.replace(cfg.cim, mode=args.cim))
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(cfg, gen, device)
-    engine = Engine(cfg, params, max_slots=args.slots,
-                    max_len=args.prompt_len + args.new_tokens + 8,
-                    attn_impl=None if args.attn_impl == "config"
-                    else args.attn_impl,
-                    chunk_size=args.chunk_size, record_ttft=True,
-                    device=device)
+    kw = dict(max_slots=args.slots,
+              max_len=args.prompt_len + args.new_tokens + 8,
+              attn_impl=None if args.attn_impl == "config"
+              else args.attn_impl, device=device)
+    if args.engine == "loop":
+        engine = LoopEngine(cfg, params, **kw)
+    else:
+        engine = Engine(cfg, params, chunk_size=args.chunk_size,
+                        record_ttft=True, **kw)
     if engine.mode == "sim":
         ps = plane_summary(engine.params)
         print(f"deployed {ps['planes']} pre-quantized weight planes "
@@ -98,9 +113,10 @@ def main(argv=None):
     dt = time.perf_counter() - t0
     failed = [isinstance(o, RequestError) for o in outs]
     total = sum(len(o) for o, f in zip(outs, failed) if not f)
-    print(f"[{device.type}] served {len(reqs)} requests ({sum(failed)} "
-          f"failed), {total} tokens in {dt:.2f}s ({total / dt:.1f} tok/s)")
-    ttfts = [t for t in engine.ttft_s if t is not None]
+    print(f"[{device.type}] {args.engine} engine served {len(reqs)} "
+          f"requests ({sum(failed)} failed), {total} tokens in {dt:.2f}s "
+          f"({total / dt:.1f} tok/s)")
+    ttfts = [t for t in getattr(engine, "ttft_s", []) if t is not None]
     if ttfts:
         print(f"  TTFT mean {np.mean(ttfts) * 1e3:.0f} ms / max "
               f"{np.max(ttfts) * 1e3:.0f} ms (chunk={engine.chunk_size})")

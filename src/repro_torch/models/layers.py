@@ -36,7 +36,14 @@ class Ctx:
 
     ``key`` is a raw Threefry key ``(k0, k1)`` of host ints; ``next_key``
     replays ``jax.random.fold_in(key, counter)`` bit for bit, in the same
-    call order as the reference (q, k, v, o, gate, up, down per layer)."""
+    call order as the reference (q, k, v, o, gate, up, down per layer).
+
+    Table mode (``seeds`` set, a ``prng.seed_table`` of the forward's key
+    on the device): ``for_layer(i)`` and ``next_key`` hand out rows of the
+    table (``prng.SeedRow``) instead of computing keys on the host, so the
+    CIM kernels read their seeds from device memory and a CUDA graph of
+    the forward replays with the seeds staged before each replay. A layer
+    draws at most ``seed_width`` rows; a draw past them raises."""
 
     cfg: ModelConfig
     mode: str = "off"                 # off | sim
@@ -47,6 +54,9 @@ class Ctx:
                                                   # a right-padded prefill
                                                   # chunk (state-carrying
                                                   # blocks skip the pad)
+    seeds: Optional[torch.Tensor] = None  # (rows, 2) int32 seed table
+    seed_width: int = 0               # table rows a layer may draw
+    seed_base: int = 0                # this layer's first row
 
     @classmethod
     def make(cls, cfg: ModelConfig, key: Optional[prng.Key] = None,
@@ -57,10 +67,29 @@ class Ctx:
         policy = get_policy(cfg.cim.policy) if mode != "off" else None
         return cls(cfg=cfg, mode=mode, policy=policy, key=key)
 
-    def next_key(self) -> Optional[prng.Key]:
+    def for_layer(self, i: int) -> "Ctx":
+        """The context of layer ``i``: key ``fold_in(key, i)``, as the
+        reference's scan body keys it (table mode: rows from ``i *
+        seed_width`` on)."""
+        if self.seeds is not None:
+            if (i + 1) * self.seed_width > self.seeds.shape[0]:
+                raise ValueError(f"seed table of {self.seeds.shape[0]} rows "
+                                 f"holds no layer {i}")
+            return dataclasses.replace(self, counter=0,
+                                       seed_base=i * self.seed_width)
+        base = self.key if self.key is not None else prng.PRNGKey(0)
+        return dataclasses.replace(self, key=prng.fold_in(base, i),
+                                   counter=0)
+
+    def next_key(self) -> Optional[prng.Seed]:
         if self.key is None:
             return None
         self.counter += 1
+        if self.seeds is not None:
+            if self.counter > self.seed_width:
+                raise ValueError(f"a layer drew {self.counter} seeds; the "
+                                 f"table holds {self.seed_width} a layer")
+            return prng.SeedRow(self.seeds, self.seed_base + self.counter - 1)
         return prng.fold_in(self.key, self.counter)
 
     def spec_for(self, role: str) -> Optional[CIMSpec]:

@@ -23,15 +23,14 @@ the reference routes it (``_use_fused_layer``).
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import prng
 from repro_torch.core.deploy import dtype_of
-from repro_torch.kernels.fused_step import fused_dense_layer
+from repro_torch.kernels.fused_step import (fused_dense_layer, kernel_takes,
+                                            layer_specs)
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -45,12 +44,18 @@ def _use_fused_layer(ctx: Ctx, p: Params, x, cache) -> bool:
     """Route a decode-shaped dense block through the per-layer megakernel
     (``kernels/fused_step.py``): single-token cached decode of a float32
     model with rope, in ideal-digital ("off") mode or in sim mode on
-    deployed planes with a key and a clip-fitted activation scale."""
+    deployed planes with a key and a clip-fitted activation scale. On the
+    card, only where the kernel takes the shape (``kernel_takes``); the
+    plain version on the CPU takes any, so there the route is the
+    reference's."""
     cfg = ctx.cfg
     if not (cfg.fuse_layer and cache is not None and x.shape[1] == 1):
         return False
     if not cfg.use_rope or x.dtype != torch.float32:
         return False
+    if x.device.type == "cuda" and not kernel_takes(cfg, x.shape[0],
+                                                    layer_specs(ctx)):
+        return False        # a shape the kernel cannot take serves unfused
     if ctx.mode == "off":
         return True
     spec = ctx.spec_for("attn_qkv")
@@ -155,12 +160,33 @@ _FROZEN = ("len", "conv", "state")
 
 def freeze_rows(caches, rows: List[int]) -> Dict[str, torch.Tensor]:
     """Copies of the ``_FROZEN`` leaves of slot rows ``rows``, taken before a
-    batch decode step, for ``mask_cache_advance``."""
+    batch decode step, for ``mask_cache_advance`` (the twin of the
+    reference's host-list form; the engine freezes by a device mask)."""
     if not rows:
         return {}
     idx = torch.tensor(rows, device=next(iter(caches.values())).device)
     return {k: v.index_select(1, idx) for k, v in caches.items()
             if k in _FROZEN}
+
+
+def freeze_all(caches) -> Dict[str, torch.Tensor]:
+    """Copies of the whole ``_FROZEN`` leaves, for ``mask_cache_advance_by``:
+    the form of ``freeze_rows`` that takes no host list of rows, so that a
+    CUDA graph of the decode step replays under any active mask (the
+    engine refills one such copy before every decode step)."""
+    return {k: v.clone() for k, v in caches.items() if k in _FROZEN}
+
+
+def mask_cache_advance_by(new_caches, frozen: Dict[str, torch.Tensor],
+                          active: torch.Tensor):
+    """``mask_cache_advance`` under a device (B,) bool mask: slot rows that
+    are not active take back the ``freeze_all`` copies (a select: the same
+    values as ``index_copy_``, bit for bit)."""
+    for k, old in frozen.items():
+        leaf = new_caches[k]
+        m = active.reshape((1, -1) + (1,) * (leaf.ndim - 2))
+        leaf.copy_(torch.where(m, leaf, old))
+    return new_caches
 
 
 def mask_cache_advance(new_caches, frozen: Dict[str, torch.Tensor],
@@ -190,10 +216,8 @@ def cache_len(caches) -> torch.Tensor:
 
 
 def _run_blocks(ctx: Ctx, blocks: Params, x, positions, caches):
-    base_key = ctx.key if ctx.key is not None else prng.PRNGKey(0)
     for i in range(ctx.cfg.n_layers):
-        lctx = dataclasses.replace(ctx, key=prng.fold_in(base_key, i),
-                                   counter=0)
+        lctx = ctx.for_layer(i)
         layer_cache = None if caches is None else _index(caches, i)
         x, _ = _BLOCKS[ctx.cfg.family](lctx, _index(blocks, i), x,
                                        positions, layer_cache)

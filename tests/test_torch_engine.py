@@ -125,8 +125,7 @@ def test_session_api_cancel_and_slot_reuse(setup):
 def test_unported_options_and_bad_requests_raise(setup, monkeypatch):
     cfg_of, _, tp, _ = setup
     cfg = cfg_of(get_config("qwen2-0.5b"), False)
-    for kw in ({"guard": True}, {"ladder": object()}, {"chunk_size": 0},
-               {"cim_mode": "qat"}):
+    for kw in ({"guard": True}, {"ladder": object()}, {"cim_mode": "qat"}):
         with pytest.raises(NotImplementedError):
             Engine(cfg, tp, device="cpu", **kw)
     with pytest.raises(NotImplementedError):

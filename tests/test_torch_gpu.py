@@ -30,6 +30,14 @@ straight-through ops.cim_matmul's gradients equal the f32 dequantized
 products within rtol 1e-6. The MHA flash kernel against its plain version
 (same blocks, same roundings): f32 within 2e-5 + 2e-5 |ref|, bf16 every
 output row within 2^-7 of its max |value| (one output rounding).
+
+The engine's CUDA graphs (``fused_step``): replayed and per-call serving
+give equal tokens and equal kernel launch counts, exactly, for the dense
+and ssm families in off and sim mode, bf16 and f32, both caches and the
+fused layer; a config past the fused layer's reach serves unfused with the
+unfused tokens (C10); the whole-prompt path and ``LoopEngine`` give the
+CPU's tokens; a replay that raises falls back visibly, a capture that
+fails raises.
 """
 
 import dataclasses
@@ -70,7 +78,9 @@ from repro_torch.kernels.ssm_scan import (ssm_decode_step,
 from repro_torch.models import transformer as tf
 from repro_torch.models.attention import _kv_quant
 from repro_torch.models.layers import Ctx
-from repro_torch.serving.engine import Engine, Request
+from repro_torch.serving import engine
+from repro_torch.serving.engine import (Engine, LoopEngine, Request,
+                                        RequestError)
 
 pytestmark = pytest.mark.gpu
 
@@ -743,3 +753,171 @@ def test_flash_mha_head_dims(cuda):
     with pytest.raises(ValueError, match="causal"):
         flash_attention(q, q, q, causal=False,
                         start=torch.zeros(2, dtype=torch.int32, device=cuda))
+
+
+# --------------------------------------------- fused_step: CUDA graphs
+
+def _reduced(arch, mode="sim", dtype="float32", int8=False):
+    base = get_config(arch).reduced()
+    return dataclasses.replace(base, dtype=dtype, kv_cache_int8=int8,
+                               cim=dataclasses.replace(base.cim, mode=mode,
+                                                       use_kernel=True))
+
+
+def _graph_requests(cfg, lens=(40, 1, 57, 9, 20), sampled=2):
+    rng = np.random.default_rng(3)
+    return [Request(prompt=rng.integers(0, cfg.vocab_size, n),
+                    max_new_tokens=6, temperature=0.7 if i == sampled else 0.0,
+                    rid=f"g{i}") for i, n in enumerate(lens)]
+
+
+@pytest.mark.parametrize("arch,mode,dtype,int8,fuse", [
+    ("qwen2-0.5b", "sim", "bfloat16", False, False),
+    ("qwen2-0.5b", "sim", "bfloat16", True, False),
+    ("qwen2-0.5b", "off", "float32", False, False),
+    ("qwen2-0.5b", "sim", "float32", False, True),
+    ("qwen2-0.5b", "sim", "float32", True, True),
+    ("qwen2-0.5b", "off", "float32", True, True),
+    ("mamba2-130m", "sim", "bfloat16", False, False),
+    ("mamba2-130m", "off", "float32", False, False)])
+def test_graphed_engine_equals_per_call_on_card(cuda, arch, mode, dtype,
+                                                int8, fuse):
+    cfg = _reduced(arch, mode, dtype, int8)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    runs = {}
+    for fused in (True, False):
+        eng = Engine(cfg, params, max_slots=2, max_len=96, attn_impl="kernel",
+                     fuse_layer=fuse, fused_step=fused, record_steps=True,
+                     device=cuda)
+        for f in engine.COUNTED:           # after the capture's warm-up
+            f.launches = 0
+        outs = eng.generate(_graph_requests(cfg))
+        runs[fused] = (outs, {f.__name__: f.launches for f in engine.COUNTED},
+                       eng)
+    (go, gc, ge), (eo, ec, ee) = runs[True], runs[False]
+    assert go == eo
+    assert gc == ec and sum(gc.values()) > 0
+    assert (gc["fused_dense_layer"] > 0) == fuse
+    assert ge.fused_ok and ge.fallbacks == 0
+    assert all(e["graph"] for e in ge.step_log)
+    assert all(e["replays"] == 1 for e in ge.step_log
+               if e["decode"] and not e["chunks"])
+    assert ge.replay_count == ge.launch_count == ee.launch_count
+    assert ee.replay_count == 0
+
+
+def test_fused_layer_past_its_reach_serves_unfused(cuda):
+    """C10: nine slots are past the fused kernel's eight rows; the step
+    serves unfused with the unfused tokens, graphed or not."""
+    cfg = _reduced("qwen2-0.5b")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    lens = (30, 5, 17, 9, 12, 1, 25, 8, 14, 20)
+    outs = {}
+    fused_dense_layer.launches = 0
+    for fuse, fused in ((True, True), (True, False), (False, True)):
+        outs[fuse, fused] = Engine(
+            cfg, params, max_slots=9, max_len=64, attn_impl="kernel",
+            fuse_layer=fuse, fused_step=fused, device=cuda).generate(
+            _graph_requests(cfg, lens))
+    assert fused_dense_layer.launches == 0
+    assert outs[True, True] == outs[True, False] == outs[False, True]
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "mamba2-130m"])
+@pytest.mark.parametrize("mode", ["off", "sim"])
+def test_whole_prompt_and_loop_engine_card_equal_cpu(cuda, arch, mode):
+    cfg = _reduced(arch, mode)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    lens = (13, 1, 9, 20)
+    for make in (lambda d: Engine(cfg, params, max_slots=2, max_len=64,
+                                  chunk_size=0, attn_impl="kernel", device=d),
+                 lambda d: LoopEngine(cfg, params, max_slots=2, max_len=64,
+                                      attn_impl="kernel", device=d)):
+        outs = [make(d).generate(_graph_requests(cfg, lens))
+                for d in (cuda, "cpu")]
+        assert outs[0] == outs[1]
+
+
+class _RaisingGraph:
+    def replay(self):
+        raise RuntimeError("replay failed")
+
+
+def test_replay_failure_falls_back_and_capture_failure_raises(cuda,
+                                                              monkeypatch):
+    cfg = _reduced("qwen2-0.5b")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    kw = dict(max_slots=2, max_len=96, attn_impl="kernel", device=cuda)
+    want = Engine(cfg, params, fused_step=False, **kw).generate(
+        _graph_requests(cfg))
+    eng = Engine(cfg, params, fused_step=True, **kw)
+    eng._graphs["decode"] = _RaisingGraph()
+    assert eng.generate(_graph_requests(cfg)) == want
+    assert not eng.fused_ok and eng.fallbacks == 1
+
+    def no_capture(self, fn, pool):
+        raise RuntimeError("operation not permitted when stream is capturing")
+
+    monkeypatch.setattr(engine._Graph, "__init__", no_capture)
+    with pytest.raises(RuntimeError, match="capturing"):
+        Engine(cfg, params, fused_step=True, **kw)
+
+
+class _ReplayThenRaise:
+    def __init__(self, graph):
+        self.graph = graph
+
+    def replay(self):
+        self.graph.replay()
+        raise RuntimeError("replay failed after it ran")
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "mamba2-130m"])
+def test_a_replay_that_raises_after_running_is_undone_on_card(cuda, arch):
+    """The decode graph replays in full (every row advanced) and then
+    raises: the per-call step that follows starts from the caches as they
+    were before it, so the tokens are those of an engine that never
+    replayed."""
+    cfg = _reduced(arch)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    kw = dict(max_slots=2, max_len=96, attn_impl="kernel", device=cuda)
+    want = Engine(cfg, params, fused_step=False, **kw).generate(
+        _graph_requests(cfg))
+    eng = Engine(cfg, params, fused_step=True, **kw)
+    eng._graphs["decode"] = _ReplayThenRaise(eng._graphs["decode"])
+    assert eng.generate(_graph_requests(cfg)) == want
+    assert not eng.fused_ok and eng.fallbacks == 1
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "mamba2-130m"])
+def test_decode_failure_at_the_last_layer_card_equals_cpu(cuda, arch,
+                                                          monkeypatch):
+    """A per-call batch decode that raises at its last layer whenever slot
+    1 is active, on the card and on the CPU: the same requests fail and
+    the survivors' tokens are equal (the CPU's equal the reference's,
+    tests/test_torch_engine_step.py)."""
+    cfg = _reduced(arch, "off")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    block = tf._BLOCKS[cfg.family]
+    outs = []
+    for dev in (cuda, "cpu"):
+        eng = Engine(cfg, params, max_slots=2, max_len=96,
+                     attn_impl="kernel", fused_step=False, device=dev)
+        calls = [0]
+
+        def last_layer_raises(ctx, p, x, positions, cache, eng=eng,
+                              calls=calls):
+            layer = calls[0] % cfg.n_layers
+            calls[0] += 1
+            out = block(ctx, p, x, positions, cache)
+            if (x.shape[1] == 1 and layer == cfg.n_layers - 1
+                    and bool(eng._inputs.act[1])):
+                raise RuntimeError("injected")
+            return out
+
+        monkeypatch.setitem(tf._BLOCKS, cfg.family, last_layer_raises)
+        outs.append(eng.generate(_graph_requests(cfg)))
+        monkeypatch.undo()
+    assert outs[0] == outs[1]
+    assert any(isinstance(o, RequestError) for o in outs[0])
+    assert any(isinstance(o, list) for o in outs[0])

@@ -87,6 +87,23 @@ def test_uniform_bits_and_normal_match_jax():
         prng.gumbel(tk, (4096,)).numpy(), rtol=1e-5, atol=1e-5)
 
 
+def test_bf16_uniform_and_gumbel_match_jax_exactly():
+    """The bf16 draws (``LoopEngine`` samples a bf16 model's logits in
+    bf16, as the reference's does) equal ``jax.random`` bit for bit."""
+    jdt, tdt = jnp.bfloat16, torch.bfloat16
+    tiny = float(jnp.finfo(jdt).tiny)
+    for i in range(40):
+        jk = jax.random.fold_in(jax.random.PRNGKey(7), i)
+        tk = tuple(int(w) for w in np.asarray(jk))
+        np.testing.assert_array_equal(
+            np.asarray(jax.random.uniform(jk, (512,), jdt, tiny, 1.0),
+                       np.float32),
+            prng.uniform(tk, (512,), tiny, 1.0, dtype=tdt).float().numpy())
+        np.testing.assert_array_equal(
+            np.asarray(jax.random.gumbel(jk, (512,), jdt), np.float32),
+            prng.gumbel(tk, (512,), dtype=tdt).float().numpy())
+
+
 def test_tile_gaussian_matches_jax_package():
     """Identical Threefry bits; Box-Muller within rel 3e-7 (torch's CPU
     log/cos against XLA's)."""
