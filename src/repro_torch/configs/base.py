@@ -1,5 +1,5 @@
-"""Config schema of the port (a copy of the dense, ssm and moe/MLA parts of
-the JAX package's ``configs/base.py``; the port imports nothing of that
+"""Config schema of the port (a copy of the dense, ssm, moe/MLA and vit parts
+of the JAX package's ``configs/base.py``; the port imports nothing of that
 package).
 
 One ``ModelConfig`` describes an architecture; ``reduced()`` builds the
@@ -16,7 +16,7 @@ from typing import Optional
 class CIMModelConfig:
     """How the macro executes the model's linears (off = ideal digital)."""
 
-    mode: str = "off"            # "off" | "sim" (this slice serves no "qat")
+    mode: str = "off"            # "off" | "qat" (training) | "sim"
     policy: str = "paper_sac"    # SAC policy name (core/sac.py)
     act_clip_sigmas: float = 4.0  # activation scale = clip at k*rms
     use_kernel: bool = False      # deployed sim-mode matmuls through the
@@ -58,8 +58,9 @@ class MLAConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # "dense", "ssm" or "moe" (the ported
-                                 # families; moe with MLA attention only)
+    family: str                  # "dense", "ssm", "moe" or "vit" (the
+                                 # ported families; moe with MLA
+                                 # attention only)
     n_layers: int
     d_model: int
     n_heads: int
@@ -72,6 +73,10 @@ class ModelConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    # vit (the paper's CIFAR demo)
+    image_size: int = 32
+    patch_size: int = 4
+    n_classes: int = 10
     max_seq_len: int = 8192
     dtype: str = "bfloat16"
     attn_impl: str = "einsum"    # "einsum" (dense masked-softmax reference)
@@ -116,6 +121,8 @@ class ModelConfig:
                        + h * hd * d)
             per_layer = (qkv + 3 * d * f * (m.n_experts + m.n_shared)
                          + d * m.n_experts)
+        elif self.family == "vit":
+            per_layer = 4 * d * d + 2 * d * f
         else:
             qkv = (d * hd * (self.n_heads + 2 * self.n_kv_heads)
                    + self.n_heads * hd * d)

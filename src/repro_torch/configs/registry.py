@@ -11,6 +11,7 @@ _MODULES: Dict[str, str] = {
     "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
     "mamba2-130m": "repro_torch.configs.mamba2_130m",
     "qwen2-0.5b": "repro_torch.configs.qwen2_0_5b",
+    "vit-small-cifar": "repro_torch.configs.vit_small_cifar",
 }
 
 

@@ -6,8 +6,9 @@ draw under ``PRNGKey(mismatch_seed)``), the INL curve, the static DNL table
 (``PRNGKey(mismatch_seed + 1)``), the analytic comparator decision
 probabilities, the one-pass SAR conversion (no fault injection) and its
 Monte-Carlo noise figure under ``PRNGKey(7)``. The card has no JAX to ask,
-so every draw replays ``jax.random`` through ``core.prng``; everything runs
-once per operating point on the CPU, in float32 like the reference.
+so every draw replays ``jax.random`` through ``core.prng``. The DAC weights
+and the DNL table are computed once per operating point on the CPU, in
+float32 like the reference; ``sar_convert`` runs on ``v``'s device.
 """
 
 from __future__ import annotations
@@ -57,27 +58,39 @@ def _seq_sum(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+# per operating point, computed once on the CPU: the DAC weights, the DNL
+# table, the INL curve and the conversion noise (per device type)
+_CACHE: dict = {}
+
+
 def dac_bit_weights(spec: ADCSpec) -> torch.Tensor:
-    """Mismatched weight of each binary C-DAC group, normalised to full scale."""
-    z = prng.normal(prng.PRNGKey(spec.mismatch_seed), (spec.adc_bits,))
-    nominal = 2.0 ** torch.arange(spec.adc_bits, dtype=torch.float32)
-    w = nominal + torch.sqrt(nominal) * spec.cap_sigma * z
-    return w * (spec.codes - 1) / _seq_sum(w)
+    """Mismatched weight of each binary C-DAC group, normalised to full scale
+    (f32, on the CPU)."""
+    kk = ("dac", spec)
+    if kk not in _CACHE:
+        z = prng.normal(prng.PRNGKey(spec.mismatch_seed), (spec.adc_bits,))
+        nominal = 2.0 ** torch.arange(spec.adc_bits, dtype=torch.float32)
+        w = nominal + torch.sqrt(nominal) * spec.cap_sigma * z
+        _CACHE[kk] = w * (spec.codes - 1) / _seq_sum(w)
+    return _CACHE[kk]
 
 
-_INL_CACHE: dict = {}
+def dac_level(code: torch.Tensor, spec: ADCSpec) -> torch.Tensor:
+    """Analog level (ideal-LSB units) a digital code produces."""
+    w = dac_bit_weights(spec).to(code.device)
+    bits = torch.stack([(code >> i) & 1 for i in range(spec.adc_bits)],
+                       dim=-1)
+    return _seq_sum(bits.to(torch.float32) * w)
 
 
 def inl_curve(spec: ADCSpec) -> np.ndarray:
     """INL(code) = dac_level(code) - code, for all codes."""
-    if spec not in _INL_CACHE:
-        w = dac_bit_weights(spec)
+    kk = ("inl", spec)
+    if kk not in _CACHE:
         codes = torch.arange(spec.codes, dtype=torch.int32)
-        bits = torch.stack([(codes >> i) & 1 for i in range(spec.adc_bits)],
-                           dim=-1)
-        level = _seq_sum(bits.to(torch.float32) * w)
-        _INL_CACHE[spec] = (level - codes.to(torch.float32)).numpy()
-    return _INL_CACHE[spec]
+        _CACHE[kk] = (dac_level(codes, spec)
+                      - codes.to(torch.float32)).numpy()
+    return _CACHE[kk]
 
 
 _INV_SQRT2 = 0.7071067811865476
@@ -146,10 +159,13 @@ def majority_prob(p: torch.Tensor, votes: int) -> torch.Tensor:
 def _dnl_shift(v: torch.Tensor, spec: ADCSpec) -> torch.Tensor:
     if spec.sigma_dnl <= 0.0:
         return v
-    table = spec.sigma_dnl * prng.normal(prng.PRNGKey(spec.mismatch_seed + 1),
-                                         (spec.codes,))
-    idx = torch.clamp(torch.floor(v).to(torch.int32), 0, spec.codes - 1)
-    return v + table[idx.long()]
+    kk = ("dnl", spec)
+    if kk not in _CACHE:
+        _CACHE[kk] = spec.sigma_dnl * prng.normal(
+            prng.PRNGKey(spec.mismatch_seed + 1), (spec.codes,))
+    table = _CACHE[kk].to(v.device)
+    idx = torch.clamp(torch.floor(v).to(torch.int64), 0, spec.codes - 1)
+    return v + table[idx]
 
 
 def validate_adc_spec(spec: ADCSpec) -> None:
@@ -162,18 +178,20 @@ def validate_adc_spec(spec: ADCSpec) -> None:
 
 def sar_convert(v: torch.Tensor, key: prng.Key, spec: ADCSpec,
                 cb: bool) -> torch.Tensor:
-    """Convert analog values ``v`` (ideal-LSB units) to codes: one Threefry
-    uniform per decision at counter (flat index, step), each decision fired
-    with its analytic (vote-summed) probability."""
+    """Convert analog values ``v`` (ideal-LSB units) to int32 codes on
+    ``v``'s device: one Threefry uniform per decision at counter (flat
+    index, step), each decision fired with its analytic (vote-summed)
+    probability."""
     validate_adc_spec(spec)
-    w = dac_bit_weights(spec)
+    dev = v.device
+    w = dac_bit_weights(spec).to(dev)
     vshape = v.shape
     v = _dnl_shift(v.reshape(-1).to(torch.float32), spec)
     k0, k1 = prng.key_words(key)
     k0 ^= prng.DOMAIN_SAR
-    idx = torch.arange(v.shape[0], dtype=torch.int64)
+    idx = torch.arange(v.shape[0], dtype=torch.int64, device=dev)
     n_coarse = spec.adc_bits - spec.mv_bits
-    code = torch.zeros(v.shape, dtype=torch.int32)
+    code = torch.zeros(v.shape, dtype=torch.int32, device=dev)
     level = torch.zeros_like(v)
     for step in range(spec.adc_bits):
         fine = step >= n_coarse
@@ -192,26 +210,31 @@ def sar_convert(v: torch.Tensor, key: prng.Key, spec: ADCSpec,
     return code.reshape(vshape)
 
 
-_NOISE_CACHE: dict = {}
+def linspace(start: float, stop: float, num: int,
+             device="cpu") -> torch.Tensor:
+    """f32 ``jnp.linspace(start, stop, num)``: ``start * (1 - step) + stop *
+    step`` over ``step = i / (num - 1)``, ``stop`` appended."""
+    lo = _f32(start).to(device)
+    hi = _f32(stop).to(device)
+    div = num - 1
+    step = torch.arange(div, dtype=torch.float32, device=device) / float(div)
+    return torch.cat([lo * (1 - step) + hi * step, hi[None]])
 
 
-def conversion_noise_lsb(spec: ADCSpec, cb: bool) -> float:
+def conversion_noise_lsb(spec: ADCSpec, cb: bool, device="cpu") -> float:
     """Output-referred conversion noise std in LSB: Monte-Carlo std of
-    repeated conversions of 256 mid-range levels (64 repeats each)."""
-    kk = (spec, cb)
-    if kk not in _NOISE_CACHE:
+    repeated conversions of 256 mid-range levels (64 repeats each), run
+    on ``device``; cached per spec and device type."""
+    kk = ("noise", spec, cb, torch.device(device).type)
+    if kk not in _CACHE:
         n_levels, n_rep = 256, 64
-        # jnp.linspace: start * (1 - step) + stop * step, stop appended
-        lo, hi = _f32(8.0), _f32(spec.codes - 8.0)
-        div = n_levels - 1
-        step = torch.arange(div, dtype=torch.float32) / _f32(div)
-        v = torch.cat([lo * (1 - step) + hi * step, hi[None]])
-        v = v[None].repeat(n_rep, 1)
+        v = linspace(8.0, spec.codes - 8.0, n_levels,
+                     device=device)[None].repeat(n_rep, 1)
         codes = sar_convert(v, prng.PRNGKey(7), spec, cb).to(torch.float32)
         std = torch.sqrt(torch.mean(
             torch.abs(codes - codes.mean(dim=0, keepdim=True)) ** 2, dim=0))
-        _NOISE_CACHE[kk] = float(torch.mean(std))
-    return _NOISE_CACHE[kk]
+        _CACHE[kk] = float(torch.mean(std))
+    return _CACHE[kk]
 
 
 def adc_total_error_var_lsb2(spec: ADCSpec, cb: bool) -> float:
@@ -221,3 +244,9 @@ def adc_total_error_var_lsb2(spec: ADCSpec, cb: bool) -> float:
     n = conversion_noise_lsb(spec, cb) ** 2
     inl = float(np.mean(inl_curve(spec) ** 2))
     return q + n + inl + spec.sigma_dnl ** 2
+
+
+def adc_noise_error_var_lsb2(spec: ADCSpec, cb: bool) -> float:
+    """Variance (LSB^2) of the noise-only error: quantization and conversion
+    noise, the static INL and DNL excluded (what CSNR counts)."""
+    return 1.0 / 12.0 + conversion_noise_lsb(spec, cb) ** 2

@@ -1,13 +1,15 @@
 """CR-CIM macro operating point, its output-referred noise figure and the
-behavioural macro matmul.
+macro matmul at its two fidelities.
 
-Twin of the part of ``core/cim.py`` that the serving paths need:
-``CIMSpec`` (without the fault and drift fields, ROADMAP A5), the
-per-layer analog gain, the per-K-tile readout-noise std that the CIM
-kernel injects, and the behavioural sim path (``cim_matmul_behavioral``,
-``cim_dense``) that ``layers.dense`` takes when ``cim.use_kernel`` is
-False: the exact integer dot plus one whole-K ``jax.random.normal`` draw,
-replayed by ``prng.normal``.
+Twin of ``core/cim.py`` without the fault and drift fields and epilogues
+(ROADMAP A5): ``CIMSpec``, the per-layer analog gain, the per-K-tile
+readout-noise std that the CIM kernel injects, the bit-exact engine
+(``cim_matmul_bit_exact``: every K-tile x weight-plane partial sum through
+one batched SAR conversion, the paper-metrics path), the behavioural sim
+path (``cim_matmul_behavioral``: the exact integer dot plus one whole-K
+``jax.random.normal`` draw, replayed by ``prng.normal``) and ``cim_dense``
+in its digital, qat (straight-through fake-quant plus the macro's noise,
+for training) and sim modes.
 """
 
 from __future__ import annotations
@@ -16,10 +18,12 @@ import dataclasses
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import prng, quant
-from repro_torch.core.adc import ADCSpec, adc_total_error_var_lsb2
+from repro_torch.core.adc import (ADCSpec, adc_noise_error_var_lsb2,
+                                  adc_total_error_var_lsb2, sar_convert)
 
 # Rows of one macro: the K tile of the readout noise and of the CUDA kernel
 # (csrc/cim_matmul.cu), fixed in the port.
@@ -63,20 +67,88 @@ class CIMSpec:
         return half / (self.clip_sigmas * sigma_s)
 
 
-def output_noise_std_int(spec: CIMSpec, k: int) -> float:
-    """Std (integer product units) of the macro error of a K-long dot."""
-    adc = spec.effective_adc()
-    var_lsb = adc_total_error_var_lsb2(adc, spec.cb)
-    gain = spec.analog_gain(rows=k) * spec.attenuation
-    s_bw = sum(4 ** i for i in range(spec.w_bits - 1)) + 4 ** (spec.w_bits - 1)
+def _num_k_tiles(k: int) -> int:
+    return -(-k // MACRO_ROWS)
+
+
+def plane_sums(xq: torch.Tensor, wq: torch.Tensor,
+               spec: CIMSpec) -> torch.Tensor:
+    """The analog array's partial sums of every K tile and weight plane,
+    (T, w_bits, M, N) f32 in charge units: the drive ``xq / qmax_x`` of
+    each tile's rows against each two's-complement plane of ``wq``."""
+    m, k = xq.shape
+    k2, n = wq.shape
+    if k != k2:
+        raise ValueError(f"inner dims differ: {xq.shape} @ {wq.shape}")
+    t = _num_k_tiles(k)
+    kp = t * MACRO_ROWS
+    xq = torch.nn.functional.pad(xq, (0, kp - k))
+    wq = torch.nn.functional.pad(wq, (0, 0, 0, kp - k))
+    wplanes = quant.unsigned_bitplanes(wq, spec.w_bits)    # (w_bits, Kp, N)
+    # XLA folds a division by a constant into a product with the
+    # constant's f32 reciprocal; the drive (x / qx) and the readout
+    # (/ gain) take the reference's values only so
+    inv_qx = float(np.float32(1.0) / np.float32(quant.qmax(spec.in_bits)))
+    x3 = (xq.to(torch.float32) * inv_qx).reshape(m, t, MACRO_ROWS)
+    w4 = wplanes.reshape(spec.w_bits, t, MACRO_ROWS, n).to(torch.float32)
+    return torch.einsum("mtr,jtrn->tjmn", x3, w4)
+
+
+def cim_matmul_bit_exact(xq: torch.Tensor, wq: torch.Tensor, key: prng.Key,
+                         spec: CIMSpec) -> torch.Tensor:
+    """Bit-exact macro matmul of int32 ``xq`` (M, K) and ``wq`` (K, N), on
+    their device: every (K-tile, weight-plane) partial sum of the analog
+    array from one einsum (``plane_sums``), all ``T * w_bits`` of them
+    through one ``sar_convert`` of the ``(T * w_bits, M, N)`` conversion
+    tensor, then the signed shift-add of the codes. Returns the (M, N) f32
+    estimate of ``xq @ wq`` in integer product units. No fault epilogue
+    (ROADMAP A5)."""
+    m, k = xq.shape
+    n = wq.shape[1]
+    s = plane_sums(xq, wq, spec)
+    t = s.shape[0]
     qx = quant.qmax(spec.in_bits)
-    tiles = -(-k // MACRO_ROWS)
+    half = 2.0 ** (spec.adc_bits - 1)
+    gain = spec.analog_gain(rows=k) * spec.attenuation
+    v = torch.clamp(gain * s + half, 0.0, 2.0 ** spec.adc_bits - 1.0)
+    code = sar_convert(v.reshape(t * spec.w_bits, m, n), key,
+                       spec.effective_adc(), spec.cb)
+    c = code.reshape(t, spec.w_bits, m, n).to(torch.float32) - half
+    inv_gain = float(np.float32(1.0) / np.float32(gain))
+    # the reference sums the tiles out first, each product with 1/gain
+    # fused into the running sum (one rounding: an FMA, emulated in f64,
+    # where the product of two f32 values is exact)
+    acc = c[0] * inv_gain
+    for i in range(1, t):
+        acc = (c[i].to(torch.float64) * inv_gain
+               + acc.to(torch.float64)).to(torch.float32)
+    # then contracts the planes in order with their signed weights (powers
+    # of two: every product is exact)
+    pw = quant.plane_weights(spec.w_bits).tolist()
+    y = pw[0] * acc[0]
+    for j in range(1, spec.w_bits):
+        y = y + pw[j] * acc[j]
+    return qx * y
+
+
+def output_noise_std_int(spec: CIMSpec, k: int,
+                         include_static: bool = True) -> float:
+    """Std (integer product units) of the macro error of a K-long dot;
+    ``include_static=False`` leaves out the static INL and DNL (the random
+    error only, what noise-aware QAT injects)."""
+    adc = spec.effective_adc()
+    var_lsb = (adc_total_error_var_lsb2(adc, spec.cb) if include_static
+               else adc_noise_error_var_lsb2(adc, spec.cb))
+    gain = spec.analog_gain(rows=k) * spec.attenuation
+    s_bw = quant.sum_sq_plane_weights(spec.w_bits)
+    qx = quant.qmax(spec.in_bits)
+    tiles = _num_k_tiles(k)
     return spec.noise_scale * math.sqrt(tiles * s_bw * var_lsb) * qx / gain
 
 
 def output_noise_std_int_per_tile(spec: CIMSpec, k: int) -> float:
     """Per-K-tile error std, the analog gain fitted to the true K."""
-    tiles = -(-k // MACRO_ROWS)
+    tiles = _num_k_tiles(k)
     return output_noise_std_int(spec, k) / math.sqrt(tiles)
 
 
@@ -111,19 +183,32 @@ def cim_dense(x: torch.Tensor, w: Optional[torch.Tensor],
               mode: str = "digital", x_scale: Optional[torch.Tensor] = None,
               w_scale: Optional[torch.Tensor] = None,
               wq: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """y = x @ w, digitally or on the behavioural macro model.
+    """y = x @ w, digitally, as QAT fake-quant or on the behavioural macro.
 
-    ``digital`` (or no spec): the plain product. ``sim``: quantize both
-    operands (a deployed plane ``wq`` with its ``w_scale`` skips the weight
-    side; ``w`` may then be None), run ``cim_matmul_behavioral`` under
-    ``key`` (None: ``PRNGKey(0)``, as in the reference) and rescale by
-    ``xs * ws``, in x's dtype. ``qat`` is not ported (ROADMAP A3)."""
+    ``digital`` (or no spec): the plain product. ``qat``: straight-through
+    fake-quant of x and w at the spec's precisions (abs-max scales unless
+    given), and with a key the macro's random output error
+    ``sigma * xs * ws * normal(key)`` (noise-aware QAT). ``sim``: quantize
+    both operands (a deployed plane ``wq`` with its ``w_scale`` skips the
+    weight side; ``w`` may then be None), run ``cim_matmul_behavioral``
+    under ``key`` (None: ``PRNGKey(0)``, as in the reference) and rescale
+    by ``xs * ws``, in x's dtype."""
     if mode == "digital" or spec is None:
         return torch.einsum("...k,kn->...n", x, w)
     if mode == "qat":
-        raise NotImplementedError(
-            "cim_dense mode 'qat' (noise-aware STE fake-quant) is not "
-            "ported yet; ROADMAP.md item A3")
+        xs = (x_scale if x_scale is not None
+              else quant.abs_max_scale(x, spec.in_bits))
+        ws = (w_scale if w_scale is not None
+              else quant.abs_max_scale(w, spec.w_bits))
+        xf = quant.fake_quant(x.to(torch.float32), xs, spec.in_bits)
+        wf = quant.fake_quant(w.to(torch.float32), ws, spec.w_bits)
+        y = torch.einsum("...k,kn->...n", xf, wf)
+        if key is not None:
+            sigma = output_noise_std_int(spec, x.shape[-1],
+                                         include_static=False)
+            y = y + (sigma * xs * ws) * prng.normal(key, tuple(y.shape),
+                                                    device=y.device)
+        return y.to(x.dtype)
     if mode != "sim":
         raise ValueError(f"unknown cim mode: {mode}")
     xq, xs, wq_i, ws = quant.quantize_operands(

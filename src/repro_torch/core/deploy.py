@@ -15,10 +15,11 @@ Also the parameter bridge of the port:
   * ``params_from_jax(tree)`` turns the JAX params tree, already converted
     to numpy arrays by the caller (the port never imports JAX), into torch
     tensors of the same structure;
-  * ``init_params(cfg, generator, device)`` initialises the dense, ssm and
-    moe families natively (the card has no JAX): the JAX initialiser's
-    distributions — N(0, 1/d_in) weights (the MLA projections and the f32
-    router too), zero biases, unit norms, N(0, 0.02^2) embeddings; for
+  * ``init_params(cfg, generator, device)`` initialises the dense, ssm,
+    moe and vit families natively (the card has no JAX): the JAX
+    initialiser's distributions — N(0, 1/d_in) weights (the MLA projections
+    and the f32 router too), zero biases, unit norms, N(0, 0.02^2)
+    embeddings (and the ViT's cls token and positions, in f32); for
     mamba2 N(0, 0.2^2) conv weights, zero conv bias and dt bias,
     ``A_log = log(linspace(1, 16, H))`` and unit skip gains; for the expert
     banks U(-1/sqrt(d), 1/sqrt(d)) — drawn from a ``torch.Generator``, equal
@@ -42,6 +43,7 @@ _KEY_ROLE = {
     "dq": "attn_qkv", "uq": "attn_qkv", "dkv": "attn_qkv",
     "uk": "attn_qkv", "uv": "attn_qkv",
     "gate": "mlp_in", "up": "mlp_in", "down": "mlp_out",
+    "patch": "mlp_in",
     "in_proj": "ssm_in", "out_proj": "ssm_out",
     "router": "router", "head": "head",
 }
@@ -166,10 +168,10 @@ def params_from_jax(tree: Any, device="cpu") -> Any:
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda") -> Any:
-    """Random params of the dense, ssm or moe (MLA) family, stacked over
-    layers like the reference."""
+    """Random params of the dense, ssm, moe (MLA) or vit family, stacked
+    over layers like the reference."""
     from repro_torch import resolve_device
-    if cfg.family not in ("dense", "ssm", "moe") or (
+    if cfg.family not in ("dense", "ssm", "moe", "vit") or (
             cfg.family == "moe" and cfg.mla is None):
         raise NotImplementedError(
             f"{cfg.name} (family {cfg.family!r}) is not ported")
@@ -193,6 +195,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
     def ones(n):
         return {"g": full((L, n), 1.0)}
+
+    if cfg.family == "vit":
+        return _init_vit(cfg, normal, full)
 
     if cfg.family == "ssm":
         s = cfg.ssm
@@ -265,3 +270,39 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return {"embed": {"e": normal(cfg.vocab_size, d, std=0.02)},
             "final_norm": {"g": full((d,), 1.0)},
             "blocks": blocks}
+
+
+def _init_vit(cfg: ModelConfig, normal, full) -> Any:
+    """ViT params in f32 (``init_vit``'s tree): the patch embedding, cls
+    token and positions, stacked pre-norm blocks (non-causal GQA and a
+    GELU MLP with biases, two layernorms), the head norm and head."""
+    f32 = torch.float32
+    L, d, f, hd = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.hd
+    patch_dim = cfg.patch_size ** 2 * 3
+    n_patches = (cfg.image_size // cfg.patch_size) ** 2
+
+    def dense(d_in, d_out, bias, lead=(L,)):
+        p = {"w": normal(*lead, d_in, d_out, std=d_in ** -0.5, dtype=f32)}
+        if bias:
+            p["b"] = full(lead + (d_out,), 0.0, f32)
+        return p
+
+    def ln(lead=(L,)):
+        return {"g": full(lead + (d,), 1.0, f32),
+                "b": full(lead + (d,), 0.0, f32)}
+
+    nh, kv = cfg.n_heads, cfg.n_kv_heads
+    return {
+        "patch": dense(patch_dim, d, True, ()),
+        "cls": normal(1, 1, d, std=0.02, dtype=f32),
+        "pos": normal(1, n_patches + 1, d, std=0.02, dtype=f32),
+        "blocks": {
+            "attn": {"q": dense(d, nh * hd, cfg.qkv_bias),
+                     "k": dense(d, kv * hd, cfg.qkv_bias),
+                     "v": dense(d, kv * hd, cfg.qkv_bias),
+                     "o": dense(nh * hd, d, False)},
+            "mlp": {"up": dense(d, f, True), "down": dense(f, d, True)},
+            "n1": ln(), "n2": ln()},
+        "head_norm": ln(()),
+        "head": dense(d, cfg.n_classes, True, ()),
+    }

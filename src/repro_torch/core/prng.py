@@ -13,8 +13,8 @@ Threefry):
     ``(seed0 ^ DOMAIN_TILE_NOISE, seed1 ^ tile)``, counter = global
     ``(row, col)``, Box-Muller on the two output words.
   * ``PRNGKey``/``fold_in``/``split``/``random_bits``/``uniform``/
-    ``normal``/``gumbel`` — the raw-key functions of ``jax.random``. A key is
-    a ``(k0, k1)`` tuple of Python ints; the chain of keys lives on the host
+    ``normal``/``gumbel``/``randint`` — the raw-key functions of
+    ``jax.random``. A key is a ``(k0, k1)`` tuple of Python ints; the chain of keys lives on the host
     and never costs a device launch. ``fold_in(k, d)`` is
     ``threefry2x32(k, (0, d))``; ``split(k)[i]`` is ``threefry2x32(k, (0, i))``;
     ``random_bits`` xors the two words at counter ``(hi, lo)`` of the flat
@@ -226,6 +226,22 @@ def normal(key: Key, shape, device="cpu", start: int = 0) -> torch.Tensor:
     u = uniform(key, shape, lo, 1.0, device, start)
     return torch.tensor(np.float32(np.sqrt(2)), dtype=torch.float32,
                         device=device) * erf_inv(u)
+
+
+def randint(key: Key, shape, minval: int, maxval: int,
+            device="cpu") -> torch.Tensor:
+    """int32 ``jax.random.randint(key, shape, minval, maxval)``: two
+    32-bit draws under ``split(key)``'s subkeys, the higher and the lower
+    bits, folded into ``[minval, maxval)`` by unsigned 32-bit modular
+    arithmetic (``2^32 mod span`` as ``(2^16 mod span)^2 mod span``)."""
+    span = (maxval - minval) & M32 if maxval > minval else 1
+    k1, k2 = split(key)
+    hi = random_bits(k1, shape, device)
+    lo = random_bits(k2, shape, device)
+    mult = ((2 ** 16 % span) ** 2) % span
+    off = (((hi % span) * mult) & M32) + lo % span
+    off = (off & M32) % span
+    return (off + minval).to(torch.int32)
 
 
 def gumbel(key: Key, shape, device="cpu",

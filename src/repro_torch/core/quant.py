@@ -57,3 +57,48 @@ def quantize_operands(x: torch.Tensor, w, in_bits: int, w_bits: int,
         return xq, xs, wq.to(torch.int32), w_scale
     ws = w_scale if w_scale is not None else abs_max_scale(w, w_bits)
     return xq, xs, quantize(w.to(torch.float32), ws, w_bits), ws
+
+
+class _SteRound(torch.autograd.Function):
+    """round() forward, identity backward (the straight-through estimator)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return torch.round(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def fake_quant(x: torch.Tensor, scale: torch.Tensor,
+               bits: int) -> torch.Tensor:
+    """Quantize->dequantize with straight-through gradients (clipped STE).
+
+    The clip is ``min(max(x, lo), hi)`` as ``jnp.clip`` computes it:
+    ``torch.maximum``/``torch.minimum`` split the cotangent evenly at ties,
+    as ``lax.max``/``lax.min`` do (``torch.clamp`` would pass all of it),
+    and the abs-max scale puts ``q * scale`` exactly on the abs-max
+    element, so the tie is the common case."""
+    q = qmax(bits)
+    scale = torch.as_tensor(scale, dtype=x.dtype, device=x.device)
+    x_c = torch.minimum(torch.maximum(-q * scale, x), q * scale)
+    return _SteRound.apply(x_c / scale) * scale
+
+
+def unsigned_bitplanes(xi: torch.Tensor, bits: int) -> torch.Tensor:
+    """Two's-complement bit planes of signed ints, (bits,) + xi.shape int32;
+    plane ``i`` weighs ``2**i``, the MSB plane ``-2**(bits-1)``."""
+    u = torch.remainder(xi.to(torch.int64), 2 ** bits)
+    return torch.stack([(u >> i) & 1 for i in range(bits)]).to(torch.int32)
+
+
+def plane_weights(bits: int) -> torch.Tensor:
+    """Signed shift-add weights of the two's-complement planes (int32)."""
+    return torch.tensor([2 ** i for i in range(bits - 1)]
+                        + [-(2 ** (bits - 1))], dtype=torch.int32)
+
+
+def sum_sq_plane_weights(bits: int) -> int:
+    """sum_j w_j^2 of the two's-complement planes (the shift-add noise gain)."""
+    return sum(4 ** i for i in range(bits - 1)) + 4 ** (bits - 1)

@@ -132,10 +132,13 @@ def _cached_mask(start: torch.Tensor, s: int, t: int) -> torch.Tensor:
 
 def gqa_attention(ctx: Ctx, p: Params, x: torch.Tensor,
                   positions: torch.Tensor,
-                  cache: Optional[Dict[str, Any]] = None
+                  cache: Optional[Dict[str, Any]] = None,
+                  causal: bool = True
                   ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
-    """Causal self-attention; with ``cache`` acts as prefill (S>1) or
-    decode (S==1) and writes the new keys into the cache in place."""
+    """Self-attention; with ``cache`` acts as prefill (S>1) or decode
+    (S==1) and writes the new keys into the cache in place. Without a
+    cache (training, ViT) it is the einsum softmax over the whole sequence,
+    masked causally unless ``causal=False``, and writes nothing."""
     cfg = ctx.cfg
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -151,7 +154,7 @@ def gqa_attention(ctx: Ctx, p: Params, x: torch.Tensor,
         raise ValueError(f"attn_impl must be 'einsum' or 'kernel', "
                          f"got {impl!r}")
     if cache is None:
-        out = _sdpa(q, k, v, _causal_mask(s, s, x.device))
+        out = _sdpa(q, k, v, _causal_mask(s, s, x.device) if causal else None)
     else:
         start = cache["len"].clone()             # (B,) per-sequence lengths
         int8_cache = "ks" in cache

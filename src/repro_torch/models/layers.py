@@ -9,7 +9,11 @@ Sim mode reads the deployed int8 planes on both of the reference's
 paths: the fused CIM kernel with per-tile Threefry noise
 (``cfg.cim.use_kernel=True``) or the behavioural ``core.cim.cim_dense``
 with one whole-K ``jax.random.normal`` draw (``use_kernel=False``, the
-config default). QAT (a straight-through estimator) raises here.
+config default). A weight without a plane is quantized per call, as in
+the reference, unless the context says the tree is deployed
+(``Ctx.deployed``) or the weight carries a plane of another width: then a
+missing plane raises rather than silently bypass the kernel. QAT mode runs ``cim_dense(mode="qat")``: straight-through
+fake-quant plus the macro's noise under the call's key, for training.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -46,7 +51,7 @@ class Ctx:
     draws at most ``seed_width`` rows; a draw past them raises."""
 
     cfg: ModelConfig
-    mode: str = "off"                 # off | sim
+    mode: str = "off"                 # off | qat | sim
     policy: Optional[Policy] = None
     key: Optional[prng.Key] = None
     counter: int = 0
@@ -57,15 +62,17 @@ class Ctx:
     seeds: Optional[torch.Tensor] = None  # (rows, 2) int32 seed table
     seed_width: int = 0               # table rows a layer may draw
     seed_base: int = 0                # this layer's first row
+    deployed: bool = False            # the tree carries its sim planes
 
     @classmethod
     def make(cls, cfg: ModelConfig, key: Optional[prng.Key] = None,
-             mode: Optional[str] = None) -> "Ctx":
+             mode: Optional[str] = None, deployed: bool = False) -> "Ctx":
         mode = cfg.cim.mode if mode is None else mode
-        if mode not in ("off", "sim"):
+        if mode not in ("off", "qat", "sim"):
             raise NotImplementedError(f"cim mode {mode!r} is {_NOT_PORTED}")
         policy = get_policy(cfg.cim.policy) if mode != "off" else None
-        return cls(cfg=cfg, mode=mode, policy=policy, key=key)
+        return cls(cfg=cfg, mode=mode, policy=policy, key=key,
+                   deployed=deployed)
 
     def for_layer(self, i: int) -> "Ctx":
         """The context of layer ``i``: key ``fold_in(key, i)``, as the
@@ -106,26 +113,34 @@ def dense(ctx: Ctx, p: Params, x: torch.Tensor, role: str) -> torch.Tensor:
     the activation is quantized in the kernel against the batch-global
     clip scale, the readout noise is drawn in the kernel from this call's
     key. Without it, the behavioural ``cim_dense`` quantizes against the
-    same scale and draws its noise from the same key."""
+    same scale and draws its noise from the same key. Every weight in qat
+    mode, and in sim a weight of an undeployed tree, goes through
+    ``cim_dense`` with the float weight. A sim weight without the plane of
+    its width raises when ``ctx.deployed`` is set or when it carries a
+    plane of another width (a tree deployed under another policy)."""
     spec = ctx.spec_for(role)
     if spec is None:
         y = x @ p["w"].to(x.dtype)
     else:
         k = ctx.next_key()
         xs = _act_scale(ctx, x, spec)
-        wq = p.get(f"wq{spec.w_bits}")
-        if wq is None:
+        wq = p.get(f"wq{spec.w_bits}") if ctx.mode == "sim" else None
+        if wq is None and ctx.mode == "sim" and (
+                ctx.deployed or any(n.startswith("wq") for n in p)):
             raise ValueError(
-                f"sim-mode dense has no pre-quantized weight plane for role "
-                f"'{role}' at w_bits={spec.w_bits} — run core.deploy.deploy() "
-                "with the same SAC policy the serving context resolves (sim "
-                f"mode on an undeployed weight is {_NOT_PORTED})")
-        if ctx.cfg.cim.use_kernel:
+                f"deployed sim-mode dense has no pre-quantized weight plane "
+                f"for role '{role}' at w_bits={spec.w_bits} — run "
+                "core.deploy.deploy() with the same SAC policy the context "
+                "resolves")
+        if wq is not None and ctx.cfg.cim.use_kernel:
             y = kops.cim_matmul_deployed(x, wq, p[f"ws{spec.w_bits}"], spec,
                                          k, x_scale=xs).to(x.dtype)
-        else:
+        elif wq is not None:
             y = cim_dense(x, None, spec, k, mode="sim", x_scale=xs,
                           w_scale=p[f"ws{spec.w_bits}"], wq=wq)
+        else:
+            y = cim_dense(x, p["w"].to(x.dtype), spec, k, mode=ctx.mode,
+                          x_scale=xs)
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
@@ -150,6 +165,14 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     y = xf * torch.rsqrt(torch.mean(torch.square(xf), dim=-1, keepdim=True)
                          + eps)
     return (y * p["g"].to(torch.float32)).to(x.dtype)
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["g"] + p["b"]).to(x.dtype)
 
 
 # ------------------------------------------------------------------ RoPE
@@ -178,6 +201,64 @@ def swiglu(ctx: Ctx, p: Params, x: torch.Tensor) -> torch.Tensor:
     g = dense(ctx, p["gate"], x, "mlp_in")
     u = dense(ctx, p["up"], x, "mlp_in")
     return dense(ctx, p["down"], torch.nn.functional.silu(g) * u, "mlp_out")
+
+
+# XLA's f32 tanh on the CPU: Eigen's rational approximation, clamped to
+# +-7.99881172 (where it gives exactly +-1), x itself below 4e-4, every
+# Horner step an FMA. torch.tanh differs from it in the last ulp on about
+# half of all inputs, and a last-ulp difference in a GELU output flips a
+# fake-quantized activation across a rounding boundary now and then.
+_TANH_NUM = (-2.76076847742355e-16, 2.00018790482477e-13,
+             -8.60467152213735e-11, 5.12229709037114e-08,
+             1.48572235717979e-05, 6.37261928875436e-04,
+             4.89352455891786e-03)
+_TANH_DEN = (1.19825839466702e-06, 1.18534705686654e-04,
+             2.26843463243900e-03, 4.89352518554385e-03)
+_TANH_CLAMP = 7.99881172180175781
+
+
+def _horner_fma(x2: torch.Tensor, coeffs) -> torch.Tensor:
+    """f32 Horner evaluation with each step fused (in f64, where the
+    product of two f32 values is exact, then rounded to f32)."""
+    p = torch.full_like(x2, coeffs[0])
+    x2d = x2.to(torch.float64)
+    for c in coeffs[1:]:
+        p = (x2d * p.to(torch.float64)
+             + float(np.float32(c))).to(torch.float32)
+    return p
+
+
+class _XlaTanh(torch.autograd.Function):
+    """tanh with XLA's CPU values and JAX's derivative (1 + y)(1 - y)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        xc = x.clamp(-_TANH_CLAMP, _TANH_CLAMP)
+        x2 = xc * xc
+        y = torch.where(x.abs() < 0.0004, x,
+                        xc * _horner_fma(x2, _TANH_NUM)
+                        / _horner_fma(x2, _TANH_DEN))
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return (g + g * y) * (1.0 - y)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``jax.nn.gelu`` (the tanh form) with the reference's values:
+    ``x * 0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x^3)))``."""
+    c = float(np.float32(np.sqrt(2 / np.pi)))
+    inner = c * (x + 0.044715 * (x * (x * x)))
+    return x * (0.5 * (1.0 + _XlaTanh.apply(inner)))
+
+
+def gelu_mlp(ctx: Ctx, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """up -> GELU (the tanh form, as ``jax.nn.gelu``) -> down."""
+    h = gelu_tanh(dense(ctx, p["up"], x, "mlp_in"))
+    return dense(ctx, p["down"], h, "mlp_out")
 
 
 # ------------------------------------------------------------- embeddings

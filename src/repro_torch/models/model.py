@@ -1,10 +1,12 @@
-"""Public model API: build an arch, get its init and forward.
+"""Public model API: build an arch, get its init, loss and forward.
 
-Twin of ``build`` in ``src/repro/models/model.py`` for the dense, ssm and
-moe (MLA) families.
+Twin of ``build`` in ``src/repro/models/model.py`` for the dense, ssm, moe
+(MLA) and vit families.
 ``init(generator, device)`` draws torch-native parameters
 (``core.deploy.init_params``); parameters converted from a JAX tree come
-from ``core.deploy.params_from_jax``.
+from ``core.deploy.params_from_jax``. ``loss(params, batch, key)`` is the
+training objective (``lm_loss``; ``vit_loss`` on ``batch["images"]``,
+``batch["labels"]``), each under ``Ctx.make(cfg, key)``.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.deploy import init_params
 from repro_torch.models import transformer as tf
+from repro_torch.models import vit
 from repro_torch.models.layers import Ctx
 
 
@@ -24,15 +27,28 @@ from repro_torch.models.layers import Ctx
 class ModelAPI:
     cfg: ModelConfig
     init: Callable[..., Any]
+    loss: Callable[..., torch.Tensor]
     forward: Callable[..., Tuple[torch.Tensor, Any]]
 
 
 def build(cfg: ModelConfig) -> ModelAPI:
+    def init(generator, device="cuda"):
+        return init_params(cfg, generator, device)
+
+    if cfg.family == "vit":
+        return ModelAPI(
+            cfg=cfg, init=init,
+            loss=lambda params, batch, key=None: vit.vit_loss(
+                params, batch["images"], batch["labels"], cfg,
+                Ctx.make(cfg, key)),
+            forward=lambda params, batch, key=None: (vit.vit_forward(
+                params, batch["images"], cfg, Ctx.make(cfg, key)), None),
+        )
     tf.check_family(cfg)
     return ModelAPI(
-        cfg=cfg,
-        init=lambda generator, device="cuda": init_params(cfg, generator,
-                                                          device),
+        cfg=cfg, init=init,
+        loss=lambda params, batch, key=None: tf.lm_loss(
+            params, batch, cfg, Ctx.make(cfg, key)),
         forward=lambda params, batch, key=None, caches=None: tf.forward(
             params, batch, cfg, Ctx.make(cfg, key), caches),
     )

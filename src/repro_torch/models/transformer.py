@@ -241,3 +241,24 @@ def forward(params: Params, batch: Dict[str, Any], cfg: ModelConfig,
     x, caches = _run_blocks(ctx, params["blocks"], x, positions, caches)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return unembed(ctx, params["embed"], x), caches
+
+
+# --------------------------------------------------------------------------
+# loss
+# --------------------------------------------------------------------------
+
+
+def lm_loss(params: Params, batch: Dict[str, Any], cfg: ModelConfig,
+            ctx: Optional[Ctx] = None) -> torch.Tensor:
+    """Next-token cross-entropy plus 1e-4 z-loss; labels < 0 are masked.
+    A train forward (no cache): nothing is written in place, so autograd
+    runs through it."""
+    logits, _ = forward(params, batch, cfg, ctx)
+    labels = batch["labels"].long()
+    logits = logits.to(torch.float32)
+    logp = torch.log_softmax(logits, dim=-1)
+    valid = labels >= 0
+    nll = -torch.gather(logp, -1, labels.clamp_min(0)[..., None])[..., 0]
+    zloss = 1e-4 * torch.square(torch.logsumexp(logits, dim=-1))
+    return (torch.sum((nll + zloss) * valid)
+            / torch.clamp_min(torch.sum(valid), 1))

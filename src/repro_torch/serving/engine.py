@@ -478,7 +478,8 @@ class Engine:
     def _ctx(self, key: prng.Key) -> Ctx:
         """The CIM context of a forward keyed by ``key`` (split(key)[0]);
         on the seed-table path its draws read the staged table."""
-        ctx = Ctx.make(self.cfg, prng.split(key)[0], mode=self.mode)
+        ctx = Ctx.make(self.cfg, prng.split(key)[0], mode=self.mode,
+                       deployed=self.mode == "sim")
         if self._width:
             ctx.seeds, ctx.seed_width = self._inputs.seeds, self._width
         return ctx
@@ -929,7 +930,8 @@ class LoopEngine:
         """One forward of a batch-1 slot cache; the last position's
         logits (1, V)."""
         key = self._next_key()
-        ctx = Ctx.make(self.cfg, key, mode=self.mode)
+        ctx = Ctx.make(self.cfg, key, mode=self.mode,
+                       deployed=self.mode == "sim")
         if self._width:
             self._inputs.put(seeds=prng.seed_table(key, self.cfg.n_layers,
                                                    self._width))

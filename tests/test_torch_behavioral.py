@@ -142,8 +142,17 @@ def test_cim_dense_matches_jax(deployed, dtype):
             step = np.abs(j) * 2.0 ** -7 + 1e-30
             assert np.all(np.abs(t - j) <= step)
             assert np.mean(t == j) > 0.99
-    with pytest.raises(NotImplementedError, match="A3"):
-        cim.cim_dense(tx, tw, tspec, KEY, mode="qat")
+    # qat (noise-aware fake-quant, ported since): without a key the
+    # reference's fake-quant product
+    jq = np.asarray(jcim.cim_dense(jx, jw, jspec, None, mode="qat",
+                                   x_scale=jnp.asarray(xs))
+                    .astype(jnp.float32))
+    tq = cim.cim_dense(tx, tw, tspec, None, mode="qat",
+                       x_scale=torch.tensor(xs))
+    assert tq.dtype == tx.dtype
+    tol = 1e-5 if dtype == "float32" else 2.0 ** -7
+    np.testing.assert_allclose(tq.float().numpy(), jq, rtol=0,
+                               atol=tol * np.abs(jq).max())
 
 
 @pytest.fixture(scope="module")

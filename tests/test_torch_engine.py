@@ -47,17 +47,35 @@ def setup():
     return cfg_of, params, tp, prompts
 
 
+@pytest.fixture(scope="module")
+def jax_ref(setup):
+    """The reference engine's greedy tokens, one JAX run per (mode, cache)
+    of the reduced qwen2 (float32, chunked), on its einsum attention (the
+    same tokens as on its kernels, which ``test_torch_engine_step.py`` and
+    ``test_torch_loop_engine.py`` check for the reduced models): every port
+    variant compares against the one run."""
+    cfg_of, params, _, prompts = setup
+    runs = {}
+
+    def run(mode, int8):
+        if (mode, int8) not in runs:
+            runs[mode, int8] = JEngine(
+                cfg_of(jget("qwen2-0.5b"), int8), params, max_slots=2,
+                max_len=128, cim_mode=mode, attn_impl="einsum").generate(
+                [JRequest(prompt=p, max_new_tokens=8, rid=f"r{i}")
+                 for i, p in enumerate(prompts)])
+        return runs[mode, int8]
+    return run
+
+
 @pytest.mark.parametrize("mode,impl,int8", [
     ("off", "einsum", False), ("off", "kernel", True),
     ("sim", "kernel", False), ("sim", "kernel", True)])
-def test_greedy_tokens_equal_jax_engine(setup, mode, impl, int8):
+def test_greedy_tokens_equal_jax_engine(setup, jax_ref, mode, impl, int8):
     cfg_of, params, tp, prompts = setup
-    jc, tc = cfg_of(jget("qwen2-0.5b"), int8), cfg_of(
-        get_config("qwen2-0.5b"), int8)
+    tc = cfg_of(get_config("qwen2-0.5b"), int8)
     kw = dict(max_slots=2, max_len=128, cim_mode=mode, attn_impl=impl)
-    ja = JEngine(jc, params, **kw).generate(
-        [JRequest(prompt=p, max_new_tokens=8, rid=f"r{i}")
-         for i, p in enumerate(prompts)])
+    ja = jax_ref(mode, int8)
     ta = Engine(tc, tp, device="cpu", **kw).generate(
         [Request(prompt=p, max_new_tokens=8, rid=f"r{i}")
          for i, p in enumerate(prompts)])

@@ -63,26 +63,55 @@ def _requests(cls, prompts, new=3):
             for i, p in enumerate(prompts)]
 
 
+@pytest.fixture(scope="module")
+def jax_ref():
+    """The reference engine's tokens and witnesses (launches, iterations),
+    one JAX run per (arch, mode, dtype, cache, prompt mode), on its einsum
+    attention (a float32 model's tokens are the same on its kernels,
+    ``test_reference_on_its_kernels_equals_its_einsum_run``): every port
+    variant compares against the one run."""
+    runs = {}
+
+    def run(arch, jp, prompts, mode="off", dtype="float32", int8=False,
+            impl="einsum"):
+        key = (arch, mode, dtype, int8, "chunked", impl)
+        if key not in runs:
+            jeng = JEngine(_cfg(jget, arch, mode, dtype, int8), jp,
+                           fused_step=False, max_slots=2, max_len=32,
+                           chunk_size=8, cim_mode=mode, attn_impl=impl)
+            runs[key] = (jeng.generate(_requests(JRequest, prompts)),
+                         jeng.launch_count, jeng.iter_count)
+        return runs[key]
+    return run
+
+
 @pytest.mark.parametrize("mode,dtype,int8", [
     ("off", "float32", True), ("sim", "float32", False),
     ("sim", "float32", True)])
-def test_tokens_and_witnesses_equal_jax_under_fused_step(model, mode, dtype,
-                                                         int8):
+def test_tokens_and_witnesses_equal_jax_under_fused_step(model, jax_ref,
+                                                         mode, dtype, int8):
     arch, jp, tp, prompts = model
     kw = dict(max_slots=2, max_len=32, chunk_size=8, cim_mode=mode,
               attn_impl="kernel")
-    jeng = JEngine(_cfg(jget, arch, mode, dtype, int8), jp, fused_step=False,
-                   **kw)
-    ja = jeng.generate(_requests(JRequest, prompts))
+    ja, j_launches, j_iters = jax_ref(arch, jp, prompts, mode, dtype, int8)
     tc = _cfg(get_config, arch, mode, dtype, int8)
     for fused in (None, True, False) if not int8 else (None, False):
         teng = Engine(tc, tp, fused_step=fused, device="cpu", **kw)
         ta = teng.generate(_requests(Request, prompts))
         assert ta == ja, (fused, ta, ja)
         assert (teng.launch_count, teng.iter_count) == (
-            jeng.launch_count, jeng.iter_count), fused
+            j_launches, j_iters), fused
         assert teng.fused_step == (fused is not False)
         assert teng.replay_count == 0 and teng.fused_ok
+
+
+def test_reference_on_its_kernels_equals_its_einsum_run(model, jax_ref):
+    """The shared reference runs the JAX engine on its einsum attention;
+    on its kernels (interpret mode) it gives the same tokens and
+    witnesses, in sim mode with the int8 cache."""
+    arch, jp, _, prompts = model
+    args = (arch, jp, prompts, "sim", "float32", True)
+    assert jax_ref(*args, impl="kernel") == jax_ref(*args)
 
 
 @pytest.mark.parametrize("mode", ["off", "sim"])
@@ -265,7 +294,10 @@ def test_decode_failure_fails_only_its_request(model, monkeypatch):
     arch, jp, tp, prompts = model
     kw = dict(max_slots=2, max_len=32, chunk_size=8, cim_mode="off",
               attn_impl="kernel")
-    jeng = JEngine(_cfg(jget, arch), jp, fused_step=False, **kw)
+    # the reference on its einsum attention (the same tokens as on its
+    # kernels for a float32 model, at a fraction of the compile time)
+    jeng = JEngine(_cfg(jget, arch), jp, fused_step=False,
+                   **dict(kw, attn_impl="einsum"))
     real = jeng._decode
 
     def jdecode(params, caches, last_tok, active, *a, **k):
@@ -309,7 +341,10 @@ def test_decode_failure_at_the_last_layer_leaves_the_others_intact(
     arch, jp, tp, prompts = model
     kw = dict(max_slots=2, max_len=32, chunk_size=8, cim_mode="off",
               attn_impl="kernel")
-    jeng = JEngine(_cfg(jget, arch), jp, fused_step=False, **kw)
+    # the reference on its einsum attention (the same tokens as on its
+    # kernels for a float32 model, at a fraction of the compile time)
+    jeng = JEngine(_cfg(jget, arch), jp, fused_step=False,
+                   **dict(kw, attn_impl="einsum"))
     real = jeng._decode
 
     def jdecode(params, caches, last_tok, active, *a, **k):

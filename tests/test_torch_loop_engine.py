@@ -50,6 +50,32 @@ def model(request):
     return arch, jp, params_from_jax(jax.tree.map(np.asarray, jp)), prompts
 
 
+@pytest.fixture(scope="module")
+def jax_ref():
+    """The reference's tokens and witnesses (launches, iterations), one JAX
+    run per (arch, mode, dtype, cache, prompt mode) — ``"whole"``: its
+    Engine at chunk_size 0, ``"loop"``: its LoopEngine — on its einsum
+    attention (a float32 model's tokens are the same on its kernels,
+    ``test_reference_on_its_kernels_equals_its_einsum_run``): every port
+    variant compares against the one run."""
+    runs = {}
+
+    def run(arch, jp, prompts, path, mode="off", dtype="float32",
+            int8=False, impl="einsum"):
+        key = (arch, mode, dtype, int8, path, impl)
+        if key not in runs:
+            kw = dict(max_slots=2, max_len=32, cim_mode=mode,
+                      attn_impl=impl)
+            cfg = _cfg(jget, arch, mode, dtype, int8)
+            jeng = (JLoopEngine(cfg, jp, **kw) if path == "loop"
+                    else JEngine(cfg, jp, chunk_size=0, **kw))
+            runs[key] = (jeng.generate(_requests(JRequest, prompts)),
+                         getattr(jeng, "launch_count", None),
+                         getattr(jeng, "iter_count", None))
+        return runs[key]
+    return run
+
+
 def _requests(cls, prompts):
     return [cls(prompt=p, max_new_tokens=n, rid=f"w{i}")
             for i, (p, n) in enumerate(zip(prompts, NEW))]
@@ -58,31 +84,38 @@ def _requests(cls, prompts):
 @pytest.mark.parametrize("mode,dtype,int8", [
     ("off", "float32", True), ("sim", "float32", False),
     ("sim", "float32", True)])
-def test_whole_prompt_tokens_equal_jax_engine(model, mode, dtype, int8):
+def test_whole_prompt_tokens_equal_jax_engine(model, jax_ref, mode, dtype,
+                                              int8):
     arch, jp, tp, prompts = model
-    kw = dict(max_slots=2, max_len=32, chunk_size=0, cim_mode=mode,
-              attn_impl="kernel")
-    jeng = JEngine(_cfg(jget, arch, mode, dtype, int8), jp, **kw)
-    ja = jeng.generate(_requests(JRequest, prompts))
+    ja, j_launches, j_iters = jax_ref(arch, jp, prompts, "whole", mode,
+                                      dtype, int8)
     teng = Engine(_cfg(get_config, arch, mode, dtype, int8), tp,
-                  device="cpu", **kw)
+                  device="cpu", max_slots=2, max_len=32, chunk_size=0,
+                  cim_mode=mode, attn_impl="kernel")
     ta = teng.generate(_requests(Request, prompts))
     assert ta == ja, (ta, ja)
     assert [len(t) for t in ta] == list(NEW)
     assert not teng.fused_step
-    assert (teng.launch_count, teng.iter_count) == (jeng.launch_count,
-                                                    jeng.iter_count)
+    assert (teng.launch_count, teng.iter_count) == (j_launches, j_iters)
+
+
+def test_reference_on_its_kernels_equals_its_einsum_run(model, jax_ref):
+    """The shared reference runs on its einsum attention; on its kernels
+    (interpret mode) the whole-prompt engine gives the same tokens and
+    witnesses, in sim mode with the int8 cache."""
+    arch, jp, _, prompts = model
+    args = (arch, jp, prompts, "whole", "sim", "float32", True)
+    assert jax_ref(*args, impl="kernel") == jax_ref(*args)
 
 
 @pytest.mark.parametrize("mode,dtype", [("off", "float32"),
                                         ("sim", "float32")])
-def test_loop_engine_equals_jax_loop_engine(model, mode, dtype):
+def test_loop_engine_equals_jax_loop_engine(model, jax_ref, mode, dtype):
     arch, jp, tp, prompts = model
-    kw = dict(max_slots=2, max_len=32, cim_mode=mode, attn_impl="kernel")
-    ja = JLoopEngine(_cfg(jget, arch, mode, dtype), jp, **kw).generate(
-        _requests(JRequest, prompts))
+    ja, _, _ = jax_ref(arch, jp, prompts, "loop", mode, dtype)
     ta = LoopEngine(_cfg(get_config, arch, mode, dtype), tp, device="cpu",
-                    **kw).generate(_requests(Request, prompts))
+                    max_slots=2, max_len=32, cim_mode=mode,
+                    attn_impl="kernel").generate(_requests(Request, prompts))
     assert ta == ja, (ta, ja)
     # the frozen quirk: max_new_tokens == 1 emits 2 tokens
     assert [len(t) for t in ta] == [3, 2, 2, 3]

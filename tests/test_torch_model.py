@@ -54,32 +54,56 @@ def _close(t, j, mode):
         assert (rows > 1e-4).mean() <= 1 / 16 and rows.max() <= 5e-2, rows
 
 
+@pytest.fixture(scope="module")
+def jax_ref():
+    """The reference's logits and lengths of the three steps, one JAX run
+    per (mode, cache) on its einsum attention (kernel attention gives the
+    reduced qwen2 the same tokens, ``test_torch_engine_step.py``): both
+    port attention implementations compare against the one run; the JAX
+    params are drawn (and deployed) once per mode."""
+    params, runs = {}, {}
+
+    def run(mode, int8):
+        if (mode, int8) not in runs:
+            if mode not in params:
+                params[mode] = _setup(mode, "einsum", False)
+            jc = dataclasses.replace(params[mode][0], kv_cache_int8=int8)
+            jp = params[mode][2]
+            rng = np.random.default_rng(7)
+            jcache = jtf.set_cache_lens(jtf.init_caches(jc, 2, 64),
+                                        jnp.asarray([0, 20], jnp.int32))
+            key, steps = prng.PRNGKey(5), []
+            for width in (32, 1, 1):
+                toks = rng.integers(0, jc.vocab_size, (2, width),
+                                    dtype=np.int32)
+                key, sub = prng.split(key)
+                jctx = JCtx.make(jc, jnp.asarray(np.array(sub, np.uint32)),
+                                 deployed=mode == "sim")
+                jl, jcache = jtf.forward(jp, {"tokens": jnp.asarray(toks)},
+                                         jc, jctx, jcache)
+                steps.append((toks, sub, jl, np.asarray(jcache["len"])))
+            runs[mode, int8] = (params[mode][3], steps)
+        return runs[mode, int8]
+    return run
+
+
 @pytest.mark.parametrize("mode,impl,int8", [
     ("off", "einsum", False), ("off", "kernel", True),
     ("sim", "einsum", False), ("sim", "kernel", False),
     ("sim", "kernel", True), ("sim", "einsum", True)])
-def test_forward_prefill_and_decode_match_jax(mode, impl, int8):
-    jc, tc, jp, tp = _setup(mode, impl, int8)
-    b, s, t = 2, 32, 64
-    rng = np.random.default_rng(7)
-    jcache = jtf.init_caches(jc, b, t)
-    tcache = tf.init_caches(tc, b, t)
-    jcache = jtf.set_cache_lens(jcache, jnp.asarray([0, 20], jnp.int32))
-    tf.set_cache_lens(tcache, torch.tensor([0, 20]))
-    key = prng.PRNGKey(5)
-    for step, width in enumerate((s, 1, 1)):
-        toks = rng.integers(0, jc.vocab_size, (b, width), dtype=np.int32)
-        key, sub = prng.split(key)
-        jctx = JCtx.make(jc, jnp.asarray(np.array(sub, np.uint32)),
-                         deployed=mode == "sim")
-        tctx = Ctx.make(tc, sub)
-        jl, jcache = jtf.forward(jp, {"tokens": jnp.asarray(toks)}, jc, jctx,
-                                 jcache)
+def test_forward_prefill_and_decode_match_jax(jax_ref, mode, impl, int8):
+    tp, steps = jax_ref(mode, int8)
+    tc = dataclasses.replace(
+        get_config("qwen2-0.5b").reduced(), attn_impl=impl,
+        kv_cache_int8=int8, cim=dataclasses.replace(
+            get_config("qwen2-0.5b").cim, mode=mode, use_kernel=True))
+    tcache = tf.set_cache_lens(tf.init_caches(tc, 2, 64),
+                               torch.tensor([0, 20]))
+    for toks, sub, jl, jlen in steps:
         tl, tcache = tf.forward(tp, {"tokens": torch.from_numpy(toks)}, tc,
-                                tctx, tcache)
+                                Ctx.make(tc, sub), tcache)
         _close(tl, jl, mode)
-        np.testing.assert_array_equal(np.asarray(jcache["len"]),
-                                      tcache["len"].numpy())
+        np.testing.assert_array_equal(jlen, tcache["len"].numpy())
 
 
 def test_forward_without_cache_and_model_api():

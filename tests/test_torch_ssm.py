@@ -257,24 +257,45 @@ def test_model_logits_match_jax(params, mode):
 
 # --------------------------------------------------------- engine
 
+def _prompts(jc):
+    rng = np.random.default_rng(4)
+    return [rng.integers(0, jc.vocab_size, n, dtype=np.int32)
+            for n in (7, 19, 1, 12, 1)]
+
+
+@pytest.fixture(scope="module")
+def jax_ref(params):
+    """The reference engine's greedy tokens, one JAX run per mode, on its
+    einsum path (the same tokens as on its kernels, which
+    ``test_torch_engine_step.py`` and ``test_torch_loop_engine.py`` check
+    for the reduced mamba2): both port implementations compare against the
+    one run."""
+    runs = {}
+
+    def run(mode):
+        if mode not in runs:
+            jc, _ = _cfgs()
+            runs[mode] = JEngine(
+                jc, params[0], max_slots=2, max_len=64, chunk_size=8,
+                cim_mode=mode, attn_impl="einsum").generate(
+                [JRequest(prompt=p, max_new_tokens=5, rid=f"r{i}")
+                 for i, p in enumerate(_prompts(jc))])
+        return runs[mode]
+    return run
+
+
 @pytest.mark.parametrize("mode,impl", [
     ("off", "kernel"), ("off", "einsum"), ("sim", "kernel"),
     ("sim", "einsum")])
-def test_greedy_tokens_equal_jax_engine(params, mode, impl):
+def test_greedy_tokens_equal_jax_engine(params, jax_ref, mode, impl):
     """Ragged prompts with 1-token prompts through 2 slots at chunk 8:
     later occupants ride slots their predecessors dirtied."""
-    jc, tc = _cfgs()
-    rng = np.random.default_rng(4)
-    prompts = [rng.integers(0, jc.vocab_size, n, dtype=np.int32)
-               for n in (7, 19, 1, 12, 1)]
-    kw = dict(max_slots=2, max_len=64, chunk_size=8, cim_mode=mode,
-              attn_impl=impl)
-    ja = JEngine(jc, params[0], **kw).generate(
-        [JRequest(prompt=p, max_new_tokens=5, rid=f"r{i}")
-         for i, p in enumerate(prompts)])
-    ta = Engine(tc, params[1], device="cpu", **kw).generate(
+    _, tc = _cfgs()
+    ja = jax_ref(mode)
+    ta = Engine(tc, params[1], device="cpu", max_slots=2, max_len=64,
+                chunk_size=8, cim_mode=mode, attn_impl=impl).generate(
         [Request(prompt=p, max_new_tokens=5, rid=f"r{i}")
-         for i, p in enumerate(prompts)])
+         for i, p in enumerate(_prompts(tc))])
     assert ta == ja, (ta, ja)
 
 
