@@ -43,12 +43,13 @@ dropped that must fail), and both kernels' times (per projection for the
 int8 kernel, with and without noise; the bf16 MHA body at both key
 tiles). The two GQA kernels
 (decode and flash prefill, split over the key axis) are also held against
-their plain versions at head dim 128 (G 2, 4, 8) in every dtype
-combination, at decode lengths on the split edges and flash starts past
+their plain versions at head dims 128 (G 1, 2, 4, 8), 96 and 112 in every
+dtype combination, at decode lengths on the split edges and flash starts past
 the cache's end, and timed beside scaled_dot_product_attention and their
 earlier times. The behavioural sim path (cim.use_kernel=False, what the
 serving CLI's --cim sim runs): reduced-model tokens card vs CPU, and
-full-width qwen2-0.5b served with no CIM kernel launch. And
+qwen2-0.5b at full width (4 of its 24 layers) served with no CIM kernel
+launch. And
 Engine(fuse_layer=True) on a bf16 model serves unfused.
 
 The serving cells A-E run the engine's main path, ``fused_step``: the
@@ -70,12 +71,24 @@ off, in behavioural sim and through the CIM kernel, which is held against
 its plain version on the ViT's own operands, its logits against the
 CPU's (``vit_qat``); full-width qwen2-0.5b trained in qat mode with a
 checkpoint resume (``train_lm``); and the figure runner
-(``paper_figures``). Every phase prints one JSON line; any failure exits
-non-zero. The last line is the device record.
+(``paper_figures``). Then the registry's GQA-block archs: card-vs-CPU
+greedy tokens of reduced olmoe-1b-7b, phi3-mini-3.8b (head dim 96),
+internlm2-1.8b (head dim 128) and pixtral-12b with a patch prefix
+(``arch_parity``); internlm2-1.8b, phi3-mini-3.8b, deepseek-67b (32 of
+its 95 layers), pixtral-12b and olmoe-1b-7b served at full width with
+exact launch counts, every kernel call of a prefill chunk and of a decode
+step held against its plain version on its own operands, the step's
+logits kernels vs plain beside a control that must exceed the limit, its
+device time, peak memory and pixtral's 1024-patch prefix
+(``serve_archs``); rows 2 and 3 at head dim 96 timed on phi3's unit
+(``times_d96``). The GQA kernels' shape checks and the MHA check cover
+head dims 96 and 112 as well. Every phase prints one JSON line; any
+failure exits non-zero. The last line is the device record.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -96,8 +109,13 @@ INT8_OPS = 1979e12
 FP32_OPS = 67e12       # float32 outside the tensor cores
 
 
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line of a phase; ``t_s``: seconds since the script began."""
+    print(json.dumps({"phase": phase, **fields,
+                      "t_s": time.perf_counter() - T0}), flush=True)
 
 
 def fail(msg: str) -> None:
@@ -422,9 +440,11 @@ def flash_counts(q, k, kv, start):
 def attn_shape_checks(g):
     """The two GQA kernels beyond the main path's bf16 shapes, in every
     dtype combination they take (q f32 or bf16; cache f32, bf16 or int8):
-    head dim 128 at G 2, 4 and 8 (internlm2-1.8b, pixtral-12b,
-    deepseek-67b), qwen2's head dim 64 at G 7; decode lengths at the split
-    edges (1, the split width - 1, + 1, T) on caches whose T is a multiple
+    head dim 128 at G 1, 2, 4 and 8 (olmoe-1b-7b, internlm2-1.8b,
+    pixtral-12b, deepseek-67b), qwen2's head dim 64 at G 7, head dim 96 at
+    G 1 (phi3-mini-3.8b) and G 4, head dim 112 at G 1 (zamba2-7b); decode
+    lengths at the split edges (1, the split width - 1, + 1, T) on caches
+    whose T is a multiple
     of no block, and a multi-tile split (T 2000); flash starts whose
     frontier lands past T. Tolerance 2^-6 of each query head's row max;
     lens == 0 rows exactly zero; flash block counts equal the closed form."""
@@ -435,8 +455,10 @@ def attn_shape_checks(g):
     from repro_torch.kernels.flash_attention import (flash_gqa_attention,
                                                      flash_gqa_plain)
     dev = torch.device("cuda")
-    for d, g_, t in ((64, 7, 2000), (64, 7, 333), (128, 2, 300),
-                     (128, 4, 257), (128, 8, 333)):
+    for d, g_, t in ((64, 7, 2000), (64, 7, 333), (128, 1, 333),
+                     (128, 2, 300),
+                     (128, 4, 257), (128, 8, 333), (96, 1, 333),
+                     (96, 4, 2000), (112, 1, 300)):
         kv = 2
         h = g_ * kv
         for qdt, kvdt in ATTN_COMBOS:
@@ -847,14 +869,19 @@ def phase_whole_prompt_loop_parity():
 
 
 # ------------------------------------------------------- behavioural sim
+# the full-width behavioural session's depth: 4 of qwen2-0.5b's 24 layers
+# for the script's time (its eager Threefry draws take 6-9 s a layer)
+BEHAVIOURAL_LAYERS = 4
+
+
 def phase_behavioural_sim(params):
     """Sim mode on the behavioural path (``cim.use_kernel=False``, the
     configs' default and what ``launch.serve --cim sim`` runs): every CIM
     linear is ``core.cim.cim_dense`` (exact integer dot on the card, one
     whole-K ``prng.normal`` draw in eager int64 Threefry ops), no CIM
     kernel. First the reduced qwen2's greedy tokens on the card equal the
-    CPU's over 8 tokens; then full-width qwen2-0.5b serves cell A's six
-    requests, with cim_matmul_fused launched 0 times and the attention
+    CPU's over 8 tokens; then qwen2-0.5b at full width and
+    ``BEHAVIOURAL_LAYERS`` of its layers serves cell A's six requests, with cim_matmul_fused launched 0 times and the attention
     kernels at their counts, and a profiled decode step."""
     import torch
     from repro_torch.configs.registry import get_config
@@ -883,8 +910,12 @@ def phase_behavioural_sim(params):
     emit("behavioural_sim_parity", requests=len(prompts), new_tokens=8,
          equal=True, tokens=outs["cuda"])
 
-    full = dataclasses.replace(full_config(False), cim=dataclasses.replace(
-        full_config(False).cim, use_kernel=False))
+    full = dataclasses.replace(full_config(False),
+                               n_layers=BEHAVIOURAL_LAYERS,
+                               cim=dataclasses.replace(full_config(False).cim,
+                                                       use_kernel=False))
+    params = dict(params, blocks={k: _tree_first(v, BEHAVIOURAL_LAYERS)
+                                  for k, v in params["blocks"].items()})
     eng = Engine(full, params, max_slots=4, max_len=320, attn_impl="kernel",
                  record_ttft=True, record_steps=True, device="cuda")
     rng = np.random.default_rng(5)
@@ -915,7 +946,7 @@ def phase_behavioural_sim(params):
     toks = sum(len(o) for o in outs)
     prof = phase_profile(params, full, path="behavioural")
     emit("serve_behavioural_full_width", arch=full.name, path="behavioural",
-         requests=len(reqs), prompt_lens=list(lens), new_tokens=16, slots=4,
+         n_layers=L, reduced={"n_layers": f"24 -> {L}"}, requests=len(reqs), prompt_lens=list(lens), new_tokens=16, slots=4,
          tokens=toks, wall_s=wall, session_tok_per_s=toks / wall,
          chunks=n_chunks, decode_steps=n_decode,
          pure_decode_step_ms_mean=1e3 * float(np.mean(dec)),
@@ -2426,6 +2457,12 @@ B5_SHAPES = (("qwen2_train", 112, 128, 128, 64, True, None, 14),
              ("vit_small", 384, 65, 65, 64, False, None, 6),
              ("d128_cross", 16, 512, 1536, 128, False, None, 16),
              ("d128_causal", 16, 2048, 2048, 128, True, None, 16))
+# head dims 96 (phi3-mini-3.8b's training attention, 32 heads) and 112
+# (zamba2-7b's 32 heads over a prefix cache): checked, not timed
+B5_NEW_D = (("d96_causal", 32, 256, 256, 96, True, None, 32),
+            ("d112_prefill_cache", 32, 48, 400, 112, True,
+             (0, 100, 352, 5), 8),
+            ("d112_cross", 16, 96, 700, 112, False, None, 16))
 
 
 # the entry-point kernels' times before their redesign (CUDA events, final
@@ -2667,7 +2704,8 @@ def phase_flash_mha_check():
     held against its plain version (f32 2e-5 + 2e-5 |ref|, bf16 2^-7 of the
     row max), its block counts against the closed form, and its reach: the
     result over each row's live keys less the last 32 must fail every long
-    row (more than 32 live keys). Head dims other than 64 and 128 raise."""
+    row (more than 32 live keys); also at head dims 96 and 112
+    (``B5_NEW_D``). Head dims other than 64, 96, 112 and 128 raise."""
     import torch
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
@@ -2676,16 +2714,16 @@ def phase_flash_mha_check():
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).replace("torch.", "")
         cases = [(shape, b5_inputs(g, *shape[1:5], shape[6], shape[7], dtype))
-                 for shape in B5_SHAPES]
+                 for shape in B5_SHAPES + B5_NEW_D]
         flash_attention.launches = 0
         outs = [flash_attention(q, k, v, shape[5], st,
                                 return_block_counts=True)
                 for shape, (q, k, v, st) in cases]
         torch.cuda.synchronize()
         launches[name] = flash_attention.launches
-        if launches[name] != len(B5_SHAPES):
+        if launches[name] != len(cases):
             fail(f"flash_attention {name}: {launches[name]} launches for "
-                 f"{len(B5_SHAPES)} calls")
+                 f"{len(cases)} calls")
         worst[name] = 0.0
         for (shape, (q, k, v, st)), (out, counts) in zip(cases, outs):
             sname, bh, s, t, d, causal = shape[:6]
@@ -2717,13 +2755,13 @@ def phase_flash_mha_check():
                  block_counts="closed form", blocks_visited=int(
                      counts.sum()), long_rows=int(long_rows.sum()),
                  last_32_keys_dropped_long_rows_failing=reach)
-    q = torch.zeros((2, 8, 96), device="cuda")
+    q = torch.zeros((2, 8, 80), device="cuda")
     try:
         flash_attention(q, q, q)
     except ValueError as e:
-        emit("flash_mha_check", head_dim_96="raises", message=str(e))
+        emit("flash_mha_check", head_dim_80="raises", message=str(e))
     else:
-        fail("flash_attention took head_dim 96")
+        fail("flash_attention took head_dim 80")
     return launches, worst
 
 
@@ -3047,6 +3085,9 @@ def _vit_run(cfg, steps, warmup, name):
 # where one image's quantized activation flips) and 0.25 % (full width);
 # the same forward with the noise off or doubled reads 55-109 %.
 VIT_LOGIT_TOL = 0.05
+# QAT steps of the full-width vit-small-cifar: 100 for the script's time
+# (a step takes 0.65-0.9 s on an H100)
+VIT_FULL_STEPS = 100
 
 
 def _vit_row1_parity(cfg, params, name):
@@ -3124,7 +3165,8 @@ def _vit_row1_parity(cfg, params, name):
 def phase_vit_qat():
     """The paper's CIFAR demo on the card: the reference test's recipe
     (tests/test_system.py: 3 layers, d 128, 150 QAT steps, batch 64, lr
-    1.5e-3) and full-width vit-small-cifar (200 QAT steps), each evaluated
+    1.5e-3) and full-width vit-small-cifar (``VIT_FULL_STEPS`` QAT steps:
+    its accuracy is not gated and its step ms is a mean), each evaluated
     off, in behavioural sim and in sim through row 1 on deployed planes
     (M = B * 65 rows). Row 1's launches on the ViT path are counted, and
     for each model row 1 is held against its plain version on the ViT's
@@ -3140,7 +3182,7 @@ def phase_vit_qat():
     total = 0
     for cfg, steps, warmup, name in (
             (small, 150, 10, "test recipe (3 layers, d 128)"),
-            (full, 200, 15, "vit-small-cifar (full width)")):
+            (full, VIT_FULL_STEPS, 15, "vit-small-cifar (full width)")):
         params, losses, step_ms, accs, eval_ms, launches = _vit_run(
             cfg, steps, warmup, name)
         if (launches <= 0 or cfg is small and (
@@ -3230,6 +3272,593 @@ def phase_paper_figures():
     if figures(["--device", "cuda"]) != 0:
         fail("paper_figures: a figure failed")
     emit("paper_figures", seconds=time.perf_counter() - t0)
+
+
+# ------------------------------------------------- the GQA-block archs
+# the registry's archs built from the GQA attention block, served at full
+# width; one depth cut: deepseek-67b's 95 layers (126 GB of bf16 weights)
+# to 32
+ARCHS = ("internlm2-1.8b", "phi3-mini-3.8b", "deepseek-67b", "pixtral-12b",
+         "olmoe-1b-7b")
+ARCH_LAYERS = {"deepseek-67b": 32}
+ARCH_PEAK_GIB = 72.0       # deepseek-67b at 32 layers must stay under it
+# off-mode logits, kernels against plain versions on the card, per row:
+# max |error| over the row's largest |logit|. Sound runs read at most
+# 0.034 (decode steps) and 0.044 (pixtral's prefix); the control, the
+# plain versions with the newest DROP_KEYS live keys of every decode row
+# dropped, at least 0.16 (0.53 with 32 dropped; with one dropped 0.04-0.50,
+# not always beyond the sound runs). The limit lies between, and the
+# control must exceed it.
+ARCH_LOGIT_TOL = 0.08
+DROP_KEYS = 4
+
+
+SIM_HORIZON = 4            # sim-mode tokens arch_parity holds card = CPU
+
+
+def arch_config(arch, mode="sim", reduced=False, **over):
+    """``arch`` in ``mode`` on the CIM kernel path and the attention
+    kernels (bf16 KV cache); full width with ARCH_LAYERS' depth cut, or
+    the reduced config."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(arch)
+    cfg = cfg.reduced() if reduced else dataclasses.replace(
+        cfg, n_layers=ARCH_LAYERS.get(arch, cfg.n_layers))
+    return dataclasses.replace(cfg, **over, attn_impl="kernel",
+                               cim=dataclasses.replace(cfg.cim, mode=mode,
+                                                       use_kernel=True))
+
+
+class routes:
+    """Context manager over the model's kernel routes (the CIM kernel,
+    decode and flash GQA attention): with ``plain`` they run their plain
+    versions on the card (``drop``: the control, decode attention with the
+    newest ``drop`` live keys of each row dropped, at least one kept);
+    otherwise every call runs the kernel and is recorded with its operands
+    and output in ``calls``."""
+
+    def __init__(self, plain=False, drop=0):
+        self.plain, self.drop, self.calls = plain, drop, []
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        from repro_torch.kernels.cim_matmul import cim_matmul_fused_plain
+        from repro_torch.kernels.decode_attention import \
+            decode_attention_plain
+        from repro_torch.kernels.flash_attention import flash_gqa_plain
+        from repro_torch.models import attention
+        self.saved = (ops.cim_matmul_fused, attention.decode_attention,
+                      attention.flash_gqa_attention)
+
+        def rec(kind, fn):
+            def call(*a, **k):
+                out = fn(*a, **k)
+                self.calls.append((kind, a, k, out))
+                return out
+            return call
+
+        def dropped(q, k, v, lens, *a, **kw):
+            return decode_attention_plain(
+                q, k, v, (lens - self.drop).clamp(min=1), *a, **kw)
+
+        (ops.cim_matmul_fused, attention.decode_attention,
+         attention.flash_gqa_attention) = (
+            (cim_matmul_fused_plain,
+             dropped if self.drop else decode_attention_plain,
+             flash_gqa_plain)
+            if self.plain else [rec(n, f) for n, f in zip(
+                ("cim", "decode", "flash"), self.saved)])
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        from repro_torch.models import attention
+        (ops.cim_matmul_fused, attention.decode_attention,
+         attention.flash_gqa_attention) = self.saved
+
+
+def greedy_forward(cfg, params, batch, steps, dev, t_max):
+    """Greedy tokens of ``steps`` cached forwards after a prefill of
+    ``batch`` (patch prefix and tokens), each keyed by its step, on
+    ``dev``; returns the tokens (B, steps)."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.core.deploy import deploy
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import Ctx
+    p = _tree_to(params, dev)
+    if cfg.cim.mode == "sim":
+        p = deploy(cfg, p)
+    b = {k: v.to(dev) for k, v in batch.items()}
+    caches = tf.init_caches(cfg, b["tokens"].shape[0], t_max, dev)
+    toks = []
+    for i in range(steps):
+        ctx = Ctx.make(cfg, prng.fold_in(prng.PRNGKey(21), i),
+                       mode=cfg.cim.mode, deployed=cfg.cim.mode == "sim")
+        logits, caches = tf.forward(p, b, cfg, ctx, caches)
+        nxt = logits[:, -1].float().argmax(-1)
+        toks.append(nxt)
+        b = {"tokens": nxt[:, None]}
+    return torch.stack(toks, 1).cpu()
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def _tree_first(tree, n):
+    """The first ``n`` layers of a stacked (layers-leading) params tree."""
+    if isinstance(tree, dict):
+        return {k: _tree_first(v, n) for k, v in tree.items()}
+    return tree[:n]
+
+
+def phase_arch_parity():
+    """Reduced configs of the new archs: greedy tokens on the card (CIM,
+    decode and flash kernels) equal the CPU's (plain versions), in off and
+    sim mode, with the same parameters: olmoe (moe with GQA) and the dense
+    archs at their published head dims (phi3-mini-3.8b's 96, internlm2's
+    128) through the engine (4 prompts with a 1-token one, 2 slots, 8 new
+    tokens); pixtral-12b with an 8-position patch prefix through cached
+    forwards (prefill of the prefix and 24 tokens, then 8 decode steps).
+    Off mode holds every token; sim mode the first ``SIM_HORIZON`` of
+    each request (the short horizon of ROADMAP's contract: the card's
+    float order and Box-Muller ulps move an activation by about 1e-6 of
+    its value, which puts one in the next 4-bit bucket about once in 1e5,
+    and a flip can turn a later greedy token), and reports how many of all
+    the tokens are equal."""
+    import torch
+    from repro_torch.core.deploy import init_params
+    from repro_torch.kernels.cim_matmul import cim_matmul_fused
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_gqa_attention
+    from repro_torch.serving.engine import Engine, Request
+
+    t0 = time.perf_counter()
+    kernels = (cim_matmul_fused, decode_attention, flash_gqa_attention)
+    res = {}
+    for arch, hd in (("olmoe-1b-7b", 64), ("phi3-mini-3.8b", 96),
+                     ("internlm2-1.8b", 128), ("pixtral-12b", 64)):
+        for mode in ("off", "sim"):
+            cfg = arch_config(arch, mode, reduced=True, head_dim=hd)
+            params = init_params(cfg, torch.Generator().manual_seed(0),
+                                 "cpu")
+            for k in kernels:
+                k.launches = 0
+            outs = {}
+            if cfg.family == "vlm":
+                g = torch.Generator().manual_seed(4)
+                batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 24),
+                                                 generator=g),
+                         "patch_embeds": 0.02 * torch.randn(
+                             (2, cfg.n_patches, cfg.d_model), generator=g)}
+                for dev in ("cuda", "cpu"):
+                    outs[dev] = greedy_forward(cfg, params, batch, 9, dev,
+                                               64).tolist()
+            else:
+                rng = np.random.default_rng(3)
+                prompts = [rng.integers(0, cfg.vocab_size, n)
+                           for n in (40, 1, 90, 57)]
+                for dev in ("cuda", "cpu"):
+                    eng = Engine(cfg, params, max_slots=2, max_len=128,
+                                 attn_impl="kernel", device=dev)
+                    outs[dev] = eng.generate(
+                        [Request(prompt=p, max_new_tokens=8, rid=f"p{i}")
+                         for i, p in enumerate(prompts)])
+            counts = {k.__name__: k.launches for k in kernels}
+            n = 8 if mode == "off" else SIM_HORIZON
+            held = [list(o[:n]) for o in outs["cuda"]] == [
+                list(o[:n]) for o in outs["cpu"]]
+            agree = sum(a == b for o, c in zip(outs["cuda"], outs["cpu"])
+                        for a, b in zip(o, c))
+            if (not held or not counts["decode_attention"]
+                    or not counts["flash_gqa_attention"]
+                    or (mode == "sim" and not counts["cim_matmul_fused"])):
+                fail(f"arch_parity {arch} D={hd} {mode}: tokens differ "
+                     f"within {n}: cuda {outs['cuda']} vs cpu {outs['cpu']} "
+                     f"(launches {counts})")
+            total = sum(map(len, outs["cpu"]))
+            res[f"{arch} D={hd} {mode}"] = {
+                "held_tokens": n, "equal_tokens": f"{agree}/{total}",
+                "tokens": outs["cuda"], "launches": counts}
+    emit("arch_parity", equal=True, runs=res,
+         seconds=time.perf_counter() - t0)
+
+
+def arch_launches(cfg, n_chunks, n_decode):
+    """Launches of rows 1-3 a session of ``cfg`` makes: the CIM kernel 7 a
+    layer a forward (q, k, v, o, gate, up, down), 4 for moe with GQA
+    (q, k, v, o: the router is digital and the expert banks behavioural);
+    one decode attention a layer a decode step, one flash prefill a layer
+    a chunk."""
+    L = cfg.n_layers
+    cim = 4 if cfg.family == "moe" else 7
+    return {"cim_matmul_fused": cim * L * (n_chunks + n_decode),
+            "decode_attention": L * n_decode,
+            "flash_gqa_attention": L * n_chunks}
+
+
+def logits_rel(a, b):
+    """Per row: max |a - b| over the row's largest |b|."""
+    a, b = a.float(), b.float()
+    return ((a - b).abs().amax(-1) / b.abs().amax(-1)).reshape(-1)
+
+
+def check_recorded(calls, where):
+    """Each recorded kernel call against its plain version on the call's
+    own operands, at the kernel checks' tolerances: the CIM kernel's
+    integer part exactly and its noisy output within
+    ``cim_operands_check``'s limit; attention rows within 2^-6 of each
+    query head's row max (``row_check``). Returns the worst error over the
+    row scale and the number of calls, by kernel."""
+    from repro_torch.kernels.decode_attention import decode_attention_plain
+    from repro_torch.kernels.flash_attention import flash_gqa_plain
+    worst = {"cim": 0.0, "decode": 0.0, "flash": 0.0}
+    n = {"cim": 0, "decode": 0, "flash": 0}
+    for kind, a, k, out in calls:
+        if kind == "cim":
+            rel = cim_operands_check(*a, **k)[1]
+        else:
+            plain = decode_attention_plain if kind == "decode" else \
+                flash_gqa_plain
+            _, rel, bad = row_check(out.float(), plain(*a, **k).float())
+            if bad:
+                fail(f"{where}: {kind} attention differs from its plain "
+                     f"version on its operands ({bad:.3f} of the rows)")
+        worst[kind] = max(worst[kind], rel)
+        n[kind] += 1
+    return worst, n
+
+
+def step_logits(cfg, params, batch, caches, key, mode="sim", plain=False,
+                record=False, drop=0):
+    """Logits of one cached forward from a copy of ``caches`` (and the
+    updated copy), through the kernels or (``plain``) their plain
+    versions (``drop``: ``routes``' control); ``record``: also the kernel
+    calls (``routes``)."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import Ctx
+    c = {n: v.clone() for n, v in caches.items()}
+    ctx = Ctx.make(cfg, key, mode=mode, deployed=True)
+    route = (routes(plain, drop) if plain or record
+             else contextlib.nullcontext())
+    with route:
+        logits, c = tf.forward(params, batch, cfg, ctx, c)
+    return logits, c, route.calls if record else None
+
+
+def decode_step_device_ms(eng):
+    """Device-busy ms of one engine step in pure decode (one replay of the
+    decode graph, or one per-call forward): the kernel intervals the
+    profiler saw inside a marked step, after a 50 ms spin and one step it
+    does not read (it loses its first milliseconds of kernels)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(int(2e9 * 0.05))
+        eng.step()
+        torch.cuda.synchronize()
+        with record_function("measured"):
+            eng.step()
+            torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    mark = [e.time_range for e in prof.events()
+            if e.name == "measured" and e.device_type == cuda]
+    events = [e for e in prof.events() if e.device_type == cuda
+              and e.name != "measured" and mark
+              and mark[0].start <= e.time_range.start
+              and e.time_range.end <= mark[0].end]
+    return busy_ms(events, 1) if events else None
+
+
+def serve_arch(arch, smi):
+    """One arch at full width (``arch_config``), bf16, sim mode on
+    deployed planes, the session of cells A-F: replayed (CUDA graphs of
+    the decode step and the chunk) for the dense and vlm archs, per call
+    for moe. Checks: every request completes with 16 in-range tokens; the
+    launches of rows 1-3 equal ``arch_launches``; 4 slots prefilled with a
+    32-token chunk each, then every kernel call of a second chunk (start
+    32) and of the first decode step against its plain version on its own
+    operands (``check_recorded``); that step's logits through the kernels
+    against those through the plain versions on the card: in off mode
+    within ARCH_LOGIT_TOL of each row's largest |logit|, which the control
+    (``routes``' ``drop``) exceeds, in sim mode below the reading under
+    another noise key. Reports session tok/s, TTFT, the decode step's
+    device ms, peak memory."""
+    import gc
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import prng
+    from repro_torch.core.deploy import init_params, plane_summary
+    from repro_torch.kernels.cim_matmul import cim_matmul_fused
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_gqa_attention
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.engine import Engine, Request
+
+    t0 = time.perf_counter()
+    cfg = arch_config(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    graphed = cfg.family != "moe"
+    eng = Engine(cfg, params, max_slots=4, max_len=320, attn_impl="kernel",
+                 fused_step=graphed, record_ttft=True, record_steps=True,
+                 device="cuda")
+    del params
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(5)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n),
+                    max_new_tokens=16, rid=f"r{i}")
+            for i, n in enumerate(SESSION_LENS)]
+    kernels = (cim_matmul_fused, decode_attention, flash_gqa_attention)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    outs = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = {k.__name__: k.launches for k in kernels}
+    bad = [o for o in outs if not isinstance(o, list) or len(o) != 16
+           or not all(0 <= t < cfg.vocab_size for t in o)]
+    if bad:
+        fail(f"serve_archs {arch}: failed, short or out-of-range requests: "
+             f"{bad}")
+    n_chunks = sum(e["chunks"] for e in eng.step_log)
+    n_decode = sum(e["decode"] for e in eng.step_log)
+    expect = arch_launches(cfg, n_chunks, n_decode)
+    if counts != expect or not n_decode:
+        fail(f"serve_archs {arch}: launches {counts} != expected {expect}")
+    if graphed and (not eng.fused_ok or eng.fallbacks or not all(
+            e["graph"] for e in eng.step_log)):
+        fail(f"serve_archs {arch}: an iteration left the graphs")
+    dec = [e["s"] for e in eng.step_log if e["decode"] and not e["chunks"]]
+    ttft = [t for t in eng.ttft_s if t is not None]
+    numbers = {"session_tok_per_s": sum(map(len, outs)) / wall,
+               "wall_s": wall, "chunks": n_chunks, "decode_steps": n_decode,
+               "pure_decode_step_ms_mean": 1e3 * float(np.mean(dec)),
+               "ttft_ms_mean": 1e3 * float(np.mean(ttft)),
+               "ttft_ms_max": 1e3 * float(np.max(ttft))}
+
+    # the first decode step of 4 slots prefilled with the first chunk of
+    # the session's first 4 prompts: kernels vs plain
+    eng.begin()
+    for r in reqs[:4]:
+        eng.submit(Request(prompt=r.prompt[:32], max_new_tokens=8))
+    while not all(eng._decoding):
+        eng._fill_slots()
+        eng._prefill_chunks()
+    per_fwd = expect["cim_matmul_fused"] // (n_chunks + n_decode)
+    chunk = torch.as_tensor(np.asarray(reqs[1].prompt[32:64])[None],
+                            device="cuda")
+    ck, _, calls = step_logits(cfg, eng.params, {"tokens": chunk},
+                               tf.take_slot(eng.caches, 1),
+                               prng.PRNGKey(124), record=True)
+    worst_c, n_chunk = check_recorded(calls, f"serve_archs {arch} chunk")
+    del calls
+    if (n_chunk != {"cim": per_fwd, "decode": 0, "flash": cfg.n_layers}
+            or not bool(torch.isfinite(ck).all())):
+        fail(f"serve_archs {arch}: a prefill chunk made {n_chunk} kernel "
+             f"calls or non-finite logits")
+    args = (cfg, eng.params, {"tokens": eng.last_tok[:, None]}, eng.caches,
+            prng.PRNGKey(123))
+    kern, _, calls = step_logits(*args, record=True)
+    worst, n_calls = check_recorded(calls, f"serve_archs {arch}")
+    del calls
+    if n_calls != {"cim": per_fwd, "decode": cfg.n_layers, "flash": 0}:
+        fail(f"serve_archs {arch}: a decode step made {n_calls} kernel calls")
+    plain = step_logits(*args, plain=True)[0]
+    sim_rel = logits_rel(kern, plain)
+    other = logits_rel(step_logits(*args[:4], prng.PRNGKey(321))[0], plain)
+    del plain
+    plain = step_logits(*args, mode="off", plain=True)[0]
+    off = logits_rel(step_logits(*args, mode="off")[0], plain)
+    ctrl = logits_rel(step_logits(*args, mode="off", plain=True,
+                                  drop=DROP_KEYS)[0], plain)
+    del plain
+    if (not bool(torch.isfinite(kern).all())
+            or tuple(kern.shape) != (4, 1, cfg.vocab_size)
+            or off.max().item() > ARCH_LOGIT_TOL
+            or not ctrl.min().item() > ARCH_LOGIT_TOL
+            or not sim_rel.max().item() < other.min().item()):
+        fail(f"serve_archs {arch}: first decode step's logits, kernels vs "
+             f"plain: off {off.tolist()} (limit {ARCH_LOGIT_TOL}, control "
+             f"{ctrl.tolist()} must exceed it), sim {sim_rel.tolist()}, sim "
+             f"under another key {other.tolist()}")
+    eng.step()                    # the first decode step (and a warm-up)
+    step_dev_ms = decode_step_device_ms(eng)
+    extra = {}
+    if cfg.family == "vlm":
+        extra = vlm_prefix_check(cfg, eng.params)
+    peak = torch.cuda.max_memory_allocated()
+    if arch == "deepseek-67b" and peak / 2 ** 30 > ARCH_PEAK_GIB:
+        fail(f"serve_archs {arch}: peak memory {peak / 2 ** 30:.2f} GiB > "
+             f"{ARCH_PEAK_GIB}")
+    planes = plane_summary(eng.params)
+    emit("serve_archs", arch=arch, family=cfg.family, n_layers=cfg.n_layers,
+         reduced={"n_layers": f"{get_config(arch).n_layers} -> "
+                  f"{cfg.n_layers}"} if arch in ARCH_LAYERS else {},
+         head_dim=cfg.hd,
+         heads=[cfg.n_heads, cfg.n_kv_heads], d_model=cfg.d_model,
+         d_ff=cfg.d_ff, vocab=cfg.vocab_size, dtype=cfg.dtype,
+         replayed=graphed, requests=len(reqs), prompt_lens=list(SESSION_LENS),
+         new_tokens=16, slots=4, **numbers, launches=counts, expected=expect,
+         chunk_calls_vs_plain={"calls": n_chunk,
+                               "max_err_over_row_max": worst_c},
+         first_step_calls_vs_plain={"calls": n_calls,
+                                    "max_err_over_row_max": worst},
+         first_step_logits_err_over_row_max={
+             "off": off.tolist(), f"off_control_drop{DROP_KEYS}":
+             ctrl.tolist(), "sim": sim_rel.tolist(),
+             "sim_another_key": other.tolist()},
+         logit_tol=f"off {ARCH_LOGIT_TOL}*max|row|, below the control's; "
+                   "sim below another key's",
+         decode_step_device_ms=step_dev_ms,
+         peak_memory_gib=peak / 2 ** 30,
+         memory_before_gib=base / 2 ** 30,
+         int8_plane_gib=planes["int8_bytes"] / 2 ** 30, **extra,
+         setup_s=setup_s, seconds=time.perf_counter() - t0, card=smi)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def vlm_prefix_check(cfg, params):
+    """Pixtral's stub patch prefix: one cached forward of 1024 stub patch
+    embeddings (N(0, 0.02^2)) and 64 tokens, a flash prefill at T = 1088,
+    then 4 decode steps, in sim mode through the kernels (their tokens
+    feed the next step). The prefill's kernel calls against their plain
+    versions on their own operands: every flash call, and the CIM calls of
+    its first layer (every layer has the same shapes; the plain noisy CIM
+    version of all 40 would draw 22 G eager normals). At each step the
+    same forward in off mode through the kernels and through the plain
+    versions, from the same cache, their logits within ARCH_LOGIT_TOL per
+    row; at each decode step the control (``routes``' ``drop``: the
+    DROP_KEYS newest of about 1090 keys) reads beyond it."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.kernels.flash_attention import flash_gqa_attention
+    from repro_torch.models import transformer as tf
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, 64),
+                                     generator=g, device="cuda"),
+             "patch_embeds": (0.02 * torch.randn(
+                 (1, cfg.n_patches, cfg.d_model), generator=g,
+                 device="cuda")).to(torch.bfloat16)}
+    caches = tf.init_caches(cfg, 1, cfg.n_patches + 64 + 32, "cuda")
+    before = flash_gqa_attention.launches
+    errs, ctrls = [], []
+    for i in range(5):
+        key = prng.fold_in(prng.PRNGKey(9), i)
+        kern, new_caches, calls = step_logits(cfg, params, batch, caches, key,
+                                              record=i == 0)
+        if i == 0:
+            n = {k: sum(c[0] == k for c in calls) for k in ("cim", "flash")}
+            if n != {"cim": 7 * cfg.n_layers, "flash": cfg.n_layers}:
+                fail(f"serve_archs pixtral prefix: the prefill made {n} "
+                     f"kernel calls")
+            worst, n_checked = check_recorded(
+                [c for c in calls if c[0] == "flash"]
+                + [c for c in calls if c[0] == "cim"][:7],
+                "serve_archs pixtral prefix")
+            del calls
+        plain = step_logits(cfg, params, batch, caches, key, "off",
+                            plain=True)[0]
+        rel = logits_rel(step_logits(cfg, params, batch, caches, key,
+                                     "off")[0], plain)
+        errs.append(rel.max().item())
+        if i:
+            ctrls.append(logits_rel(step_logits(
+                cfg, params, batch, caches, key, "off", plain=True,
+                drop=DROP_KEYS)[0], plain).min().item())
+        del plain
+        if (not bool(torch.isfinite(kern).all()) or errs[-1] > ARCH_LOGIT_TOL
+                or (i and not ctrls[-1] > ARCH_LOGIT_TOL)):
+            fail(f"serve_archs pixtral prefix step {i}: off-mode logits "
+                 f"kernels vs plain {errs[-1]} > {ARCH_LOGIT_TOL} or the "
+                 f"control {ctrls[-1:]} not beyond it")
+        caches = new_caches
+        batch = {"tokens": kern[:, -1].float().argmax(-1)[:, None]}
+    if flash_gqa_attention.launches - before != 2 * cfg.n_layers:
+        fail("serve_archs pixtral prefix: the prefill did not run the flash "
+             "kernel in every layer")
+    return {"patch_prefix": {"patches": cfg.n_patches, "tokens": 64,
+                             "prefill_T": int(tf.cache_len(caches)[0]) - 4,
+                             "decode_steps": 4,
+                             "prefill_calls_vs_plain": {
+                                 "checked": n_checked,
+                                 "max_err_over_row_max": worst},
+                             "off_logits_err_over_row_max": errs,
+                             f"off_control_drop{DROP_KEYS}_min": ctrls}}
+
+
+def phase_serve_archs():
+    """The five archs at full width (``ARCH_LAYERS``' depth cuts); returns
+    the launches of rows 1-3 summed over their sessions."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    total = {}
+    for arch in ARCHS:
+        for k, v in serve_arch(arch, smi).items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_times_d96():
+    """Rows 2 and 3 at head dim 96 on phi3-mini-3.8b's unit (32 layers, 32
+    heads, MHA, bf16 cache): one decode step (B = 4, lens 300/137/95/211
+    after the write, T = 320) and one 32-token prefill chunk (start 128)
+    by the profiler, beside the plain versions, one
+    scaled_dot_product_attention call of the same function and the bound
+    (the live cache bytes over 3.35 TB/s, or the operations over the bf16
+    peak)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    from repro_torch.kernels.flash_attention import (flash_gqa_attention,
+                                                     flash_gqa_plain)
+    t0 = time.perf_counter()
+    cfg = arch_config("phi3-mini-3.8b")
+    L, h, kv, hd, t = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.hd, 320
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(96)
+    lens = torch.tensor([300, 137, 95, 211], dtype=torch.int32, device=dev)
+    caches = [tuple(torch.randn((4, t, kv, hd), generator=g, device=dev)
+                    .bfloat16() for _ in range(2)) for _ in range(L)]
+    q = torch.randn((4, h, hd), generator=g, device=dev).bfloat16()
+    live = int(lens.sum())
+    b2 = L * (2 * live * kv * hd * 2 + 2 * q.numel() * 2)
+    o2 = L * 4 * live * h * hd
+    mask = (torch.arange(t, device=dev)[None, :] < lens[:, None]
+            )[:, None, None, :]
+    res = {}
+    res["decode_attention[D96]"] = dict(
+        ms=device_ms(lambda: [decode_attention(q, k, v, lens)
+                              for k, v in caches], 10),
+        plain_ms=device_ms(lambda: [decode_attention_plain(q, k, v, lens)
+                                    for k, v in caches], 3),
+        library_ms=device_ms(lambda: [F.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask) for k, v in caches], 10),
+        bound_ms=1e3 * max(b2 / HBM_BPS, o2 / BF16_OPS),
+        bound_by="bytes" if b2 / HBM_BPS >= o2 / BF16_OPS else "operations",
+        unit="one decode step: 32 layers, B=4, H=KV=32, D=96, lens "
+             + str(lens.tolist()))
+    s, start = 32, 128
+    qf = torch.randn((1, s, h, hd), generator=g, device=dev).bfloat16()
+    st = torch.tensor([start], dtype=torch.int32, device=dev)
+    one = [(k[:1], v[:1]) for k, v in caches]
+    b3 = L * (2 * (start + s) * kv * hd * 2 + 2 * qf.numel() * 2)
+    o3 = L * 4 * h * hd * sum(start + i + 1 for i in range(s))
+    qi = torch.arange(s, device=dev)[:, None] + start
+    kj = torch.arange(t, device=dev)[None, :]
+    fmask = ((kj <= qi) & (kj < start + s))[None, None]
+    res["flash_gqa[D96]"] = dict(
+        ms=device_ms(lambda: [flash_gqa_attention(qf, k, v, st)
+                              for k, v in one], 10),
+        plain_ms=device_ms(lambda: [flash_gqa_plain(qf, k, v, st)
+                                    for k, v in one], 3),
+        library_ms=device_ms(lambda: [F.scaled_dot_product_attention(
+            qf.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=fmask) for k, v in one], 10),
+        bound_ms=1e3 * max(b3 / HBM_BPS, o3 / BF16_OPS),
+        bound_by="bytes" if b3 / HBM_BPS >= o3 / BF16_OPS else "operations",
+        unit="one prefill chunk: 32 layers, S=32, start=128, H=KV=32, D=96")
+    for name, r in res.items():
+        emit("time", kernel=name, **r)
+    emit("times_d96", seconds=time.perf_counter() - t0)
+    return res
 
 
 def main() -> int:
@@ -3323,6 +3952,12 @@ def main() -> int:
     runs["vit"] = {"cim_matmul_fused": phase_vit_qat()}
     phase_train_lm()
     phase_paper_figures()
+    t_archs = time.perf_counter()
+    phase_arch_parity()
+    runs["archs"] = phase_serve_archs()
+    phase_times_d96()
+    emit("gqa_archs", seconds=time.perf_counter() - t_archs,
+         limit_s=240)
     src = {"cim_matmul_fused": ("src/repro_torch/csrc/cim_matmul.cu",
                                 "src/repro/kernels/cim_matmul.py:340",
                                 cim_matmul_fused, "cim_matmul_fused"),
@@ -3388,6 +4023,9 @@ def main() -> int:
              runs["mha"][name] if ekey in ("mha", "mha[f32]") else
              runs[ekey][fn.__name__] if ekey in ("ssm", "mla")
              or ekey[0] == "fused" else runs[ekey[1]][fn.__name__])
+        # the new archs' sessions (bf16 caches) run rows 1-3 too
+        if name in ("cim_matmul_fused", "decode_attention", "flash_gqa"):
+            n += runs["archs"][fn.__name__]
         line.append({"name": name, "route": "cuda", "source": path,
                      "replaces": tpu, "launches": n,
                      "max_abs_err": errs[name if name in errs else ekey],

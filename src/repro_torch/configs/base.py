@@ -1,6 +1,6 @@
-"""Config schema of the port (a copy of the dense, ssm, moe/MLA and vit parts
-of the JAX package's ``configs/base.py``; the port imports nothing of that
-package).
+"""Config schema of the port (a copy of the dense, vlm, ssm, moe and vit
+parts of the JAX package's ``configs/base.py``; the port imports nothing of
+that package).
 
 One ``ModelConfig`` describes an architecture; ``reduced()`` builds the
 same-family tiny config the CPU tests use.
@@ -58,9 +58,8 @@ class MLAConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # "dense", "ssm", "moe" or "vit" (the
-                                 # ported families; moe with MLA
-                                 # attention only)
+    family: str                  # "dense", "vlm", "ssm", "moe" or "vit"
+                                 # (the ported families)
     n_layers: int
     d_model: int
     n_heads: int
@@ -73,6 +72,9 @@ class ModelConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    # vlm (pixtral): the first n_patches positions come from the (stub)
+    # vision frontend as precomputed patch embeddings
+    n_patches: int = 0
     # vit (the paper's CIFAR demo)
     image_size: int = 32
     patch_size: int = 4
@@ -123,7 +125,7 @@ class ModelConfig:
                          + d * m.n_experts)
         elif self.family == "vit":
             per_layer = 4 * d * d + 2 * d * f
-        else:
+        else:                    # dense, vlm
             qkv = (d * hd * (self.n_heads + 2 * self.n_kv_heads)
                    + self.n_heads * hd * d)
             per_layer = qkv + 3 * d * f
@@ -144,6 +146,7 @@ class ModelConfig:
             vocab_size=512,
             max_seq_len=128,
             dtype="float32",
+            n_patches=min(self.n_patches, 8) if self.n_patches else 0,
         )
         if self.moe is not None:
             small = dataclasses.replace(

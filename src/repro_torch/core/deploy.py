@@ -15,15 +15,21 @@ Also the parameter bridge of the port:
   * ``params_from_jax(tree)`` turns the JAX params tree, already converted
     to numpy arrays by the caller (the port never imports JAX), into torch
     tensors of the same structure;
-  * ``init_params(cfg, generator, device)`` initialises the dense, ssm,
-    moe and vit families natively (the card has no JAX): the JAX
-    initialiser's distributions — N(0, 1/d_in) weights (the MLA projections
-    and the f32 router too), zero biases, unit norms, N(0, 0.02^2)
-    embeddings (and the ViT's cls token and positions, in f32); for
-    mamba2 N(0, 0.2^2) conv weights, zero conv bias and dt bias,
+  * ``init_params(cfg, generator, device)`` initialises the dense, vlm,
+    ssm, moe (MLA or GQA attention) and vit families natively (the card has
+    no JAX): the JAX initialiser's distributions — N(0, 1/d_in) weights
+    (the MLA projections and the f32 router too), zero biases, unit norms,
+    N(0, 0.02^2) embeddings (and the ViT's cls token and positions, in
+    f32); for mamba2 N(0, 0.2^2) conv weights, zero conv bias and dt bias,
     ``A_log = log(linspace(1, 16, H))`` and unit skip gains; for the expert
     banks U(-1/sqrt(d), 1/sqrt(d)) — drawn from a ``torch.Generator``, equal
     in law, not in bits.
+
+A stacked weight of more than ``SLAB_ELEMS`` elements is drawn one layer
+at a time (as the expert banks are a slab of experts at a time): the f32
+temporaries of a whole stacked deepseek-67b MLP weight would be 23 GB
+each. Smaller tensors keep one draw. ``quantize_plane`` quantizes every
+stacked weight a layer at a time.
 """
 
 from __future__ import annotations
@@ -49,7 +55,8 @@ _KEY_ROLE = {
 }
 _EXPERT_BANKS = ("w_gate", "w_up", "w_down")
 # elements of one f32 slab: the bank quantizer and the expert product
-# convert an int8 or bf16 bank to f32 a slab of experts at a time
+# convert an int8 or bf16 bank to f32 a slab of experts at a time, and
+# init_params draws a stacked dense weight above it a layer at a time
 SLAB_ELEMS = 1 << 27
 
 
@@ -66,7 +73,19 @@ def _role_for(name: Optional[str], parent: Optional[str]) -> Optional[str]:
 
 def quantize_plane(w: torch.Tensor, bits: int, reduce_axes: int):
     """Abs-max symmetric quantization over the trailing ``reduce_axes`` axes,
-    one scale per leading slice (the scale keeps w's dtype)."""
+    one scale per leading slice (the scale keeps w's dtype). A tensor with
+    leading slices is quantized one slice at a time: the numbers of one
+    whole-tensor call, bit for bit (each slice has its own scale), with
+    f32 temporaries of one slice."""
+    lead = w.shape[:w.ndim - reduce_axes]
+    if lead:
+        flat = w.reshape((-1,) + w.shape[w.ndim - reduce_axes:])
+        wq = torch.empty(flat.shape, dtype=quant.storage_dtype(bits),
+                         device=w.device)
+        ws = torch.empty((flat.shape[0],), dtype=w.dtype, device=w.device)
+        for i in range(flat.shape[0]):
+            wq[i], ws[i] = quantize_plane(flat[i], bits, reduce_axes)
+        return wq.reshape(w.shape), ws.reshape(lead)
     axes = tuple(range(w.ndim - reduce_axes, w.ndim))
     ws = quant.abs_max_scale(w, bits, axis=axes)
     wq = quant.quantize(w.to(torch.float32), ws, bits).to(quant.storage_dtype(bits))
@@ -168,11 +187,10 @@ def params_from_jax(tree: Any, device="cpu") -> Any:
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda") -> Any:
-    """Random params of the dense, ssm, moe (MLA) or vit family, stacked
+    """Random params of the dense, vlm, ssm, moe or vit family, stacked
     over layers like the reference."""
     from repro_torch import resolve_device
-    if cfg.family not in ("dense", "ssm", "moe", "vit") or (
-            cfg.family == "moe" and cfg.mla is None):
+    if cfg.family not in ("dense", "vlm", "ssm", "moe", "vit"):
         raise NotImplementedError(
             f"{cfg.name} (family {cfg.family!r}) is not ported")
     dev = resolve_device(device)
@@ -188,13 +206,26 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         return torch.full(shape, value, dtype=dtype, device=dev)
 
     def dense(d_in, d_out, bias=False, dtype=dt):
-        p = {"w": normal(L, d_in, d_out, std=d_in ** -0.5, dtype=dtype)}
+        if L * d_in * d_out <= SLAB_ELEMS:
+            w = normal(L, d_in, d_out, std=d_in ** -0.5, dtype=dtype)
+        else:                   # a layer at a time (module doc)
+            w = torch.empty((L, d_in, d_out), dtype=dtype, device=dev)
+            for i in range(L):
+                w[i] = normal(d_in, d_out, std=d_in ** -0.5, dtype=dtype)
+        p = {"w": w}
         if bias:
             p["b"] = full((L, d_out), 0.0)
         return p
 
     def ones(n):
         return {"g": full((L, n), 1.0)}
+
+    def gqa():
+        nh, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        return {"q": dense(d, nh * hd, cfg.qkv_bias),
+                "k": dense(d, kv * hd, cfg.qkv_bias),
+                "v": dense(d, kv * hd, cfg.qkv_bias),
+                "o": dense(nh * hd, d)}
 
     if cfg.family == "vit":
         return _init_vit(cfg, normal, full)
@@ -239,13 +270,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             return w
 
         blocks = {
-            "attn": {"dq": dense(d, a.q_lora),
-                     "uq": dense(a.q_lora,
-                                 h * (a.nope_head_dim + a.rope_head_dim)),
-                     "dkv": dense(d, a.kv_lora + a.rope_head_dim),
-                     "uk": dense(a.kv_lora, h * a.nope_head_dim),
-                     "uv": dense(a.kv_lora, h * a.v_head_dim),
-                     "o": dense(h * a.v_head_dim, d)},
+            "attn": gqa() if a is None else {
+                "dq": dense(d, a.q_lora),
+                "uq": dense(a.q_lora, h * (a.nope_head_dim + a.rope_head_dim)),
+                "dkv": dense(d, a.kv_lora + a.rope_head_dim),
+                "uk": dense(a.kv_lora, h * a.nope_head_dim),
+                "uv": dense(a.kv_lora, h * a.v_head_dim),
+                "o": dense(h * a.v_head_dim, d)},
             "moe": {"router": dense(d, m.n_experts, dtype=torch.float32),
                     "w_gate": bank(d, f), "w_up": bank(d, f),
                     "w_down": bank(f, d)},
@@ -256,13 +287,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             blocks["moe"]["shared"] = {"gate": dense(d, fs),
                                        "up": dense(d, fs),
                                        "down": dense(fs, d)}
-    else:
-        f, nh, kv, hd = cfg.d_ff, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    else:                       # dense, vlm
+        f = cfg.d_ff
         blocks = {
-            "attn": {"q": dense(d, nh * hd, cfg.qkv_bias),
-                     "k": dense(d, kv * hd, cfg.qkv_bias),
-                     "v": dense(d, kv * hd, cfg.qkv_bias),
-                     "o": dense(nh * hd, d)},
+            "attn": gqa(),
             "mlp": {"gate": dense(d, f), "up": dense(d, f),
                     "down": dense(f, d)},
             "n1": ones(d), "n2": ones(d),

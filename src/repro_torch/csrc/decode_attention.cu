@@ -30,7 +30,10 @@
 //    16-byte chunks of a key row), the next tile in flight while the
 //    current one is used; keys past lens[b] are zero-filled, never read.
 //  - scores: a group of D * bytes / 16 lanes holds one key row (16 bytes a
-//    lane) and all G query heads' dot products, reduced by shuffles; online
+//    lane) and all G query heads' dot products, reduced by shuffles; where
+//    that count does not divide a warp (head dims 96 and 112: 6, 7, 12,
+//    14, 24 or 28 lanes) the group is padded to the next power of two,
+//    its extra lanes adding zeros, so that groups still tile a warp; online
 //    softmax per head by one warp; p @ V with one output element per thread
 //    and head, f32 on the CUDA cores (a few operations per byte: no tensor
 //    core needed).
@@ -66,12 +69,14 @@ decode_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
   constexpr bool INT8 = sizeof(KVT) == 1;
   constexpr bool ROUND_P = sizeof(KVT) == 2;   // bf16 cache
   constexpr int ROWB = D * (int)sizeof(KVT);    // bytes of one key row
-  constexpr int CH = ROWB / 16;                 // lanes (16-byte chunks) a key
+  constexpr int CH = ROWB / 16;                 // 16-byte chunks a key row
+  constexpr int CHP = CH <= 1 ? 1 : CH <= 2 ? 2 : CH <= 4 ? 4
+                      : CH <= 8 ? 8 : CH <= 16 ? 16 : 32;   // lanes a key
   constexpr int VEC = 16 / (int)sizeof(KVT);    // values a lane
-  constexpr int KPP = THREADS / CH;             // keys a pass of the block
+  constexpr int KPP = THREADS / CHP;            // keys a pass of the block
   constexpr int PASSES = (TK + KPP - 1) / KPP;
   constexpr int NOUT = GMAX * D / THREADS;      // outputs a thread
-  static_assert(CH <= 32 && 32 % CH == 0, "a key row within one warp");
+  static_assert(ROWB % 16 == 0 && CH <= 32, "a key row within one warp");
   static_assert(GMAX * D % THREADS == 0, "outputs split evenly");
 
   __shared__ __align__(16) unsigned char kbuf[2][TK * ROWB];
@@ -135,7 +140,8 @@ decode_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
   for (int u = 0; u < NOUT; ++u) acc[u] = 0.0f;
 
   const int lane = t & 31, warp = t >> 5;
-  const int lane_in = t % CH, grp = t / CH;
+  const int lane_in = t % CHP, grp = t / CHP;
+  const bool chunk = lane_in < CH;    // a padding lane of the group adds 0
   for (int it = 0; it < n_t; ++it) {
     const int st = it & 1;
     const int j0 = j_begin + it * TK;
@@ -151,12 +157,13 @@ decode_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
     for (int pass = 0; pass < PASSES; ++pass) {
       const int j = grp + pass * KPP;
       const int jj = j < TK ? j : 0;
+      const int li = CHP == CH || chunk ? lane_in : 0;
       float kf[VEC];
-      rt::unpack16<KVT>(&kbuf[st][jj * ROWB + lane_in * 16], kf);
+      rt::unpack16<KVT>(&kbuf[st][jj * ROWB + li * 16], kf);
       float part[GMAX];
 #pragma unroll
       for (int g = 0; g < GMAX; ++g) {
-        const float4* qv = reinterpret_cast<const float4*>(&qs[g][lane_in * VEC]);
+        const float4* qv = reinterpret_cast<const float4*>(&qs[g][li * VEC]);
         float sum = 0.0f;
 #pragma unroll
         for (int e = 0; e < VEC / 4; ++e) {
@@ -166,8 +173,9 @@ decode_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
           sum = fmaf(qq.z, kf[4 * e + 2], sum);
           sum = fmaf(qq.w, kf[4 * e + 3], sum);
         }
+        if (CHP != CH && !chunk) sum = 0.0f;
 #pragma unroll
-        for (int off = CH / 2; off > 0; off >>= 1)
+        for (int off = CHP / 2; off > 0; off >>= 1)
           sum += __shfl_xor_sync(0xffffffffu, sum, off);
         part[g] = sum;
       }
@@ -282,14 +290,16 @@ int launch_d(const void* q, const void* k, const void* v, const void* ks,
              const void* vs, const void* lens, void* out, void* part_acc,
              void* part_ml, void* counters, int B, int T, int H, int KV,
              int D, int split, int n_split, float scale, cudaStream_t s) {
-  if (D == 64)
-    return launch<QT, KVT, 64>(q, k, v, ks, vs, lens, out, part_acc,
-                               part_ml, counters, B, T, H, KV, split,
+#define LAUNCH_D(DD)                                                      \
+  if (D == DD)                                                            \
+    return launch<QT, KVT, DD>(q, k, v, ks, vs, lens, out, part_acc,      \
+                               part_ml, counters, B, T, H, KV, split,     \
                                n_split, scale, s);
-  if (D == 128)
-    return launch<QT, KVT, 128>(q, k, v, ks, vs, lens, out, part_acc,
-                                part_ml, counters, B, T, H, KV, split,
-                                n_split, scale, s);
+  LAUNCH_D(64)
+  LAUNCH_D(96)
+  LAUNCH_D(112)
+  LAUNCH_D(128)
+#undef LAUNCH_D
   return (int)cudaErrorInvalidValue;
 }
 
@@ -301,8 +311,8 @@ int launch_d(const void* q, const void* k, const void* v, const void* ks,
 // 2) f32 scratch; counters: (B * KV,) int32, zero before the launch and
 // left zero after it. split: keys a block, a multiple of 16; n_split =
 // ceil(T / split) <= 64. q_dtype: 0 f32, 1 bf16; kv_dtype: 0 f32, 1 bf16, 2 int8.
-// D is 64 or 128, H / KV <= 8, and every row of k and v starts on 16 bytes
-// (checked by the Python wrapper).
+// D is 64, 96, 112 or 128, H / KV <= 8, and every row of k and v starts on
+// 16 bytes (checked by the Python wrapper).
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 const void* ks, const void* vs,
                                 const void* lens, void* out, void* part_acc,

@@ -14,11 +14,15 @@
 //    kv_end are zero-filled, never read.
 //  - 256 threads, 16 x 16: thread (ty, tx) holds a 4 x 4 tile of scores
 //    (rows ty + 16 i, keys tx + 16 j: the float4 loads of a warp fall on
-//    distinct banks) and a 4 x D/16 tile of outputs, so every shared load
-//    feeds four FMAs. Q, K and V tiles in shared memory by cp.async, K and
-//    V of the next key block in flight while the current one is used. The
-//    online softmax runs in registers (row max by shuffles over the 16
-//    threads of a row); p goes through shared memory to the P @ V tile.
+//    distinct banks) and a 4 x 4 NC tile of outputs (columns 64 c + 4 tx,
+//    NC = ceil(D / 64)), so every shared load feeds four FMAs. At head
+//    dims 96 and 112 the last 64-column chunk is partly past D: the
+//    threads whose columns lie there skip it (8 or 4 of the 16 columns
+//    idle for that chunk). Q, K and V tiles in shared memory by cp.async,
+//    K and V of the next key block in flight while the current one is
+//    used. The online softmax runs in registers (row max by shuffles over
+//    the 16 threads of a row); p goes through shared memory to the P @ V
+//    tile.
 //  - arithmetic as the reference's: f32 scores times 1/sqrt(D), masked to
 //    -1e30, p = exp(s - m) in f32, l = l * alpha + sum(p), acc = acc *
 //    alpha + p @ V, the output acc / max(l, 1e-30). An int8 cache is
@@ -58,7 +62,8 @@ flash_f32_kernel(const float* __restrict__ q, const KVT* __restrict__ k,
                  int kbps, int n_split, float scale) {
   constexpr bool INT8 = sizeof(KVT) == 1;
   using L = F32Smem<D, INT8>;
-  constexpr int P = L::P, PP = L::PP, NC = D / 64;
+  constexpr int P = L::P, PP = L::PP, NC = (D + 63) / 64;
+  static_assert(D % 16 == 0, "whole 16-byte chunks of a row");
   static_assert(FBQ == 64 && FBK == 64 && FTHREADS == 256,
                 "16 x 16 threads, 4 x 4 scores each");
   static_assert(2 * rt::FLASH_MAX_SPLITS * FBQ <= FBQ * P,
@@ -89,6 +94,8 @@ flash_f32_kernel(const float* __restrict__ q, const KVT* __restrict__ k,
   const int kb1 = min(kb0 + kbps, nkb);
   const int n_live = (nkb + kbps - 1) / kbps;
   const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
+  // columns 64 c + 4 tx .. + 3 of the output tile lie below D
+  auto col_ok = [&](int c) { return D % 64 == 0 || c * 64 + 4 * tx < D; };
 
   for (int c = t; c < FBQ * (D / 4); c += FTHREADS) {
     const int r = c / (D / 4), ch = c % (D / 4);
@@ -242,6 +249,7 @@ flash_f32_kernel(const float* __restrict__ q, const KVT* __restrict__ k,
       for (int jj = 0; jj < 4; ++jj) {
 #pragma unroll
         for (int c = 0; c < NC; ++c) {
+          if (!col_ok(c)) continue;
           const float4 w = *reinterpret_cast<const float4*>(
               vsm + (j + jj) * P + c * 64 + 4 * tx);
 #pragma unroll
@@ -287,9 +295,10 @@ flash_f32_kernel(const float* __restrict__ q, const KVT* __restrict__ k,
       float* dst = row_ptr(r) + 4 * tx;
 #pragma unroll
       for (int c = 0; c < NC; ++c)
-        *reinterpret_cast<float4*>(dst + c * 64) = make_float4(
-            __fdiv_rn(o[i][c][0], den), __fdiv_rn(o[i][c][1], den),
-            __fdiv_rn(o[i][c][2], den), __fdiv_rn(o[i][c][3], den));
+        if (col_ok(c))
+          *reinterpret_cast<float4*>(dst + c * 64) = make_float4(
+              __fdiv_rn(o[i][c][0], den), __fdiv_rn(o[i][c][1], den),
+              __fdiv_rn(o[i][c][2], den), __fdiv_rn(o[i][c][3], den));
     }
     return;
   }
@@ -301,8 +310,9 @@ flash_f32_kernel(const float* __restrict__ q, const KVT* __restrict__ k,
     float* po = part_o + (slot * FBQ + r) * D + 4 * tx;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
-      *reinterpret_cast<float4*>(po + c * 64) =
-          make_float4(o[i][c][0], o[i][c][1], o[i][c][2], o[i][c][3]);
+      if (col_ok(c))
+        *reinterpret_cast<float4*>(po + c * 64) =
+            make_float4(o[i][c][0], o[i][c][1], o[i][c][2], o[i][c][3]);
     if (tx == 0) {
       part_ml[(slot * FBQ + r) * 2] = m[i];
       part_ml[(slot * FBQ + r) * 2 + 1] = l[i];

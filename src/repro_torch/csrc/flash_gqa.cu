@@ -40,8 +40,8 @@
 // left zero after it, when n_split > 1 (else null). q_dtype 0 f32 (the
 // CUDA-core body), 1 bf16 (the tensor-core body). kv_dtype: 0 f32, 1 bf16,
 // 2 int8 (a bf16 or int8 cache with bf16 queries, an f32 or int8 one with
-// f32 queries). D is 64 or 128 and every row of q, k and v starts on 16
-// bytes (checked by the Python wrapper).
+// f32 queries). D is 64, 96, 112 or 128 and every row of q, k and v starts
+// on 16 bytes (checked by the Python wrapper).
 extern "C" int flash_gqa(const void* q, const void* k, const void* v,
                          const void* ks, const void* vs, const void* start,
                          void* out, void* counts, void* part_o,
@@ -52,22 +52,22 @@ extern "C" int flash_gqa(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ARGS q, k, v, ks, vs, start, out, counts, part_o, part_ml, counters, \
              B, S, T, H, KV, BQ, kbps, n_split, scale, s
-  if (q_dtype == 0) {
-    if (kv_dtype == 0 && D == 64) return launch_f32<float, 64, true>(ARGS);
-    if (kv_dtype == 0 && D == 128) return launch_f32<float, 128, true>(ARGS);
-    if (kv_dtype == 2 && D == 64) return launch_f32<int8_t, 64, true>(ARGS);
-    if (kv_dtype == 2 && D == 128)
-      return launch_f32<int8_t, 128, true>(ARGS);
+#define BY_D(DD)                                                         \
+  if (D == DD) {                                                         \
+    if (q_dtype == 0 && kv_dtype == 0)                                   \
+      return launch_f32<float, DD, true>(ARGS);                          \
+    if (q_dtype == 0 && kv_dtype == 2)                                   \
+      return launch_f32<int8_t, DD, true>(ARGS);                         \
+    if (q_dtype == 1 && kv_dtype == 1)                                   \
+      return launch_mma<__nv_bfloat16, DD, true>(ARGS);                  \
+    if (q_dtype == 1 && kv_dtype == 2)                                   \
+      return launch_mma<int8_t, DD, true>(ARGS);                         \
   }
-  if (q_dtype == 1) {
-    if (kv_dtype == 1 && D == 64)
-      return launch_mma<__nv_bfloat16, 64, true>(ARGS);
-    if (kv_dtype == 1 && D == 128)
-      return launch_mma<__nv_bfloat16, 128, true>(ARGS);
-    if (kv_dtype == 2 && D == 64) return launch_mma<int8_t, 64, true>(ARGS);
-    if (kv_dtype == 2 && D == 128)
-      return launch_mma<int8_t, 128, true>(ARGS);
-  }
+  BY_D(64)
+  BY_D(96)
+  BY_D(112)
+  BY_D(128)
+#undef BY_D
 #undef ARGS
   return (int)cudaErrorInvalidValue;
 }

@@ -61,8 +61,8 @@ int launch_bf16(const void* q, const void* k, const void* v,
 // over n_split <= 16 blocks; part_o (BH * n_q * n_split, 64, D) and
 // part_ml (.., 64, 2) f32 scratch and counters (BH * n_q,) int32, zero
 // before the launch and left zero after it, when n_split > 1 (else null).
-// f32: 64-key blocks and n_split 1. D must be 64 or 128 (checked by the
-// Python wrapper). Returns cudaGetLastError() after the launch.
+// f32: 64-key blocks and n_split 1. D must be 64, 96, 112 or 128 (checked
+// by the Python wrapper). Returns cudaGetLastError() after the launch.
 extern "C" int flash_mha(const void* q, const void* k, const void* v,
                          const void* start, void* out, void* counts,
                          void* part_o, void* part_ml, void* counters, int BH,
@@ -70,21 +70,20 @@ extern "C" int flash_mha(const void* q, const void* k, const void* v,
                          int kbps, int n_split, float scale,
                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && n_split == 1) {
-    auto f32 = D == 64 ? (causal ? launch_f32<float, 64, true>
-                                 : launch_f32<float, 64, false>)
-                       : (causal ? launch_f32<float, 128, true>
-                                 : launch_f32<float, 128, false>);
-    if (D == 64 || D == 128)
-      return f32(q, k, v, nullptr, nullptr, start, out, counts, nullptr,
-                 nullptr, nullptr, BH, S, T, 1, 1, FBQ, kbps, 1, scale, s);
-  }
 #define BF16_ARGS q, k, v, start, out, counts, part_o, part_ml, counters, \
                   BH, S, T, causal, kbps, n_split, scale, s
-  if (dtype == 1) {
-    if (D == 64) return launch_bf16<64>(BF16_ARGS);
-    if (D == 128) return launch_bf16<128>(BF16_ARGS);
-  }
+#define BY_D(DD)                                                          \
+  if (D == DD && dtype == 0 && n_split == 1)                              \
+    return (causal ? launch_f32<float, DD, true>                          \
+                   : launch_f32<float, DD, false>)(                       \
+        q, k, v, nullptr, nullptr, start, out, counts, nullptr, nullptr,  \
+        nullptr, BH, S, T, 1, 1, FBQ, kbps, 1, scale, s);                 \
+  if (D == DD && dtype == 1) return launch_bf16<DD>(BF16_ARGS);
+  BY_D(64)
+  BY_D(96)
+  BY_D(112)
+  BY_D(128)
+#undef BY_D
 #undef BF16_ARGS
   return (int)cudaErrorInvalidValue;
 }

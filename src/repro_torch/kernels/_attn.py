@@ -7,7 +7,7 @@ from typing import Dict, List, Optional
 
 import torch
 
-HEAD_DIMS = (64, 128)      # head dims the kernels are built for
+HEAD_DIMS = (64, 96, 112, 128)   # head dims the kernels are built for
 SM_COUNT = 132             # streaming multiprocessors of an H100
 # Blocks a launch aims for: two per SM. A key axis is split over blocks
 # until the grid reaches it.

@@ -9,7 +9,8 @@ gives its bound on the H100 and its design.
 ``flash_attention`` takes (BH, S, D) queries against (BH, T, D) keys and
 values (training and cross-attention shapes, heads folded into rows),
 causal or not, with optional per-row start offsets (causal only), head dims
-64 and 128, float32 or bfloat16. CPU tensors take ``flash_attention_plain``,
+64, 96, 112 and 128 (``HEAD_DIMS``, as the GQA kernels), float32 or
+bfloat16. CPU tensors take ``flash_attention_plain``,
 which follows the kernel's arithmetic (online softmax over the same blocks
 of ``MHA_BLOCK_K[dtype]`` keys, p rounded to v's dtype before p @ V); CUDA
 tensors launch the kernel or raise.

@@ -7,6 +7,8 @@
       --cim sim --attn-impl kernel
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \\
       --reduced --cim sim --attn-impl kernel --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-mini-3.8b \\
+      --cim sim --attn-impl kernel
   PYTHONPATH=src python -m repro_torch.launch.serve --engine loop --reduced
 
 ``--cim sim`` serves the CIM macro model: the weights are deployed once as
@@ -51,9 +53,13 @@ def _build_argparser():
         description="CR-CIM serving on PyTorch: slot-batched engine with "
                     "chunked prefill")
     ap.add_argument("--arch", default="qwen2-0.5b",
-                    help="qwen2-0.5b (dense), mamba2-130m (ssm) or "
+                    help="qwen2-0.5b, internlm2-1.8b, phi3-mini-3.8b, "
+                         "deepseek-67b (dense; 126 GB at full depth), "
+                         "pixtral-12b (vlm backbone, served token-only), "
+                         "mamba2-130m (ssm), olmoe-1b-7b (moe with GQA) or "
                          "deepseek-v2-236b (moe with MLA; 472 GB at full "
-                         "width: --reduced)")
+                         "width: --reduced); an arch that does not fit "
+                         "the card needs --reduced")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--new-tokens", type=int, default=12)

@@ -1,7 +1,7 @@
 """Public model API: build an arch, get its init, loss and forward.
 
-Twin of ``build`` in ``src/repro/models/model.py`` for the dense, ssm, moe
-(MLA) and vit families.
+Twin of ``build`` in ``src/repro/models/model.py`` for the dense, vlm,
+ssm, moe (MLA or GQA attention) and vit families.
 ``init(generator, device)`` draws torch-native parameters
 (``core.deploy.init_params``); parameters converted from a JAX tree come
 from ``core.deploy.params_from_jax``. ``loss(params, batch, key)`` is the

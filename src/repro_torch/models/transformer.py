@@ -1,16 +1,20 @@
 """Decoder-LM assembly for the dense family (GQA + SwiGLU pre-norm blocks),
-the ssm family (pre-norm mamba2 blocks) and the moe family with MLA
-attention (deepseek-v2: MLA + routed and shared experts).
+the vlm family (the dense blocks behind a stub patch prefix: pixtral's
+backbone), the ssm family (pre-norm mamba2 blocks) and the moe family
+(MLA attention with routed and shared experts, deepseek-v2; or GQA
+attention with routed experts, olmoe).
 
-Twin of the dense, ssm and moe parts of ``src/repro/models/transformer.py``.
+Twin of the dense, vlm, ssm and moe parts of
+``src/repro/models/transformer.py``.
 The layer stack is a Python loop over the layers (the reference scans over
 stacked parameters); layer ``i`` keys its CIM noise off
 ``fold_in(ctx.key, i)`` exactly as the reference's scan body does.
 
 Caches are stacked over layers like the reference's: dense
 ``{"k": (L, B, T, KV, D), "v": ..., ["ks", "vs": (L, B, T, KV, 1)],
-"len": (L, B)}``; ssm ``{"conv": (L, B, width-1, conv_dim) in the model
-dtype, "state": (L, B, H, P, N) f32}``, with no length; MLA
+"len": (L, B)}`` (also vlm and moe with GQA); ssm ``{"conv": (L, B,
+width-1, conv_dim) in the model dtype, "state": (L, B, H, P, N) f32}``,
+with no length; MLA
 ``{"ckv": (L, B, T, kv_lora), "krope": (L, B, T, rope_hd), "len": (L, B)}``. ``forward``
 writes the new keys (or window and state) in place and returns the same
 dict; ``take_slot`` returns views of one slot row, so a forward on a
@@ -82,9 +86,13 @@ def _ssm_block(ctx: Ctx, p: Params, x, positions, cache):
 
 
 def _moe_block(ctx: Ctx, p: Params, x, positions, cache):
-    h, new_cache = attn.mla_attention(
-        ctx, p["attn"], rmsnorm(p["n1"], x, ctx.cfg.norm_eps), positions,
-        cache)
+    xn = rmsnorm(p["n1"], x, ctx.cfg.norm_eps)
+    if ctx.cfg.mla is not None:
+        h, new_cache = attn.mla_attention(ctx, p["attn"], xn, positions,
+                                          cache)
+    else:
+        h, new_cache = attn.gqa_attention(ctx, p["attn"], xn, positions,
+                                          cache)
     x = x + h
     # serving (cached) forwards route dropless, as in the reference
     x = x + moe_mod.moe_block(ctx, p["moe"],
@@ -93,15 +101,13 @@ def _moe_block(ctx: Ctx, p: Params, x, positions, cache):
     return x, new_cache
 
 
-_BLOCKS = {"dense": _dense_block, "ssm": _ssm_block, "moe": _moe_block}
+_BLOCKS = {"dense": _dense_block, "vlm": _dense_block, "ssm": _ssm_block,
+           "moe": _moe_block}
 
 
 def check_family(cfg: ModelConfig) -> None:
     if cfg.family not in _BLOCKS:
         raise NotImplementedError(f"family {cfg.family!r} {_NOT_PORTED}")
-    if cfg.family == "moe" and cfg.mla is None:
-        raise NotImplementedError(
-            f"the moe family with GQA attention ({cfg.name}) {_NOT_PORTED}")
 
 
 def _index(tree, i: int):
@@ -121,7 +127,7 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     check_family(cfg)
     if cfg.family == "ssm":
         one = ssm_mod.init_ssm_cache(cfg, batch, dtype_of(cfg), device)
-    elif cfg.family == "moe":
+    elif cfg.family == "moe" and cfg.mla is not None:
         one = attn.init_mla_cache(cfg, batch, max_len, dtype_of(cfg), device)
     else:
         one = attn.init_gqa_cache(cfg, batch, max_len, dtype_of(cfg), device)
@@ -224,6 +230,15 @@ def _run_blocks(ctx: Ctx, blocks: Params, x, positions, caches):
     return x, caches
 
 
+def _embed_input(cfg: ModelConfig, params: Params, batch: Dict[str, Any]):
+    """Token embeddings; for vlm behind ``batch["patch_embeds"]`` (B, P, d),
+    the stub vision frontend's prefix, when the batch carries one."""
+    x = embed(params["embed"], batch["tokens"], dtype_of(cfg))
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
+    return x
+
+
 def forward(params: Params, batch: Dict[str, Any], cfg: ModelConfig,
             ctx: Optional[Ctx] = None, caches=None
             ) -> Tuple[torch.Tensor, Any]:
@@ -231,7 +246,7 @@ def forward(params: Params, batch: Dict[str, Any], cfg: ModelConfig,
     cache, updated in place."""
     check_family(cfg)
     ctx = ctx or Ctx.make(cfg)
-    x = embed(params["embed"], batch["tokens"], dtype_of(cfg))
+    x = _embed_input(cfg, params, batch)
     b, s, _ = x.shape
     steps = torch.arange(s, device=x.device)[None]
     if caches is None:
@@ -255,6 +270,8 @@ def lm_loss(params: Params, batch: Dict[str, Any], cfg: ModelConfig,
     runs through it."""
     logits, _ = forward(params, batch, cfg, ctx)
     labels = batch["labels"].long()
+    if cfg.family == "vlm":     # the image prefix carries no labels
+        logits = logits[:, -labels.shape[1]:]
     logits = logits.to(torch.float32)
     logp = torch.log_softmax(logits, dim=-1)
     valid = labels >= 0

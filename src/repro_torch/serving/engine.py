@@ -1,7 +1,8 @@
 """Slot-batched continuous-batching serving engine on PyTorch.
 
 Twin of the fused ``Engine`` and the ``LoopEngine`` of
-``src/repro/serving/engine.py`` for the dense, ssm and moe (MLA) families.
+``src/repro/serving/engine.py`` for the dense, vlm, ssm and moe families
+(the vlm family served token-only, as the reference serves it).
 One stacked cache of batch ``max_slots`` is allocated once (a KV or latent
 cache over-allocated to a chunk multiple, so a final padded chunk never
 clamps back onto live keys; for mamba2 the conv window and the f32 state).
@@ -14,8 +15,8 @@ state) are restored afterwards. A prefill chunk tells the model how many
 of its tokens are real (``Ctx.prefill_valid``), so the ssm state skips the
 chunk's right-pad. ``chunk_size=0`` is the reference's whole-prompt path:
 a request is prefilled at admission in one forward, right-padded to a
-power-of-two bucket for the dense family and at its true length for ssm
-and moe.
+power-of-two bucket for the dense and vlm families and at its true length
+for ssm and moe.
 
 The PRNG contract replays the reference bit for bit:
 
@@ -30,7 +31,7 @@ The PRNG contract replays the reference bit for bit:
 Sim mode deploys the weights once into int8 planes at construction and
 serves them on the CIM kernel (``cim.use_kernel=True``) or on the
 behavioural ``core.cim.cim_dense`` (``use_kernel=False``), as the
-reference does. On the kernel path of the dense and ssm families every
+reference does. On the kernel path of the dense, vlm and ssm families every
 forward's noise seeds are one ``prng.seed_table`` (one vectorized host
 call), staged with the forward's other host inputs (active mask, chunk
 tokens, valid count) into one device buffer by one copy from pinned
@@ -44,9 +45,9 @@ engine captures the batch decode step as one CUDA graph and each slot's
 chunk forward as one graph (all in one memory pool; at most one replays at
 a time), and replays them, chunks first in slot order, then the decode,
 with the draw order of the per-call path. ``None`` (auto) takes it when
-prefill is chunked and the family and path can be captured (dense and ssm,
-in off mode or on the CIM kernel path); ``True`` raises where it cannot.
-The moe family and the behavioural path draw their noise through eager
+prefill is chunked and the family and path can be captured (dense, vlm
+and ssm, in off mode or on the CIM kernel path); ``True`` raises where it
+cannot. The moe family and the behavioural path draw their noise through eager
 ops keyed by host integers, which a replay would freeze, and serve
 per-call. On the CPU the option runs the per-call path. A capture that
 fails raises; a replay that raises turns the graphs off for the engine's
@@ -108,7 +109,7 @@ DRAIN_EVERY = 64
 BUCKETED_FAMILIES = ("dense", "vlm")
 # families whose forward a CUDA graph captures, and the CIM noise seeds a
 # layer draws (q, k, v, o, gate, up, down; in_proj, out_proj)
-SEEDS_PER_LAYER = {"dense": 7, "ssm": 2}
+SEEDS_PER_LAYER = {"dense": 7, "vlm": 7, "ssm": 2}
 # kernel wrappers whose launch counts a replay adds
 COUNTED = (cim_matmul_fused, cim_matmul_int8, decode_attention,
            flash_gqa_attention, flash_attention, fused_dense_layer,

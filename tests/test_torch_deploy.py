@@ -82,7 +82,9 @@ def test_init_params_matches_jax_tree_in_law():
 
 
 def test_registry_lists_only_ported_archs():
-    assert list_archs() == ["deepseek-v2-236b", "mamba2-130m", "qwen2-0.5b",
+    assert list_archs() == ["deepseek-67b", "deepseek-v2-236b",
+                            "internlm2-1.8b", "mamba2-130m", "olmoe-1b-7b",
+                            "phi3-mini-3.8b", "pixtral-12b", "qwen2-0.5b",
                             "vit-small-cifar"]
     with pytest.raises(KeyError, match="not ported"):
         get_config("zamba2-7b")

@@ -147,7 +147,7 @@ def test_unported_options_and_bad_requests_raise(setup, monkeypatch):
         with pytest.raises(NotImplementedError):
             Engine(cfg, tp, device="cpu", **kw)
     with pytest.raises(NotImplementedError):
-        Engine(dataclasses.replace(cfg, family="moe"), tp, device="cpu")
+        Engine(dataclasses.replace(cfg, family="hybrid"), tp, device="cpu")
     # the behavioural sim path (use_kernel=False) is ported: it serves,
     # through cim_matmul_behavioral and not the CIM kernel's plain version
     behavioural = dataclasses.replace(cfg, cim=dataclasses.replace(

@@ -206,7 +206,7 @@ def test_mha_plan_at_the_b5_shapes(dtype, shape, splits):
 def test_mha_plan_split_edges(bh, s, t, d, want):
     plan = flash_mha_plan(bh, s, t, d, torch.bfloat16)
     assert (plan["n_split"], plan["kbps"]) == want
-    with pytest.raises(ValueError, match="64, 128"):
-        flash_mha_plan(bh, s, t, 96, torch.bfloat16)
+    with pytest.raises(ValueError, match="64, 96, 112, 128"):
+        flash_mha_plan(bh, s, t, 80, torch.bfloat16)
     f32 = flash_mha_plan(bh, s, t, d, torch.float32)   # never split
     assert (f32["block_k"], f32["n_split"]) == (64, 1)

@@ -11,8 +11,8 @@ noise, 1e-6 * tiles * max|y| + 1e-5 * sigma (Box-Muller's logf/cosf
 ulps). Attention on a bf16 cache or with bf16 queries writes bf16 and
 rounds p to bf16 before p @ V as the reference kernel does (against the
 running max of a split's own keys): 2^-6 of the output's scale, or of
-each query head's row max in every dtype combination at head dims 64 and
-128. The fused layer against its plain version on the kernel's
+each query head's row max in every dtype combination at head dims 64,
+96, 112 and 128. The fused layer against its plain version on the kernel's
 activation scales: each output row within 2^-10 of its max |value| (a
 quantized activation that float order puts in the next bucket moves it by
 less), each attention-output row within 2^-12, the written f32 cache rows
@@ -191,10 +191,14 @@ def _gqa_counts(q, start, t=320):
 
 @pytest.mark.parametrize("qdt,kvdt", [("f32", "f32"), ("f32", "int8"),
                                       ("bf16", "bf16"), ("bf16", "int8")])
-@pytest.mark.parametrize("d,g", [(64, 7), (128, 2), (128, 4), (128, 8)])
+@pytest.mark.parametrize("d,g", [(64, 7), (128, 1), (128, 2), (128, 4),
+                                 (128, 8), (96, 1), (96, 4), (112, 1)])
 def test_gqa_kernels_match_plain_all_dtypes(cuda, d, g, qdt, kvdt):
     """The split-key decode and flash kernels against their plain versions
-    in every dtype combination they take, at head dims 64 and 128: each
+    in every dtype combination they take, at head dims 64, 128 (G 1 is
+    olmoe-1b-7b's), 96 (phi3)
+    and 112 (zamba2-7b, whose key rows span a lane count that does not
+    divide a warp): each
     query head's row within 2^-6 of its max |value|, lens == 0 rows zero,
     decode lengths on the split edges, flash block counts in closed form.
     With f32 queries the flash kernel is also held at the f32 limit, 2e-5
@@ -703,7 +707,9 @@ def mha_rows_off(out, ref, dtype):
     (4, 128, 128, 64, True, None), (2, 200, 200, 64, True, None),
     (3, 128, 384, 128, False, None), (1, 130, 257, 64, True, None),
     (3, 10, 64, 64, True, [0, 7, 20]), (3, 12, 40, 128, True, [33, 5, 0]),
-    (5, 65, 65, 64, False, None)])
+    (5, 65, 65, 64, False, None), (4, 130, 130, 96, True, None),
+    (3, 70, 200, 96, False, None), (3, 12, 40, 112, True, [33, 5, 0]),
+    (2, 129, 257, 112, False, None)])
 def test_flash_mha_kernel_matches_plain(cuda, dtype, bh, s, t, d, causal,
                                         start):
     g = torch.Generator(device=cuda).manual_seed(s + t + d)
@@ -747,8 +753,8 @@ def test_flash_mha_splits_match_plain(cuda, bh, s, t, d, causal, start):
 
 
 def test_flash_mha_head_dims(cuda):
-    q = torch.zeros((2, 8, 96), device=cuda)
-    with pytest.raises(ValueError, match="64, 128"):
+    q = torch.zeros((2, 8, 80), device=cuda)
+    with pytest.raises(ValueError, match="64, 96, 112, 128"):
         flash_attention(q, q, q)
     with pytest.raises(ValueError, match="causal"):
         flash_attention(q, q, q, causal=False,

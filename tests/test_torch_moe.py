@@ -13,7 +13,13 @@ activation scales are fed to the shared expert's CIM linears and the
 expert noise is the ``jax.random.normal`` twin, 3 ulp of a standard normal
 apart: outputs within 1e-4 on at least 15 of every 16 token rows and 5e-2
 on every row (an ulp can still move a quantized activation into the next
-bucket). Engine tokens are equal exactly."""
+bucket). Engine tokens are equal exactly.
+
+The JAX reference runs are made once per module and shared: the params,
+their deployed planes (``deployed``) and the engine's token runs
+(``jax_ref``). The module's torch work runs on one CPU thread
+(``one_thread``): the suite runs several test processes side by side,
+and a torch thread pool per process oversubscribes the cores."""
 
 import dataclasses
 
@@ -51,11 +57,26 @@ def _cfgs(mode="off", impl="einsum"):
     return of(jget("deepseek-v2-236b")), of(get_config("deepseek-v2-236b"))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def params():
     jc, _ = _cfgs()
     jp, _ = jbuild(jc).init(jax.random.PRNGKey(0))
     return jp, deploy.params_from_jax(jax.tree.map(np.asarray, jp))
+
+
+@pytest.fixture(scope="module")
+def deployed(params):
+    """The sim-mode deploy of both trees, made once: (JAX, port)."""
+    jc, tc = _cfgs("sim")
+    return jdeploy(jc, params[0]), deploy.deploy(tc, params[1])
 
 
 def _layer0(tree):
@@ -101,10 +122,8 @@ def test_router_ids_equal_jax(params):
 
 # ------------------------------------------------- planes and params
 
-def test_deployed_expert_planes_equal_jax(params):
-    jc, tc = _cfgs("sim")
-    jd = jdeploy(jc, params[0])["blocks"]["moe"]
-    td = deploy.deploy(tc, params[1])["blocks"]["moe"]
+def test_deployed_expert_planes_equal_jax(deployed):
+    jd, td = (d["blocks"]["moe"] for d in deployed)
     planes = sorted(k for k in jd if k.startswith("w_") and "_" in k[2:])
     assert planes == sorted(k for k in td if k.startswith("w_")
                             and "_" in k[2:])
@@ -117,8 +136,7 @@ def test_deployed_expert_planes_equal_jax(params):
         for k in ("wq6", "ws6"):
             np.testing.assert_array_equal(np.asarray(jd["shared"][name][k]),
                                           td["shared"][name][k].numpy())
-    ja = jdeploy(jc, params[0])["blocks"]["attn"]
-    ta = deploy.deploy(tc, params[1])["blocks"]["attn"]
+    ja, ta = (d["blocks"]["attn"] for d in deployed)
     for name in ("dq", "uq", "dkv", "uk", "uv", "o"):
         for k in ("wq4", "ws4"):
             np.testing.assert_array_equal(np.asarray(ja[name][k]),
@@ -177,11 +195,10 @@ def fed_scales(monkeypatch):
 
 @pytest.mark.parametrize("mode", ["off", "sim"])
 @pytest.mark.parametrize("dropless", [True, False])
-def test_moe_block_matches_jax(params, fed_scales, mode, dropless):
+def test_moe_block_matches_jax(params, deployed, fed_scales, mode,
+                              dropless):
     jc, tc = _cfgs(mode)
-    jp, tp = params
-    if mode == "sim":
-        jp, tp = jdeploy(jc, jp), deploy.deploy(tc, tp)
+    jp, tp = deployed if mode == "sim" else params
     jp, tp = _layer0(jp["blocks"]["moe"]), _layer0(tp["blocks"]["moe"])
     x = np.random.default_rng(6).normal(size=(2, 24, jc.d_model)).astype(
         np.float32)
@@ -261,9 +278,11 @@ def test_moe_engine_options_and_cli():
             .generate([Request(prompt=prompt, max_new_tokens=3)])
             for fuse in (True, False)]
     assert runs[0] == runs[1] and len(runs[0][0]) == 3
+    # moe with GQA attention (olmoe) serves per call: its expert noise is
+    # keyed on the host, so fused_step=True raises as for MLA
     gqa_moe = dataclasses.replace(tc, name="moe-gqa", mla=None)
-    with pytest.raises(NotImplementedError, match="GQA"):
-        Engine(gqa_moe, p, device="cpu")
+    with pytest.raises(NotImplementedError, match="capture"):
+        Engine(gqa_moe, p, fused_step=True, device="cpu")
     outs = serve.main(["--arch", "deepseek-v2-236b", "--reduced", "--cim",
                        "sim", "--attn-impl", "kernel", "--device", "cpu",
                        "--requests", "3", "--prompt-len", "20",

@@ -9,6 +9,12 @@ deployed planes). Where an activation is fake-quantized, an ulp of its
 input (an einsum's summation order, C4's normal draws) can flip it across
 a rounding boundary, and the flip then moves that image's logits by a
 whole quantization step: such images are counted, not hidden.
+
+The JAX params, the eval batch and the deploy of both trees are made once
+per module (``model``, ``deployed``) and shared by the cases. The module's
+torch work runs on one CPU thread (``one_thread``): the suite runs
+several test processes side by side, and a torch thread pool per process
+oversubscribes the cores.
 """
 
 import dataclasses
@@ -60,6 +66,14 @@ def _jkey(key):
     return None if key is None else jnp.asarray(np.array(key, np.uint32))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def model():
     jc, tc = _cfgs()
@@ -67,6 +81,14 @@ def model():
     x, y = jimage_batch(JData(seed=5, global_batch=100), 3, split="eval")
     return jc, tc, params, params_from_jax(jax.tree.map(np.asarray, params)), \
         x, y
+
+
+@pytest.fixture(scope="module")
+def deployed(model):
+    """The sim-mode deploy on the kernel path, made once: (JAX, port)."""
+    _, _, params, tp, _, _ = model
+    jc, tc = _cfgs(use_kernel=True)
+    return jdeploy(jc, params), deploy(tc, tp)
 
 
 def _no_noise(policy):
@@ -179,13 +201,12 @@ def test_vit_forward_matches_jax(model, mode, key):
         assert np.mean(_image_rel(a, b) <= 1e-4) >= 0.98
 
 
-def test_vit_forward_kernel_path_on_deployed_planes(model):
+def test_vit_forward_kernel_path_on_deployed_planes(model, deployed):
     """sim with ``cim.use_kernel`` on deployed planes: the patch embedding
     and every block linear run row 1 (its plain version on the CPU)."""
-    _, _, params, _, x, _ = model
+    x = model[4]
     jc, tc = _cfgs(use_kernel=True)
-    jd = jdeploy(jc, params)
-    td = deploy(tc, params_from_jax(jax.tree.map(np.asarray, params)))
+    jd, td = deployed
     for name in ("wq6", "ws6"):
         np.testing.assert_array_equal(
             td["patch"][name].float().numpy(),
@@ -204,7 +225,8 @@ def test_vit_forward_kernel_path_on_deployed_planes(model):
     assert np.mean(a.argmax(-1) == b.argmax(-1)) >= 0.99
 
 
-def test_sim_dense_without_its_plane_raises_on_a_deployed_tree(model):
+def test_sim_dense_without_its_plane_raises_on_a_deployed_tree(model,
+                                                              deployed):
     """Sim on an undeployed tree quantizes per call (the reference's
     rule). A deployed context, or a weight that carries a plane of another
     width, raises instead of bypassing row 1 silently; the engine's sim
@@ -220,7 +242,7 @@ def test_sim_dense_without_its_plane_raises_on_a_deployed_tree(model):
     ctx = Ctx.make(tc, KEYS[0], mode="sim")
     ctx.policy = get_policy("uniform_8b")        # planes of 4 and 6 bits
     with pytest.raises(ValueError, match="at w_bits=8"):
-        vit.vit_forward(deploy(tc, tp), xs, tc, ctx)
+        vit.vit_forward(deployed[1], xs, tc, ctx)
     lm = dataclasses.replace(get_config("qwen2-0.5b").reduced(), n_layers=1)
     eng = Engine(lm, init_params(lm, torch.Generator().manual_seed(0),
                                  "cpu"), max_slots=1, max_len=16,
