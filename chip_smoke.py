@@ -71,19 +71,25 @@ off, in behavioural sim and through the CIM kernel, which is held against
 its plain version on the ViT's own operands, its logits against the
 CPU's (``vit_qat``); full-width qwen2-0.5b trained in qat mode with a
 checkpoint resume (``train_lm``); and the figure runner
-(``paper_figures``). Then the registry's GQA-block archs: card-vs-CPU
+(``paper_figures``). Then the registry's other archs: card-vs-CPU
 greedy tokens of reduced olmoe-1b-7b, phi3-mini-3.8b (head dim 96),
-internlm2-1.8b (head dim 128) and pixtral-12b with a patch prefix
+internlm2-1.8b (head dim 128), pixtral-12b with a patch prefix,
+zamba2-7b (hybrid; replayed and per call, which must agree in tokens and
+launch counts) and whisper-medium (encdec, on stub frames)
 (``arch_parity``); internlm2-1.8b, phi3-mini-3.8b, deepseek-67b (32 of
-its 95 layers), pixtral-12b and olmoe-1b-7b served at full width with
-exact launch counts, every kernel call of a prefill chunk and of a decode
-step held against its plain version on its own operands, the step's
+its 95 layers), pixtral-12b, olmoe-1b-7b (4 of its 16 layers) and
+zamba2-7b (all 81) served at full width with exact launch counts, every
+kernel call of a prefill chunk and of a decode step (the selective scan
+too) held against its plain version on its own operands, the step's
 logits kernels vs plain beside a control that must exceed the limit, its
-device time, peak memory and pixtral's 1024-patch prefix
-(``serve_archs``); rows 2 and 3 at head dim 96 timed on phi3's unit
-(``times_d96``). The GQA kernels' shape checks and the MHA check cover
-head dims 96 and 112 as well. Every phase prints one JSON line; any
-failure exits non-zero. The last line is the device record.
+device time, peak memory and pixtral's 1024-patch prefix; whisper-medium
+at full width decoded by cached forwards, every kernel call of its
+prefill (the encoder's CIM calls in its first and last layers) and of a
+decode step held the same way (``serve_archs``); rows 2 and 3 at head
+dims 96 and 112 timed on phi3's and zamba2's units
+(``times_wide_heads``). The GQA kernels' shape checks and the MHA check
+cover head dims 96 and 112 as well. Every phase prints one JSON line;
+any failure exits non-zero. The last line is the device record.
 """
 
 from __future__ import annotations
@@ -176,6 +182,25 @@ def device_ms(fn, reps: int) -> float:
             fn()
         torch.cuda.synchronize()
     return busy_ms(prof.events(), reps)
+
+
+def device_breakdown(fn, n=5):
+    """Device-busy ms of one ``fn()`` (after one warm-up) and its ``n``
+    kernels with the most device time, (name, ms) each."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by[e.name[:60]] = by.get(e.name[:60], 0.0) + \
+                e.time_range.elapsed_us() / 1e3
+    top = sorted(by.items(), key=lambda kv: -kv[1])[:n]
+    return busy_ms(prof.events(), 1), top
 
 
 def queued_ms(fn, reps: int) -> float:
@@ -441,7 +466,8 @@ def attn_shape_checks(g):
     """The two GQA kernels beyond the main path's bf16 shapes, in every
     dtype combination they take (q f32 or bf16; cache f32, bf16 or int8):
     head dim 128 at G 1, 2, 4 and 8 (olmoe-1b-7b, internlm2-1.8b,
-    pixtral-12b, deepseek-67b), qwen2's head dim 64 at G 7, head dim 96 at
+    pixtral-12b, deepseek-67b), head dim 64 at G 7 (qwen2) and G 1
+    (whisper-medium's decoder), head dim 96 at
     G 1 (phi3-mini-3.8b) and G 4, head dim 112 at G 1 (zamba2-7b); decode
     lengths at the split edges (1, the split width - 1, + 1, T) on caches
     whose T is a multiple
@@ -455,7 +481,8 @@ def attn_shape_checks(g):
     from repro_torch.kernels.flash_attention import (flash_gqa_attention,
                                                      flash_gqa_plain)
     dev = torch.device("cuda")
-    for d, g_, t in ((64, 7, 2000), (64, 7, 333), (128, 1, 333),
+    for d, g_, t in ((64, 7, 2000), (64, 7, 333), (64, 1, 300),
+                     (128, 1, 333),
                      (128, 2, 300),
                      (128, 4, 257), (128, 8, 333), (96, 1, 333),
                      (96, 4, 2000), (112, 1, 300)):
@@ -3274,13 +3301,17 @@ def phase_paper_figures():
     emit("paper_figures", seconds=time.perf_counter() - t0)
 
 
-# ------------------------------------------------- the GQA-block archs
-# the registry's archs built from the GQA attention block, served at full
-# width; one depth cut: deepseek-67b's 95 layers (126 GB of bf16 weights)
-# to 32
+# ------------------------------------------------- the registry's archs
+# the registry's archs built from the GQA attention block and zamba2-7b's
+# hybrid, served at full width through the engine (whisper-medium, which
+# the token-only engine does not serve, is decoded by cached forwards in
+# ``serve_whisper``); two depth cuts: deepseek-67b's 95 layers (126 GB of
+# bf16 weights) to 32, and olmoe-1b-7b's 16 to 4 for the script's time
+# (its eager expert banks took 97 s at 16 layers; 4 run the same kernels
+# and the same banks)
 ARCHS = ("internlm2-1.8b", "phi3-mini-3.8b", "deepseek-67b", "pixtral-12b",
-         "olmoe-1b-7b")
-ARCH_LAYERS = {"deepseek-67b": 32}
+         "olmoe-1b-7b", "zamba2-7b")
+ARCH_LAYERS = {"deepseek-67b": 32, "olmoe-1b-7b": 4}
 ARCH_PEAK_GIB = 72.0       # deepseek-67b at 32 layers must stay under it
 # off-mode logits, kernels against plain versions on the card, per row:
 # max |error| over the row's largest |logit|. Sound runs read at most
@@ -3309,31 +3340,58 @@ def arch_config(arch, mode="sim", reduced=False, **over):
                                                        use_kernel=True))
 
 
+def ssm_plain(conv, xbc, conv_w, conv_b, dt1, a, d, state, d_inner,
+              ngroups, d_state, state_out=None):
+    """``ssm_decode_step``'s plain version on the card, called as the
+    wrapper is (the conv weights widened, the state written to
+    ``state_out``), as its CPU path runs it."""
+    from repro_torch.kernels.ssm_scan import ssm_decode_step_plain
+    y, c, st = ssm_decode_step_plain(conv, xbc, conv_w.float(),
+                                     conv_b.float(), dt1, a, d, state,
+                                     d_inner, ngroups, d_state)
+    if state_out is not None:
+        st = state_out.copy_(st)
+    return y, c, st
+
+
 class routes:
     """Context manager over the model's kernel routes (the CIM kernel,
-    decode and flash GQA attention): with ``plain`` they run their plain
-    versions on the card (``drop``: the control, decode attention with the
-    newest ``drop`` live keys of each row dropped, at least one kept);
-    otherwise every call runs the kernel and is recorded with its operands
-    and output in ``calls``."""
+    decode and flash GQA attention, the selective-scan decode step): with
+    ``plain`` they run their plain versions on the card (``drop``: the
+    control, decode attention with the newest ``drop`` live keys of each
+    row dropped, at least one kept); otherwise every call runs the kernel
+    and is recorded with its operands and output in ``calls`` (the scan's
+    window and state, which it updates in place, as copies from before and
+    after the call)."""
 
     def __init__(self, plain=False, drop=0):
         self.plain, self.drop, self.calls = plain, drop, []
 
-    def __enter__(self):
+    @staticmethod
+    def _targets():
         from repro_torch.kernels import ops
+        from repro_torch.models import attention, ssm
+        return ((ops, "cim_matmul_fused"), (attention, "decode_attention"),
+                (attention, "flash_gqa_attention"), (ssm, "ssm_decode_step"))
+
+    def __enter__(self):
         from repro_torch.kernels.cim_matmul import cim_matmul_fused_plain
         from repro_torch.kernels.decode_attention import \
             decode_attention_plain
         from repro_torch.kernels.flash_attention import flash_gqa_plain
-        from repro_torch.models import attention
-        self.saved = (ops.cim_matmul_fused, attention.decode_attention,
-                      attention.flash_gqa_attention)
+        self.saved = [getattr(m, n) for m, n in self._targets()]
 
         def rec(kind, fn):
             def call(*a, **k):
+                if kind == "ssm":       # window and state before the call
+                    before = (a[0].clone(), a[7].clone())
                 out = fn(*a, **k)
-                self.calls.append((kind, a, k, out))
+                if kind == "ssm":
+                    self.calls.append((kind, (before[0],) + a[1:7]
+                                       + (before[1],) + a[8:], {},
+                                       tuple(t.clone() for t in out)))
+                else:
+                    self.calls.append((kind, a, k, out))
                 return out
             return call
 
@@ -3341,26 +3399,27 @@ class routes:
             return decode_attention_plain(
                 q, k, v, (lens - self.drop).clamp(min=1), *a, **kw)
 
-        (ops.cim_matmul_fused, attention.decode_attention,
-         attention.flash_gqa_attention) = (
-            (cim_matmul_fused_plain,
-             dropped if self.drop else decode_attention_plain,
-             flash_gqa_plain)
-            if self.plain else [rec(n, f) for n, f in zip(
-                ("cim", "decode", "flash"), self.saved)])
+        new = ((cim_matmul_fused_plain,
+                dropped if self.drop else decode_attention_plain,
+                flash_gqa_plain, ssm_plain)
+               if self.plain else [rec(n, f) for n, f in zip(
+                   ("cim", "decode", "flash", "ssm"), self.saved)])
+        for (m, n), f in zip(self._targets(), new):
+            setattr(m, n, f)
         return self
 
     def __exit__(self, *exc):
-        from repro_torch.kernels import ops
-        from repro_torch.models import attention
-        (ops.cim_matmul_fused, attention.decode_attention,
-         attention.flash_gqa_attention) = self.saved
+        for (m, n), f in zip(self._targets(), self.saved):
+            setattr(m, n, f)
 
 
-def greedy_forward(cfg, params, batch, steps, dev, t_max):
+def greedy_forward(cfg, params, batch, steps, dev, t_max, forced=None,
+                   key=21):
     """Greedy tokens of ``steps`` cached forwards after a prefill of
-    ``batch`` (patch prefix and tokens), each keyed by its step, on
-    ``dev``; returns the tokens (B, steps)."""
+    ``batch`` (patch prefix or frames, and tokens), step ``i`` keyed
+    ``fold_in(PRNGKey(key), i)``, on ``dev``; ``forced`` (B, steps) feeds
+    those tokens instead of the greedy ones. Returns the tokens (B, steps)
+    and each step's last-position logits (B, steps, V), on the CPU."""
     import torch
     from repro_torch.core import prng
     from repro_torch.core.deploy import deploy
@@ -3371,15 +3430,18 @@ def greedy_forward(cfg, params, batch, steps, dev, t_max):
         p = deploy(cfg, p)
     b = {k: v.to(dev) for k, v in batch.items()}
     caches = tf.init_caches(cfg, b["tokens"].shape[0], t_max, dev)
-    toks = []
+    toks, last = [], []
     for i in range(steps):
-        ctx = Ctx.make(cfg, prng.fold_in(prng.PRNGKey(21), i),
+        ctx = Ctx.make(cfg, prng.fold_in(prng.PRNGKey(key), i),
                        mode=cfg.cim.mode, deployed=cfg.cim.mode == "sim")
         logits, caches = tf.forward(p, b, cfg, ctx, caches)
+        last.append(logits[:, -1].float().cpu())
         nxt = logits[:, -1].float().argmax(-1)
         toks.append(nxt)
+        if forced is not None:
+            nxt = forced[:, i].to(dev)
         b = {"tokens": nxt[:, None]}
-    return torch.stack(toks, 1).cpu()
+    return torch.stack(toks, 1).cpu(), torch.stack(last, 1)
 
 
 def _tree_to(tree, dev):
@@ -3397,87 +3459,189 @@ def _tree_first(tree, n):
 
 def phase_arch_parity():
     """Reduced configs of the new archs: greedy tokens on the card (CIM,
-    decode and flash kernels) equal the CPU's (plain versions), in off and
-    sim mode, with the same parameters: olmoe (moe with GQA) and the dense
-    archs at their published head dims (phi3-mini-3.8b's 96, internlm2's
-    128) through the engine (4 prompts with a 1-token one, 2 slots, 8 new
-    tokens); pixtral-12b with an 8-position patch prefix through cached
-    forwards (prefill of the prefix and 24 tokens, then 8 decode steps).
-    Off mode holds every token; sim mode the first ``SIM_HORIZON`` of
-    each request (the short horizon of ROADMAP's contract: the card's
-    float order and Box-Muller ulps move an activation by about 1e-6 of
-    its value, which puts one in the next 4-bit bucket about once in 1e5,
-    and a flip can turn a later greedy token), and reports how many of all
-    the tokens are equal."""
+    decode and flash kernels, the selective scan) equal the CPU's (plain
+    versions), in off and sim mode, with the same parameters: olmoe (moe
+    with GQA) and the dense archs at their published head dims
+    (phi3-mini-3.8b's 96, internlm2's 128) through the engine (4 prompts
+    with a 1-token one, 2 slots, 8 new tokens); zamba2-7b (hybrid) the
+    same way at chunk 8, on the card replayed (CUDA graphs) and per call,
+    which must give the same tokens and launch counts; pixtral-12b with an
+    8-position patch prefix through cached forwards (prefill of the prefix
+    and 24 tokens, then 8 decode steps) and whisper-medium (encdec) on 32
+    seeded stub frames (prefill of 12 decoder tokens, then 8 greedy
+    steps). Off mode holds every token; sim mode the first
+    ``SIM_HORIZON`` of each request (the short horizon of ROADMAP's
+    contract: the card's float order and Box-Muller ulps move an
+    activation by about 1e-6 of its value, which puts one in the next
+    4-bit bucket about once in 1e5, and a flip can turn a later greedy
+    token), and reports how many of all the tokens are equal. Returns the
+    seconds the zamba2 and whisper runs took."""
     import torch
     from repro_torch.core.deploy import init_params
     from repro_torch.kernels.cim_matmul import cim_matmul_fused
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_gqa_attention
+    from repro_torch.kernels.ssm_scan import ssm_decode_step
     from repro_torch.serving.engine import Engine, Request
 
     t0 = time.perf_counter()
-    kernels = (cim_matmul_fused, decode_attention, flash_gqa_attention)
-    res = {}
+    kernels = (cim_matmul_fused, decode_attention, flash_gqa_attention,
+               ssm_decode_step)
+    res, new_s = {}, 0.0
     for arch, hd in (("olmoe-1b-7b", 64), ("phi3-mini-3.8b", 96),
-                     ("internlm2-1.8b", 128), ("pixtral-12b", 64)):
+                     ("internlm2-1.8b", 128), ("pixtral-12b", 64),
+                     ("zamba2-7b", 64), ("whisper-medium", 64)):
+        t_arch = time.perf_counter()
         for mode in ("off", "sim"):
             cfg = arch_config(arch, mode, reduced=True, head_dim=hd)
             params = init_params(cfg, torch.Generator().manual_seed(0),
                                  "cpu")
-            for k in kernels:
-                k.launches = 0
-            outs = {}
-            if cfg.family == "vlm":
+            outs, counts = {}, {}
+            if cfg.family in ("vlm", "encdec"):
                 g = torch.Generator().manual_seed(4)
-                batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 24),
-                                                 generator=g),
-                         "patch_embeds": 0.02 * torch.randn(
-                             (2, cfg.n_patches, cfg.d_model), generator=g)}
+                width = 24 if cfg.family == "vlm" else 12
+                batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                                 (2, width), generator=g)}
+                if cfg.family == "vlm":
+                    batch["patch_embeds"] = 0.02 * torch.randn(
+                        (2, cfg.n_patches, cfg.d_model), generator=g)
+                else:
+                    batch["frames"] = torch.randn(
+                        (2, cfg.n_frames, cfg.d_model), generator=g)
                 for dev in ("cuda", "cpu"):
+                    for k in kernels:
+                        k.launches = 0
                     outs[dev] = greedy_forward(cfg, params, batch, 9, dev,
-                                               64).tolist()
+                                               64)[0].tolist()
+                    counts[dev] = {k.__name__: k.launches for k in kernels}
+                if cfg.family == "encdec":
+                    forced = encdec_forced(cfg, params, batch, outs["cpu"])
             else:
                 rng = np.random.default_rng(3)
                 prompts = [rng.integers(0, cfg.vocab_size, n)
                            for n in (40, 1, 90, 57)]
-                for dev in ("cuda", "cpu"):
+                runs = (("cuda", True), ("cuda", False), ("cpu", None)) \
+                    if cfg.family == "hybrid" else (("cuda", None),
+                                                    ("cpu", None))
+                for dev, fused in runs:
                     eng = Engine(cfg, params, max_slots=2, max_len=128,
-                                 attn_impl="kernel", device=dev)
-                    outs[dev] = eng.generate(
+                                 attn_impl="kernel", fused_step=fused,
+                                 chunk_size=8 if cfg.family == "hybrid"
+                                 else None, device=dev)
+                    for k in kernels:      # after the capture's warm-up
+                        k.launches = 0
+                    name = dev if fused is not False else "cuda per call"
+                    outs[name] = eng.generate(
                         [Request(prompt=p, max_new_tokens=8, rid=f"p{i}")
                          for i, p in enumerate(prompts)])
-            counts = {k.__name__: k.launches for k in kernels}
+                    counts[name] = {k.__name__: k.launches for k in kernels}
+                    if dev == "cuda" and fused and not (
+                            eng.fused_step and eng.replay_count
+                            and eng.fused_ok):
+                        fail(f"arch_parity {arch} {mode}: the engine did "
+                             f"not replay its graphs")
+                if "cuda per call" in outs and (
+                        outs["cuda per call"] != outs["cuda"]
+                        or counts["cuda per call"] != counts["cuda"]):
+                    fail(f"arch_parity {arch} {mode}: replayed "
+                         f"{outs['cuda']} {counts['cuda']} != per call "
+                         f"{outs['cuda per call']} "
+                         f"{counts['cuda per call']}")
             n = 8 if mode == "off" else SIM_HORIZON
+            if cfg.family == "encdec" and mode == "sim":
+                n = 1               # see encdec_forced
             held = [list(o[:n]) for o in outs["cuda"]] == [
                 list(o[:n]) for o in outs["cpu"]]
+            if cfg.family == "encdec" and not forced["held"]:
+                fail(f"arch_parity {arch} {mode}: teacher-forced logits, "
+                     f"card vs CPU {forced}")
             agree = sum(a == b for o, c in zip(outs["cuda"], outs["cpu"])
                         for a, b in zip(o, c))
-            if (not held or not counts["decode_attention"]
-                    or not counts["flash_gqa_attention"]
-                    or (mode == "sim" and not counts["cim_matmul_fused"])):
+            c = counts["cuda"]
+            if (not held or not c["decode_attention"]
+                    or not c["flash_gqa_attention"]
+                    or (mode == "sim" and not c["cim_matmul_fused"])
+                    or (cfg.family == "hybrid"
+                        and not c["ssm_decode_step"])):
                 fail(f"arch_parity {arch} D={hd} {mode}: tokens differ "
                      f"within {n}: cuda {outs['cuda']} vs cpu {outs['cpu']} "
-                     f"(launches {counts})")
+                     f"(launches {c})")
             total = sum(map(len, outs["cpu"]))
             res[f"{arch} D={hd} {mode}"] = {
                 "held_tokens": n, "equal_tokens": f"{agree}/{total}",
-                "tokens": outs["cuda"], "launches": counts}
-    emit("arch_parity", equal=True, runs=res,
+                "tokens": outs["cuda"], "launches": c,
+                **({"replayed_equals_per_call": True}
+                   if "cuda per call" in outs else {}),
+                **({"teacher_forced": forced}
+                   if cfg.family == "encdec" else {})}
+        if arch in ("zamba2-7b", "whisper-medium"):
+            new_s += time.perf_counter() - t_arch
+    emit("arch_parity", equal=True, runs=res, new_archs_s=new_s,
          seconds=time.perf_counter() - t0)
+    return new_s
+
+
+ENCDEC_OFF_TOL = 1e-5      # off-mode logits, card vs CPU, times the row max
+
+
+def encdec_forced(cfg, params, batch, cpu_tokens):
+    """The reduced whisper's cached forwards on the card and on the CPU fed
+    the CPU's greedy tokens, each step's logits compared per row (max |card
+    - CPU| over the row's largest |CPU|). Off mode: within ENCDEC_OFF_TOL
+    at every step (the greedy tokens alone say little: the reduced model
+    repeats one token in off mode). Sim mode: at every step closer to the
+    CPU's logits than the CPU's own logits under another noise key are;
+    the sim tokens are held for the first (the prefill's) only, since the
+    encoder's activation scale, a mean over the batch that the card sums
+    in another order, lands an ulp off and moves one 4-bit activation of
+    the first encoder layer across a bucket edge (a CPU run with the
+    scales one ulp up reproduces the card's memory to 4e-7:
+    ``tools/encdec_sim_drift.py``), which moves the decoder's logits by
+    10-20 % of a row's largest."""
+    import torch
+    forced = torch.tensor(cpu_tokens)
+    card = greedy_forward(cfg, params, batch, 9, "cuda", 64, forced)[1]
+    cpu = greedy_forward(cfg, params, batch, 9, "cpu", 64, forced)[1]
+    rel = logits_rel(card, cpu).reshape(forced.shape).amax(0)
+    out = {"card_vs_cpu": rel.tolist()}
+    if cfg.cim.mode == "off":
+        out["held"] = bool(rel.max() <= ENCDEC_OFF_TOL)
+        out["limit"] = ENCDEC_OFF_TOL
+    else:
+        other = greedy_forward(cfg, params, batch, 9, "cpu", 64, forced,
+                               key=22)[1]
+        orel = logits_rel(other, cpu).reshape(forced.shape).amin(0)
+        out["another_key_vs_cpu"] = orel.tolist()
+        out["held"] = bool((rel < orel).all())
+    return out
+
+
+def arch_units(cfg):
+    """Kernel calls of one forward of ``cfg``: ``cim`` CIM calls, 7 a
+    layer (q, k, v, o, gate, up, down), 4 for moe with GQA (q, k, v, o:
+    the router is digital and the expert banks behavioural), for hybrid 11
+    a super-block (in_proj, out_proj of two mamba layers, then the shared
+    block's 7); ``attn`` attention layers (one decode or flash call each);
+    ``ssm`` mamba layers (one selective scan a decode step)."""
+    if cfg.family == "hybrid":
+        n_super, n_mamba = (cfg.n_layers // cfg.attn_period,
+                            cfg.attn_period - 1)
+        return {"cim": (2 * n_mamba + 7) * n_super, "attn": n_super,
+                "ssm": n_mamba * n_super}
+    return {"cim": (4 if cfg.family == "moe" else 7) * cfg.n_layers,
+            "attn": cfg.n_layers, "ssm": 0}
 
 
 def arch_launches(cfg, n_chunks, n_decode):
-    """Launches of rows 1-3 a session of ``cfg`` makes: the CIM kernel 7 a
-    layer a forward (q, k, v, o, gate, up, down), 4 for moe with GQA
-    (q, k, v, o: the router is digital and the expert banks behavioural);
-    one decode attention a layer a decode step, one flash prefill a layer
-    a chunk."""
-    L = cfg.n_layers
-    cim = 4 if cfg.family == "moe" else 7
-    return {"cim_matmul_fused": cim * L * (n_chunks + n_decode),
-            "decode_attention": L * n_decode,
-            "flash_gqa_attention": L * n_chunks}
+    """Launches of rows 1-3 and 8 a session of ``cfg`` makes
+    (``arch_units`` a forward): the CIM kernel every forward, decode
+    attention and the selective scan every decode step, flash prefill
+    every chunk."""
+    u = arch_units(cfg)
+    return {"cim_matmul_fused": u["cim"] * (n_chunks + n_decode),
+            "decode_attention": u["attn"] * n_decode,
+            "flash_gqa_attention": u["attn"] * n_chunks,
+            "ssm_decode_step": u["ssm"] * n_decode}
 
 
 def logits_rel(a, b):
@@ -3486,20 +3650,70 @@ def logits_rel(a, b):
     return ((a - b).abs().amax(-1) / b.abs().amax(-1)).reshape(-1)
 
 
+def ssm_call_errs(a, out, ref):
+    """A model's selective-scan call against its plain result, row by row
+    (a state row is one (slot, head, p) over N, a y row one (slot, head)
+    over P): the error over the row's largest magnitude of the terms that
+    rounding acts on. A float32 sum's rounding scales with its terms, not
+    with its result, and on a model's operands the conv's four taps and
+    bias cancel in some channels (never in ``ssm_check``'s synthetic
+    ones), where an ulp of the terms is a large part of x, B or C. So each
+    conv output carries m = sum_w |window_w w_w| + |bias| + |silu(conv)|,
+    the state's terms |state exp(dt A)| + |dt| m_x m_B, y's sum_n |state|
+    m_C + |D| m_x."""
+    import torch
+    from repro_torch.kernels.ssm_scan import silu
+    conv, xbc, conv_w, conv_b, dt1, A, D, state, di, g, n = a
+    f32 = torch.float32
+    h = A.shape[0]
+    win = torch.cat([conv.to(xbc.dtype), xbc], dim=1).to(f32)
+    w, bias = conv_w.to(f32), conv_b.to(f32)
+    xc = silu(torch.einsum("bwc,wc->bc", win, w) + bias)
+    m = torch.einsum("bwc,wc->bc", win.abs(), w.abs()) + bias.abs() \
+        + xc.abs()
+    mx = m[:, :di].reshape(-1, h, di // h)
+    mb = m[:, di:di + g * n].reshape(-1, g, n)[:, 0]
+    mc = m[:, di + g * n:].reshape(-1, g, n)[:, 0]
+    da = torch.exp(dt1 * A[None, :])[..., None, None]
+    s_scale = ((state * da).abs()
+               + (dt1.abs()[:, :, None] * mx)[..., None] * mb[:, None, None])
+    y_scale = (torch.einsum("bhpn,bn->bhp", ref[2].abs(), mc)
+               + (D.abs()[None, :, None] * mx))
+    b = state.shape[0]
+    return {"state": ((out[2] - ref[2]).abs().amax(-1)
+                      / s_scale.amax(-1).clamp(min=1e-30)),
+            "y": ((out[0] - ref[0]).view(b, h, -1).abs().amax(-1)
+                  / y_scale.amax(-1).clamp(min=1e-30))}
+
+
 def check_recorded(calls, where):
     """Each recorded kernel call against its plain version on the call's
     own operands, at the kernel checks' tolerances: the CIM kernel's
     integer part exactly and its noisy output within
     ``cim_operands_check``'s limit; attention rows within 2^-6 of each
-    query head's row max (``row_check``). Returns the worst error over the
-    row scale and the number of calls, by kernel."""
+    query head's row max (``row_check``); the selective scan's y and state
+    rows within SSM_TOL of each row's largest magnitude of terms
+    (``ssm_call_errs``) and its window exactly. Returns
+    the worst error over the row scale and the number of calls, by
+    kernel."""
+    import torch
     from repro_torch.kernels.decode_attention import decode_attention_plain
     from repro_torch.kernels.flash_attention import flash_gqa_plain
-    worst = {"cim": 0.0, "decode": 0.0, "flash": 0.0}
-    n = {"cim": 0, "decode": 0, "flash": 0}
+    worst = {"cim": 0.0, "decode": 0.0, "flash": 0.0, "ssm": 0.0}
+    n = {"cim": 0, "decode": 0, "flash": 0, "ssm": 0}
     for kind, a, k, out in calls:
         if kind == "cim":
             rel = cim_operands_check(*a, **k)[1]
+        elif kind == "ssm":
+            ref = ssm_plain(*a)
+            rel = {k: v.max().item() for k, v in
+                   ssm_call_errs(a, out, ref).items()}
+            if (max(rel.values()) > SSM_TOL
+                    or not torch.equal(out[1], ref[1])):
+                fail(f"{where}: the selective scan differs from its plain "
+                     f"version on its operands: {rel} (limit {SSM_TOL}), "
+                     f"window equal {torch.equal(out[1], ref[1])}")
+            rel = max(rel.values())
         else:
             plain = decode_attention_plain if kind == "decode" else \
                 flash_gqa_plain
@@ -3557,9 +3771,10 @@ def decode_step_device_ms(eng):
 def serve_arch(arch, smi):
     """One arch at full width (``arch_config``), bf16, sim mode on
     deployed planes, the session of cells A-F: replayed (CUDA graphs of
-    the decode step and the chunk) for the dense and vlm archs, per call
-    for moe. Checks: every request completes with 16 in-range tokens; the
-    launches of rows 1-3 equal ``arch_launches``; 4 slots prefilled with a
+    the decode step and the chunk) for the dense, vlm and hybrid archs,
+    per call for moe. Checks: every request completes with 16 in-range
+    tokens; the launches of rows 1-3 and 8 equal ``arch_launches``; 4
+    slots prefilled with a
     32-token chunk each, then every kernel call of a second chunk (start
     32) and of the first decode step against its plain version on its own
     operands (``check_recorded``); that step's logits through the kernels
@@ -3567,7 +3782,10 @@ def serve_arch(arch, smi):
     within ARCH_LOGIT_TOL of each row's largest |logit|, which the control
     (``routes``' ``drop``) exceeds, in sim mode below the reading under
     another noise key. Reports session tok/s, TTFT, the decode step's
-    device ms, peak memory."""
+    device ms, peak memory, the int8 planes and the least time a decode
+    step takes to stream them (zamba2-7b: its mamba planes once, the
+    shared block's 27 times, since 205 MB of them do not stay in the 50 MB
+    L2 between super-blocks)."""
     import gc
     import torch
     from repro_torch.configs.registry import get_config
@@ -3576,6 +3794,7 @@ def serve_arch(arch, smi):
     from repro_torch.kernels.cim_matmul import cim_matmul_fused
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_gqa_attention
+    from repro_torch.kernels.ssm_scan import ssm_decode_step
     from repro_torch.models import transformer as tf
     from repro_torch.serving.engine import Engine, Request
 
@@ -3597,7 +3816,8 @@ def serve_arch(arch, smi):
     reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n),
                     max_new_tokens=16, rid=f"r{i}")
             for i, n in enumerate(SESSION_LENS)]
-    kernels = (cim_matmul_fused, decode_attention, flash_gqa_attention)
+    kernels = (cim_matmul_fused, decode_attention, flash_gqa_attention,
+               ssm_decode_step)
     for k in kernels:
         k.launches = 0
     torch.cuda.synchronize()
@@ -3635,7 +3855,7 @@ def serve_arch(arch, smi):
     while not all(eng._decoding):
         eng._fill_slots()
         eng._prefill_chunks()
-    per_fwd = expect["cim_matmul_fused"] // (n_chunks + n_decode)
+    u = arch_units(cfg)
     chunk = torch.as_tensor(np.asarray(reqs[1].prompt[32:64])[None],
                             device="cuda")
     ck, _, calls = step_logits(cfg, eng.params, {"tokens": chunk},
@@ -3643,7 +3863,8 @@ def serve_arch(arch, smi):
                                prng.PRNGKey(124), record=True)
     worst_c, n_chunk = check_recorded(calls, f"serve_archs {arch} chunk")
     del calls
-    if (n_chunk != {"cim": per_fwd, "decode": 0, "flash": cfg.n_layers}
+    if (n_chunk != {"cim": u["cim"], "decode": 0, "flash": u["attn"],
+                    "ssm": 0}
             or not bool(torch.isfinite(ck).all())):
         fail(f"serve_archs {arch}: a prefill chunk made {n_chunk} kernel "
              f"calls or non-finite logits")
@@ -3652,7 +3873,8 @@ def serve_arch(arch, smi):
     kern, _, calls = step_logits(*args, record=True)
     worst, n_calls = check_recorded(calls, f"serve_archs {arch}")
     del calls
-    if n_calls != {"cim": per_fwd, "decode": cfg.n_layers, "flash": 0}:
+    if n_calls != {"cim": u["cim"], "decode": u["attn"], "flash": 0,
+                   "ssm": u["ssm"]}:
         fail(f"serve_archs {arch}: a decode step made {n_calls} kernel calls")
     plain = step_logits(*args, plain=True)[0]
     sim_rel = logits_rel(kern, plain)
@@ -3682,6 +3904,11 @@ def serve_arch(arch, smi):
         fail(f"serve_archs {arch}: peak memory {peak / 2 ** 30:.2f} GiB > "
              f"{ARCH_PEAK_GIB}")
     planes = plane_summary(eng.params)
+    stream = planes["int8_bytes"]
+    if cfg.family == "hybrid":
+        stream = (plane_summary(eng.params["mamba_blocks"])["int8_bytes"]
+                  + u["attn"] * plane_summary(
+                      eng.params["shared_attn"])["int8_bytes"])
     emit("serve_archs", arch=arch, family=cfg.family, n_layers=cfg.n_layers,
          reduced={"n_layers": f"{get_config(arch).n_layers} -> "
                   f"{cfg.n_layers}"} if arch in ARCH_LAYERS else {},
@@ -3703,7 +3930,9 @@ def serve_arch(arch, smi):
          decode_step_device_ms=step_dev_ms,
          peak_memory_gib=peak / 2 ** 30,
          memory_before_gib=base / 2 ** 30,
-         int8_plane_gib=planes["int8_bytes"] / 2 ** 30, **extra,
+         int8_plane_gib=planes["int8_bytes"] / 2 ** 30,
+         plane_stream_bound_ms=None if cfg.family == "moe"
+         else 1e3 * stream / HBM_BPS, **extra,
          setup_s=setup_s, seconds=time.perf_counter() - t0, card=smi)
     del eng
     gc.collect()
@@ -3781,27 +4010,202 @@ def vlm_prefix_check(cfg, params):
                              f"off_control_drop{DROP_KEYS}_min": ctrls}}
 
 
+# run M: whisper-medium's batch, decoder prompt, decoder context (the
+# published 448 positions) and greedy steps after the prefill; its control
+# drops the newest 16 of the first decode step's 65 self-attention keys
+# (4 moved the reduced model's logits by 0.04-0.08 only: the decoder's
+# cross-attention, which the control leaves whole, carries much of them)
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_CTX, WHISPER_STEPS = 4, 64, 448, 16
+WHISPER_DROP_KEYS = 16
+
+
+def serve_whisper(smi):
+    """Run M: whisper-medium at full width (24 encoder and 24 decoder
+    layers, bf16), sim mode on deployed planes, decoded by cached forwards
+    (the engines are token-only): a batch of WHISPER_BATCH requests, each
+    with its own seeded stub frames (N(0, 1), n_frames x d_model) and a
+    WHISPER_PROMPT-token decoder prompt, one prefill (the encoder, the
+    cross K/V and the decoder prompt through flash) into a WHISPER_CTX
+    cache, then WHISPER_STEPS greedy decode steps. Checks: the launches
+    of rows 1-3 equal their closed form (the CIM kernel 6 an encoder
+    layer, 10 a decoder layer on the prefill and 8 a decode step; flash a
+    decoder layer on the prefill, decode attention a decoder layer a
+    step); every kernel call of the prefill against its plain version on
+    its own operands (flash in every decoder layer, the CIM calls of the
+    encoder's first and last layers at M = 6000 and all of the
+    decoder's), and every call of the first decode step; that step's
+    logits as in ``serve_arch`` (off mode within ARCH_LOGIT_TOL, the
+    control, WHISPER_DROP_KEYS dropped, beyond it; sim closer than another
+    key). Reports the encoder's
+    and a decode step's device ms, the decode tok/s, the prefill ms and
+    the peak memory."""
+    import gc
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.core.deploy import deploy, init_params, plane_summary
+    from repro_torch.kernels.cim_matmul import cim_matmul_fused
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_gqa_attention
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import Ctx
+
+    t0 = time.perf_counter()
+    cfg = arch_config("whisper-medium")
+    B, E, L = WHISPER_BATCH, cfg.n_enc_layers, cfg.n_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = deploy(cfg, init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"))
+    frames = torch.stack([torch.randn(
+        (cfg.n_frames, cfg.d_model), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(100 + i))
+        for i in range(B)]).to(torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    prompt = torch.randint(0, cfg.vocab_size, (B, WHISPER_PROMPT),
+                           generator=g, device="cuda")
+    empty = tf.init_caches(cfg, B, WHISPER_CTX, "cuda")
+    caches = {k: v.clone() for k, v in empty.items()}
+
+    def ctx(i):
+        return Ctx.make(cfg, prng.fold_in(prng.PRNGKey(31), i),
+                        mode="sim", deployed=True)
+
+    kernels = (cim_matmul_fused, decode_attention, flash_gqa_attention)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    logits, caches = tf.forward(params, {"tokens": prompt, "frames": frames},
+                                cfg, ctx(0), caches)
+    tok = logits[:, -1].float().argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t1
+    after_prefill = {k: v.clone() for k, v in caches.items()}
+    first = tok
+    toks = [tok]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for i in range(WHISPER_STEPS):
+        logits, caches = tf.forward(params, {"tokens": tok}, cfg,
+                                    ctx(i + 1), caches)
+        tok = logits[:, -1].float().argmax(-1)[:, None]
+        toks.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t2
+    counts = {k.__name__: k.launches for k in kernels}
+    expect = {"cim_matmul_fused": 6 * E + 10 * L + 8 * L * WHISPER_STEPS,
+              "decode_attention": L * WHISPER_STEPS,
+              "flash_gqa_attention": L}
+    out = torch.cat(toks, 1)
+    if (counts != expect or tuple(out.shape) != (B, WHISPER_STEPS + 1)
+            or not bool(((out >= 0) & (out < cfg.vocab_size)).all())
+            or int(tf.cache_len(caches)[0]) != WHISPER_PROMPT
+            + WHISPER_STEPS):
+        fail(f"serve_whisper: launches {counts} != {expect} or tokens "
+             f"{out.shape} out of range")
+
+    # the prefill's calls against their plain versions, from an empty cache
+    batch = {"tokens": prompt, "frames": frames}
+    _, _, calls = step_logits(cfg, params, batch, empty, prng.PRNGKey(41),
+                              record=True)
+    cim = [c for c in calls if c[0] == "cim"]
+    flash = [c for c in calls if c[0] == "flash"]
+    if len(cim) != 6 * E + 10 * L or len(flash) != L or len(calls) != \
+            len(cim) + len(flash):
+        fail(f"serve_whisper: the prefill made {len(cim)} CIM and "
+             f"{len(flash)} flash calls of {len(calls)}")
+    held = flash + cim[:6] + cim[6 * E - 6:]   # encoder: first, last layer
+    del calls, cim[:6 * E]
+    worst_p, n_prefill = check_recorded(held + cim, "serve_whisper prefill")
+    del held, cim, flash
+
+    # the first decode step: every call vs plain, the logits kernels vs plain
+    args = (cfg, params, {"tokens": first}, after_prefill, prng.PRNGKey(42))
+    kern, _, calls = step_logits(*args, record=True)
+    worst, n_calls = check_recorded(calls, "serve_whisper decode")
+    del calls
+    if n_calls != {"cim": 8 * L, "decode": L, "flash": 0, "ssm": 0}:
+        fail(f"serve_whisper: a decode step made {n_calls} kernel calls")
+    plain = step_logits(*args, plain=True)[0]
+    sim_rel = logits_rel(kern, plain)
+    other = logits_rel(step_logits(*args[:4], prng.PRNGKey(321))[0], plain)
+    del plain
+    plain = step_logits(*args, mode="off", plain=True)[0]
+    off = logits_rel(step_logits(*args, mode="off")[0], plain)
+    ctrl = logits_rel(step_logits(*args, mode="off", plain=True,
+                                  drop=WHISPER_DROP_KEYS)[0], plain)
+    del plain
+    if (not bool(torch.isfinite(kern).all())
+            or tuple(kern.shape) != (B, 1, cfg.vocab_size)
+            or off.max().item() > ARCH_LOGIT_TOL
+            or not ctrl.min().item() > ARCH_LOGIT_TOL
+            or not sim_rel.max().item() < other.min().item()):
+        fail(f"serve_whisper: first decode step's logits, kernels vs plain: "
+             f"off {off.tolist()} (limit {ARCH_LOGIT_TOL}, control "
+             f"{ctrl.tolist()} must exceed it), sim {sim_rel.tolist()}, sim "
+             f"under another key {other.tolist()}")
+    enc_ms, enc_top = device_breakdown(
+        lambda: tf.encode(params, frames, cfg, ctx(0)))
+    step_ms, step_top = device_breakdown(
+        lambda: tf.forward(params, {"tokens": tok}, cfg, ctx(99), caches))
+    peak = torch.cuda.max_memory_allocated()
+    emit("serve_whisper", arch="whisper-medium", family=cfg.family,
+         n_layers=L, n_enc_layers=E, n_frames=cfg.n_frames,
+         head_dim=cfg.hd, heads=[cfg.n_heads, cfg.n_kv_heads],
+         d_model=cfg.d_model, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+         dtype=cfg.dtype, batch=B, prompt_len=WHISPER_PROMPT,
+         decoder_ctx=WHISPER_CTX, greedy_steps=WHISPER_STEPS,
+         launches=counts, expected=expect, prefill_ms=1e3 * prefill_s,
+         decode_tok_per_s=B * WHISPER_STEPS / decode_s,
+         decode_step_ms_mean=1e3 * decode_s / WHISPER_STEPS,
+         prefill_calls_vs_plain={"calls": n_prefill,
+                                 "max_err_over_row_max": worst_p},
+         first_step_calls_vs_plain={"calls": n_calls,
+                                    "max_err_over_row_max": worst},
+         first_step_logits_err_over_row_max={
+             "off": off.tolist(), f"off_control_drop{WHISPER_DROP_KEYS}":
+             ctrl.tolist(), "sim": sim_rel.tolist(),
+             "sim_another_key": other.tolist()},
+         encoder_device_ms=enc_ms, encoder_top_kernels_ms=enc_top,
+         decode_step_device_ms=step_ms, decode_step_top_kernels_ms=step_top,
+         peak_memory_gib=peak / 2 ** 30,
+         int8_plane_gib=plane_summary(params)["int8_bytes"] / 2 ** 30,
+         seconds=time.perf_counter() - t0, card=smi)
+    del params, caches, after_prefill, empty, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def phase_serve_archs():
-    """The five archs at full width (``ARCH_LAYERS``' depth cuts); returns
-    the launches of rows 1-3 summed over their sessions."""
+    """The six archs at full width (``ARCH_LAYERS``' depth cuts) and run
+    M; returns the launches of rows 1-3 and 8 summed over their sessions
+    and the seconds of runs L and M."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    total = {}
-    for arch in ARCHS:
-        for k, v in serve_arch(arch, smi).items():
+    total, new_s = {}, 0.0
+    for arch in ARCHS + ("whisper-medium",):
+        t0 = time.perf_counter()
+        counts = (serve_whisper(smi) if arch == "whisper-medium"
+                  else serve_arch(arch, smi))
+        for k, v in counts.items():
             total[k] = total.get(k, 0) + v
-    return total
+        if arch in ("zamba2-7b", "whisper-medium"):
+            new_s += time.perf_counter() - t0
+    return total, new_s
 
 
-def phase_times_d96():
-    """Rows 2 and 3 at head dim 96 on phi3-mini-3.8b's unit (32 layers, 32
-    heads, MHA, bf16 cache): one decode step (B = 4, lens 300/137/95/211
-    after the write, T = 320) and one 32-token prefill chunk (start 128)
-    by the profiler, beside the plain versions, one
-    scaled_dot_product_attention call of the same function and the bound
-    (the live cache bytes over 3.35 TB/s, or the operations over the bf16
-    peak)."""
+def phase_times_wide_heads():
+    """Rows 2 and 3 at head dims 96 and 112, each on its arch's unit (bf16
+    cache, MHA): phi3-mini-3.8b (32 layers, 32 heads of 96) and zamba2-7b
+    (its 27 attention layers, 32 heads of 112). One decode step (B = 4,
+    lens 300/137/95/211 after the write, T = 320) and one 32-token
+    prefill chunk (start 128) by the profiler, beside the plain versions,
+    one scaled_dot_product_attention call of the same function and the
+    bound (the live cache bytes over 3.35 TB/s, or the operations over
+    the bf16 peak). Returns the times and the seconds of the D 112 unit."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import (decode_attention,
@@ -3809,56 +4213,67 @@ def phase_times_d96():
     from repro_torch.kernels.flash_attention import (flash_gqa_attention,
                                                      flash_gqa_plain)
     t0 = time.perf_counter()
-    cfg = arch_config("phi3-mini-3.8b")
-    L, h, kv, hd, t = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.hd, 320
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(96)
-    lens = torch.tensor([300, 137, 95, 211], dtype=torch.int32, device=dev)
-    caches = [tuple(torch.randn((4, t, kv, hd), generator=g, device=dev)
-                    .bfloat16() for _ in range(2)) for _ in range(L)]
-    q = torch.randn((4, h, hd), generator=g, device=dev).bfloat16()
-    live = int(lens.sum())
-    b2 = L * (2 * live * kv * hd * 2 + 2 * q.numel() * 2)
-    o2 = L * 4 * live * h * hd
-    mask = (torch.arange(t, device=dev)[None, :] < lens[:, None]
-            )[:, None, None, :]
-    res = {}
-    res["decode_attention[D96]"] = dict(
-        ms=device_ms(lambda: [decode_attention(q, k, v, lens)
-                              for k, v in caches], 10),
-        plain_ms=device_ms(lambda: [decode_attention_plain(q, k, v, lens)
-                                    for k, v in caches], 3),
-        library_ms=device_ms(lambda: [F.scaled_dot_product_attention(
-            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
-            attn_mask=mask) for k, v in caches], 10),
-        bound_ms=1e3 * max(b2 / HBM_BPS, o2 / BF16_OPS),
-        bound_by="bytes" if b2 / HBM_BPS >= o2 / BF16_OPS else "operations",
-        unit="one decode step: 32 layers, B=4, H=KV=32, D=96, lens "
-             + str(lens.tolist()))
-    s, start = 32, 128
-    qf = torch.randn((1, s, h, hd), generator=g, device=dev).bfloat16()
-    st = torch.tensor([start], dtype=torch.int32, device=dev)
-    one = [(k[:1], v[:1]) for k, v in caches]
-    b3 = L * (2 * (start + s) * kv * hd * 2 + 2 * qf.numel() * 2)
-    o3 = L * 4 * h * hd * sum(start + i + 1 for i in range(s))
-    qi = torch.arange(s, device=dev)[:, None] + start
-    kj = torch.arange(t, device=dev)[None, :]
-    fmask = ((kj <= qi) & (kj < start + s))[None, None]
-    res["flash_gqa[D96]"] = dict(
-        ms=device_ms(lambda: [flash_gqa_attention(qf, k, v, st)
-                              for k, v in one], 10),
-        plain_ms=device_ms(lambda: [flash_gqa_plain(qf, k, v, st)
-                                    for k, v in one], 3),
-        library_ms=device_ms(lambda: [F.scaled_dot_product_attention(
-            qf.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            attn_mask=fmask) for k, v in one], 10),
-        bound_ms=1e3 * max(b3 / HBM_BPS, o3 / BF16_OPS),
-        bound_by="bytes" if b3 / HBM_BPS >= o3 / BF16_OPS else "operations",
-        unit="one prefill chunk: 32 layers, S=32, start=128, H=KV=32, D=96")
+    res, d112_s = {}, 0.0
+    for arch, tag in (("phi3-mini-3.8b", "D96"), ("zamba2-7b", "D112")):
+        t_unit = time.perf_counter()
+        cfg = arch_config(arch)
+        L = arch_units(cfg)["attn"]
+        h, kv, hd, t = cfg.n_heads, cfg.n_kv_heads, cfg.hd, 320
+        dev = torch.device("cuda")
+        g = torch.Generator(device=dev).manual_seed(96)
+        lens = torch.tensor([300, 137, 95, 211], dtype=torch.int32,
+                            device=dev)
+        caches = [tuple(torch.randn((4, t, kv, hd), generator=g, device=dev)
+                        .bfloat16() for _ in range(2)) for _ in range(L)]
+        q = torch.randn((4, h, hd), generator=g, device=dev).bfloat16()
+        live = int(lens.sum())
+        b2 = L * (2 * live * kv * hd * 2 + 2 * q.numel() * 2)
+        o2 = L * 4 * live * h * hd
+        mask = (torch.arange(t, device=dev)[None, :] < lens[:, None]
+                )[:, None, None, :]
+        res[f"decode_attention[{tag}]"] = dict(
+            ms=device_ms(lambda: [decode_attention(q, k, v, lens)
+                                  for k, v in caches], 10),
+            plain_ms=device_ms(lambda: [decode_attention_plain(q, k, v, lens)
+                                        for k, v in caches], 3),
+            library_ms=device_ms(lambda: [F.scaled_dot_product_attention(
+                q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask) for k, v in caches], 10),
+            bound_ms=1e3 * max(b2 / HBM_BPS, o2 / BF16_OPS),
+            bound_by="bytes" if b2 / HBM_BPS >= o2 / BF16_OPS
+            else "operations",
+            unit=f"one decode step: {L} layers, B=4, H=KV={h}, D={hd}, lens "
+                 + str(lens.tolist()))
+        s, start = 32, 128
+        qf = torch.randn((1, s, h, hd), generator=g, device=dev).bfloat16()
+        st = torch.tensor([start], dtype=torch.int32, device=dev)
+        one = [(k[:1], v[:1]) for k, v in caches]
+        b3 = L * (2 * (start + s) * kv * hd * 2 + 2 * qf.numel() * 2)
+        o3 = L * 4 * h * hd * sum(start + i + 1 for i in range(s))
+        qi = torch.arange(s, device=dev)[:, None] + start
+        kj = torch.arange(t, device=dev)[None, :]
+        fmask = ((kj <= qi) & (kj < start + s))[None, None]
+        res[f"flash_gqa[{tag}]"] = dict(
+            ms=device_ms(lambda: [flash_gqa_attention(qf, k, v, st)
+                                  for k, v in one], 10),
+            plain_ms=device_ms(lambda: [flash_gqa_plain(qf, k, v, st)
+                                        for k, v in one], 3),
+            library_ms=device_ms(lambda: [F.scaled_dot_product_attention(
+                qf.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=fmask) for k, v in one], 10),
+            bound_ms=1e3 * max(b3 / HBM_BPS, o3 / BF16_OPS),
+            bound_by="bytes" if b3 / HBM_BPS >= o3 / BF16_OPS
+            else "operations",
+            unit=f"one prefill chunk: {L} layers, S=32, start=128, "
+                 f"H=KV={h}, D={hd}")
+        del caches, one
+        if tag == "D112":
+            d112_s = time.perf_counter() - t_unit
     for name, r in res.items():
         emit("time", kernel=name, **r)
-    emit("times_d96", seconds=time.perf_counter() - t0)
-    return res
+    emit("times_wide_heads", seconds=time.perf_counter() - t0,
+         d112_s=d112_s)
+    return res, d112_s
 
 
 def main() -> int:
@@ -3953,11 +4368,11 @@ def main() -> int:
     phase_train_lm()
     phase_paper_figures()
     t_archs = time.perf_counter()
-    phase_arch_parity()
-    runs["archs"] = phase_serve_archs()
-    phase_times_d96()
-    emit("gqa_archs", seconds=time.perf_counter() - t_archs,
-         limit_s=240)
+    new_s = phase_arch_parity()
+    runs["archs"], served_s = phase_serve_archs()
+    new_s += served_s + phase_times_wide_heads()[1]
+    emit("archs", seconds=time.perf_counter() - t_archs,
+         new_phases_s=new_s, new_phases_limit_s=110)
     src = {"cim_matmul_fused": ("src/repro_torch/csrc/cim_matmul.cu",
                                 "src/repro/kernels/cim_matmul.py:340",
                                 cim_matmul_fused, "cim_matmul_fused"),
@@ -4023,8 +4438,10 @@ def main() -> int:
              runs["mha"][name] if ekey in ("mha", "mha[f32]") else
              runs[ekey][fn.__name__] if ekey in ("ssm", "mla")
              or ekey[0] == "fused" else runs[ekey[1]][fn.__name__])
-        # the new archs' sessions (bf16 caches) run rows 1-3 too
-        if name in ("cim_matmul_fused", "decode_attention", "flash_gqa"):
+        # the registry archs' runs G-M (bf16 caches) run rows 1-3 too,
+        # zamba2-7b's (L) row 8
+        if name in ("cim_matmul_fused", "decode_attention", "flash_gqa",
+                    "ssm_decode_step"):
             n += runs["archs"][fn.__name__]
         line.append({"name": name, "route": "cuda", "source": path,
                      "replaces": tpu, "launches": n,

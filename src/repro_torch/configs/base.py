@@ -1,6 +1,5 @@
-"""Config schema of the port (a copy of the dense, vlm, ssm, moe and vit
-parts of the JAX package's ``configs/base.py``; the port imports nothing of
-that package).
+"""Config schema of the port (a copy of the JAX package's
+``configs/base.py``; the port imports nothing of that package).
 
 One ``ModelConfig`` describes an architecture; ``reduced()`` builds the
 same-family tiny config the CPU tests use.
@@ -58,8 +57,7 @@ class MLAConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # "dense", "vlm", "ssm", "moe" or "vit"
-                                 # (the ported families)
+    family: str                  # dense|moe|ssm|hybrid|encdec|vlm|vit
     n_layers: int
     d_model: int
     n_heads: int
@@ -72,6 +70,12 @@ class ModelConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    # hybrid (zamba2): repeating super-block of (attn_period-1) mamba layers
+    # + 1 *shared-weight* attention layer
+    attn_period: int = 0
+    # encoder-decoder (whisper): n_layers is the decoder depth
+    n_enc_layers: int = 0
+    n_frames: int = 1500         # encoder memory length (stub frontend)
     # vlm (pixtral): the first n_patches positions come from the (stub)
     # vision frontend as precomputed patch embeddings
     n_patches: int = 0
@@ -102,9 +106,23 @@ class ModelConfig:
         return self.d_model // self.n_heads if self.n_heads else 0
 
     def param_count(self) -> int:
-        """Approximate parameter count (embeddings + blocks)."""
+        """Approximate parameter count (embeddings + blocks), the
+        reference's formula. For hybrid and encdec it is not the size of
+        the params tree: hybrid counts a ``3*d*f`` MLP per mamba layer that
+        the tree does not have, encdec an untied head and an approximate
+        cross-attention term (zamba2-7b: 12.97 B here, 4.53 B in the tree;
+        whisper-medium 1.11 B, 0.758 B)."""
         d, f, v, hd = self.d_model, self.d_ff, self.vocab_size, self.hd
         emb = v * d * (1 if self.tie_embeddings else 2)
+        if self.family == "hybrid":
+            s = self.ssm
+            di = s.expand * d
+            mamba = (d * (2 * di + 2 * s.ngroups * s.d_state
+                          + di // s.headdim) + di * d + 3 * d * f)
+            n_mamba = self.n_layers - self.n_layers // self.attn_period
+            qkv = (d * hd * (self.n_heads + 2 * self.n_kv_heads)
+                   + self.n_heads * hd * d)
+            return emb + n_mamba * mamba + qkv + 3 * d * f  # attn once
         if self.family == "ssm":
             s = self.ssm
             di = s.expand * d
@@ -125,18 +143,23 @@ class ModelConfig:
                          + d * m.n_experts)
         elif self.family == "vit":
             per_layer = 4 * d * d + 2 * d * f
-        else:                    # dense, vlm
+        else:                    # dense, vlm, encdec
             qkv = (d * hd * (self.n_heads + 2 * self.n_kv_heads)
                    + self.n_heads * hd * d)
             per_layer = qkv + 3 * d * f
-        return emb + self.n_layers * per_layer
+            if self.family == "encdec":
+                per_layer += qkv     # cross attention (approx)
+        n = self.n_layers + (self.n_enc_layers if self.family == "encdec"
+                             else 0)
+        return emb + n * per_layer
 
     def reduced(self) -> "ModelConfig":
         """Same-family tiny config for CPU tests (the JAX package's values)."""
         small = dataclasses.replace(
             self,
             name=self.name + "-smoke",
-            n_layers=min(self.n_layers, 2),
+            n_layers=min(self.n_layers, 2 if self.attn_period == 0
+                         else 2 * max(self.attn_period, 1)),
             d_model=256,
             n_heads=4,
             n_kv_heads=(min(self.n_kv_heads, 2)
@@ -146,6 +169,8 @@ class ModelConfig:
             vocab_size=512,
             max_seq_len=128,
             dtype="float32",
+            n_enc_layers=min(self.n_enc_layers, 2),
+            n_frames=32,
             n_patches=min(self.n_patches, 8) if self.n_patches else 0,
         )
         if self.moe is not None:
@@ -162,4 +187,7 @@ class ModelConfig:
             small = dataclasses.replace(
                 small, mla=MLAConfig(q_lora=64, kv_lora=64, rope_head_dim=16,
                                      nope_head_dim=32, v_head_dim=32))
+        if self.attn_period:
+            small = dataclasses.replace(
+                small, attn_period=min(self.attn_period, 3), n_layers=6)
         return small

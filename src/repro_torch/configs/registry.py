@@ -1,4 +1,5 @@
-"""--arch <id> registry of the archs the port can build."""
+"""--arch <id> registry: the JAX package's 10 assigned architectures and
+the paper's ViT."""
 
 from __future__ import annotations
 
@@ -17,14 +18,14 @@ _MODULES: Dict[str, str] = {
     "pixtral-12b": "repro_torch.configs.pixtral_12b",
     "qwen2-0.5b": "repro_torch.configs.qwen2_0_5b",
     "vit-small-cifar": "repro_torch.configs.vit_small_cifar",
+    "whisper-medium": "repro_torch.configs.whisper_medium",
+    "zamba2-7b": "repro_torch.configs.zamba2_7b",
 }
 
 
 def get_config(name: str) -> ModelConfig:
     if name not in _MODULES:
-        raise KeyError(
-            f"arch {name!r} is not ported to PyTorch yet; the port builds "
-            f"{sorted(_MODULES)} (ROADMAP.md lists the other families)")
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)}")
     return importlib.import_module(_MODULES[name]).CONFIG
 
 

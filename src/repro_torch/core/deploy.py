@@ -15,21 +15,24 @@ Also the parameter bridge of the port:
   * ``params_from_jax(tree)`` turns the JAX params tree, already converted
     to numpy arrays by the caller (the port never imports JAX), into torch
     tensors of the same structure;
-  * ``init_params(cfg, generator, device)`` initialises the dense, vlm,
-    ssm, moe (MLA or GQA attention) and vit families natively (the card has
-    no JAX): the JAX initialiser's distributions — N(0, 1/d_in) weights
-    (the MLA projections and the f32 router too), zero biases, unit norms,
+  * ``init_params(cfg, generator, device)`` initialises every family
+    natively (the card has no JAX): the JAX initialiser's tree and
+    distributions — N(0, 1/d_in) weights (the MLA projections and the f32
+    router too), zero biases, unit norms (layernorms with a zero bias),
     N(0, 0.02^2) embeddings (and the ViT's cls token and positions, in
     f32); for mamba2 N(0, 0.2^2) conv weights, zero conv bias and dt bias,
     ``A_log = log(linspace(1, 16, H))`` and unit skip gains; for the expert
     banks U(-1/sqrt(d), 1/sqrt(d)) — drawn from a ``torch.Generator``, equal
-    in law, not in bits.
+    in law, not in bits. The hybrid tree stacks its mamba blocks over
+    (super-block, layer) and holds one unstacked shared attention+MLP
+    block; the encdec tree stacks encoder and decoder blocks apart.
 
 A stacked weight of more than ``SLAB_ELEMS`` elements is drawn one layer
-at a time (as the expert banks are a slab of experts at a time): the f32
-temporaries of a whole stacked deepseek-67b MLP weight would be 23 GB
-each. Smaller tensors keep one draw. ``quantize_plane`` quantizes every
-stacked weight a layer at a time.
+(one (super-block, layer) slice for hybrid) at a time, as the expert
+banks are a slab of experts at a time: the f32 temporaries of a whole
+stacked deepseek-67b MLP weight would be 23 GB each, of zamba2-7b's
+``in_proj`` stack 11 GB. Smaller tensors keep one draw.
+``quantize_plane`` quantizes every stacked weight a layer at a time.
 """
 
 from __future__ import annotations
@@ -187,12 +190,8 @@ def params_from_jax(tree: Any, device="cpu") -> Any:
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda") -> Any:
-    """Random params of the dense, vlm, ssm, moe or vit family, stacked
-    over layers like the reference."""
+    """Random params of any family, laid out like the reference's tree."""
     from repro_torch import resolve_device
-    if cfg.family not in ("dense", "vlm", "ssm", "moe", "vit"):
-        raise NotImplementedError(
-            f"{cfg.name} (family {cfg.family!r}) is not ported")
     dev = resolve_device(device)
     dt = dtype_of(cfg)
     L, d = cfg.n_layers, cfg.d_model
@@ -205,32 +204,46 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     def full(shape, value, dtype=dt):
         return torch.full(shape, value, dtype=dtype, device=dev)
 
-    def dense(d_in, d_out, bias=False, dtype=dt):
-        if L * d_in * d_out <= SLAB_ELEMS:
-            w = normal(L, d_in, d_out, std=d_in ** -0.5, dtype=dtype)
+    def dense(d_in, d_out, bias=False, dtype=dt, lead=(L,)):
+        n = int(np.prod(lead))
+        if n * d_in * d_out <= SLAB_ELEMS:
+            w = normal(*lead, d_in, d_out, std=d_in ** -0.5, dtype=dtype)
         else:                   # a layer at a time (module doc)
-            w = torch.empty((L, d_in, d_out), dtype=dtype, device=dev)
-            for i in range(L):
-                w[i] = normal(d_in, d_out, std=d_in ** -0.5, dtype=dtype)
+            w = torch.empty(lead + (d_in, d_out), dtype=dtype,
+                            device=dev)
+            flat = w.view(n, d_in, d_out)
+            for i in range(n):
+                flat[i] = normal(d_in, d_out, std=d_in ** -0.5, dtype=dtype)
         p = {"w": w}
         if bias:
-            p["b"] = full((L, d_out), 0.0)
+            p["b"] = full(lead + (d_out,), 0.0)
         return p
 
-    def ones(n):
-        return {"g": full((L, n), 1.0)}
+    def ones(n, lead=(L,)):
+        return {"g": full(lead + (n,), 1.0)}
 
-    def gqa():
+    def ln(lead=(L,)):
+        return {"g": full(lead + (d,), 1.0),
+                "b": full(lead + (d,), 0.0)}
+
+    def gqa(lead=(L,)):
         nh, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-        return {"q": dense(d, nh * hd, cfg.qkv_bias),
-                "k": dense(d, kv * hd, cfg.qkv_bias),
-                "v": dense(d, kv * hd, cfg.qkv_bias),
-                "o": dense(nh * hd, d)}
+        return {"q": dense(d, nh * hd, cfg.qkv_bias, lead=lead),
+                "k": dense(d, kv * hd, cfg.qkv_bias, lead=lead),
+                "v": dense(d, kv * hd, cfg.qkv_bias, lead=lead),
+                "o": dense(nh * hd, d, lead=lead)}
 
-    if cfg.family == "vit":
-        return _init_vit(cfg, normal, full)
+    def swiglu(lead=(L,)):
+        f = cfg.d_ff
+        return {"gate": dense(d, f, lead=lead), "up": dense(d, f, lead=lead),
+                "down": dense(f, d, lead=lead)}
 
-    if cfg.family == "ssm":
+    def gelu(lead=(L,)):
+        f = cfg.d_ff
+        return {"up": dense(d, f, True, lead=lead),
+                "down": dense(f, d, True, lead=lead)}
+
+    def mamba(lead=(L,)):
         s = cfg.ssm
         di = s.expand * d
         h = di // s.headdim
@@ -238,19 +251,45 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         f32 = torch.float32
         a_log = torch.log(torch.linspace(1.0, 16.0, h, dtype=f32,
                                          device=dev))
-        blocks = {
+        return {
             "mamba": {
-                "in_proj": dense(d, 2 * di + 2 * s.ngroups * s.d_state + h),
-                "out_proj": dense(di, d),
-                "conv_w": normal(L, s.conv_width, conv_dim, std=0.2),
-                "conv_b": full((L, conv_dim), 0.0),
-                "A_log": a_log[None].repeat(L, 1),
-                "D": full((L, h), 1.0, f32),
-                "dt_bias": full((L, h), 0.0, f32),
-                "norm_g": full((L, di), 1.0),
+                "in_proj": dense(d, 2 * di + 2 * s.ngroups * s.d_state + h,
+                                 lead=lead),
+                "out_proj": dense(di, d, lead=lead),
+                "conv_w": normal(*lead, s.conv_width, conv_dim, std=0.2),
+                "conv_b": full(lead + (conv_dim,), 0.0),
+                "A_log": a_log.expand(lead + (h,)).clone(),
+                "D": full(lead + (h,), 1.0, f32),
+                "dt_bias": full(lead + (h,), 0.0, f32),
+                "norm_g": full(lead + (di,), 1.0),
             },
-            "n": ones(d),
+            "n": ones(d, lead),
         }
+
+    def top(**trees):
+        return {"embed": {"e": normal(cfg.vocab_size, d, std=0.02)},
+                "final_norm": {"g": full((d,), 1.0)}, **trees}
+
+    if cfg.family == "vit":
+        return _init_vit(cfg, normal, full)
+    if cfg.family == "hybrid":
+        return top(mamba_blocks=mamba((L // cfg.attn_period,
+                                       cfg.attn_period - 1)),
+                   shared_attn={"attn": gqa(()), "mlp": swiglu(()),
+                                "n1": ones(d, ()), "n2": ones(d, ())})
+    if cfg.family == "encdec":
+        enc = (cfg.n_enc_layers,)
+        return top(enc_blocks={"attn": gqa(enc), "mlp": gelu(enc),
+                               "n1": ln(enc), "n2": ln(enc)},
+                   dec_blocks={"attn": gqa(), "cross": {
+                       "q": dense(d, cfg.n_heads * cfg.hd),
+                       "k": dense(d, cfg.n_kv_heads * cfg.hd),
+                       "v": dense(d, cfg.n_kv_heads * cfg.hd),
+                       "o": dense(cfg.n_heads * cfg.hd, d)},
+                       "mlp": gelu(), "n1": ln(), "n2": ln(), "n3": ln()},
+                   enc_norm=ln(()))
+    if cfg.family == "ssm":
+        blocks = mamba()
     elif cfg.family == "moe":
         a, m, f, h = cfg.mla, cfg.moe, cfg.d_ff, cfg.n_heads
         lim = d ** -0.5
@@ -287,17 +326,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             blocks["moe"]["shared"] = {"gate": dense(d, fs),
                                        "up": dense(d, fs),
                                        "down": dense(fs, d)}
-    else:                       # dense, vlm
-        f = cfg.d_ff
-        blocks = {
-            "attn": gqa(),
-            "mlp": {"gate": dense(d, f), "up": dense(d, f),
-                    "down": dense(f, d)},
-            "n1": ones(d), "n2": ones(d),
-        }
-    return {"embed": {"e": normal(cfg.vocab_size, d, std=0.02)},
-            "final_norm": {"g": full((d,), 1.0)},
-            "blocks": blocks}
+    elif cfg.family in ("dense", "vlm"):
+        blocks = {"attn": gqa(), "mlp": swiglu(), "n1": ones(d),
+                  "n2": ones(d)}
+    else:
+        raise ValueError(f"unknown family {cfg.family!r}")
+    return top(blocks=blocks)
 
 
 def _init_vit(cfg: ModelConfig, normal, full) -> Any:

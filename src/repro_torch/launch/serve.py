@@ -9,6 +9,8 @@
       --reduced --cim sim --attn-impl kernel --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-mini-3.8b \\
       --cim sim --attn-impl kernel
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
+      --cim sim --attn-impl kernel
   PYTHONPATH=src python -m repro_torch.launch.serve --engine loop --reduced
 
 ``--cim sim`` serves the CIM macro model: the weights are deployed once as
@@ -20,7 +22,8 @@ with ``use_kernel=True`` runs the fused CIM kernel with in-kernel
 per-tile readout noise instead.
 ``--attn-impl kernel`` runs cached attention through the decode and flash
 kernels, a deepseek-v2 decode step through the latent-cache MLA kernel,
-and a mamba2 decode step through the selective-scan kernel;
+and a mamba2 (or zamba2 mamba layer's) decode step through the
+selective-scan kernel;
 ``--kv-int8`` changes nothing for an attention-free model or for MLA's
 latent cache, as in the reference. ``--engine fused`` (the default) is the
 slot-batched ``Engine``: chunked prefill, and on the card the decode step
@@ -29,7 +32,9 @@ allow (``fused_step``); ``--chunk-size 0`` prefills each prompt whole at
 admission, per call. ``--engine loop`` is the reference's ``LoopEngine``
 baseline (batch-1 caches, one forward per slot per token). Parameters are
 random, drawn from ``--seed``. The entry point runs on the card; ``--device cpu`` runs the
-kernels' plain versions.
+kernels' plain versions. ``--arch whisper-medium`` (encdec) raises the
+engine's ``ValueError``: its requests would need encoder frames, which the
+token-only engines do not carry, as in the reference.
 """
 
 from __future__ import annotations
@@ -58,8 +63,9 @@ def _build_argparser():
                          "pixtral-12b (vlm backbone, served token-only), "
                          "mamba2-130m (ssm), olmoe-1b-7b (moe with GQA) or "
                          "deepseek-v2-236b (moe with MLA; 472 GB at full "
-                         "width: --reduced); an arch that does not fit "
-                         "the card needs --reduced")
+                         "width: --reduced), zamba2-7b (hybrid); "
+                         "whisper-medium (encdec) is not served; an arch "
+                         "that does not fit the card needs --reduced")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--new-tokens", type=int, default=12)

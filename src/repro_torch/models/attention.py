@@ -1,6 +1,6 @@
-"""GQA and MLA attention against the per-sequence slot cache.
+"""GQA, cross and MLA attention against the per-sequence slot cache.
 
-Twin of the GQA and MLA parts of ``src/repro/models/attention.py``. The cache is a
+Twin of ``src/repro/models/attention.py``. The cache is a
 dict ``{"k": (B, T, KV, D), "v": ..., "len": (B,)}`` (int8 ``k``/``v`` plus
 ``ks``/``vs`` (B, T, KV, 1) f32 scales with ``kv_cache_int8``); ``len`` is
 per sequence, so ragged slots share one batch. Unlike the functional
@@ -15,6 +15,10 @@ Two implementations, selected by ``cfg.attn_impl``:
   * ``"kernel"`` — decode (S == 1) through the length-aware decode kernel,
     prefill (S > 1) through the GQA flash kernel with per-row start
     offsets (``kernels/decode_attention.py``, ``kernels/flash_attention.py``).
+
+Cross-attention (whisper's decoder, ``cross_kv`` and ``cross_attention``)
+reads the encoder memory's K/V, computed once at prefill, through the
+unmasked einsum softmax, as the reference does.
 
 MLA (deepseek-v2, ``mla_attention``) caches the compressed latent
 ``{"ckv": (B, T, kv_lora), "krope": (B, T, rope_hd), "len": (B,)}``, also
@@ -184,6 +188,33 @@ def gqa_attention(ctx: Ctx, p: Params, x: torch.Tensor,
             out = _sdpa(q, ck, cv, _cached_mask(start, s, t))
     out = out.reshape(b, s, h * hd)
     return dense(ctx, p["o"], out, "attn_out"), cache
+
+
+# ------------------------------------------------------------- cross-attn
+
+def cross_kv(ctx: Ctx, p: Params, memory: torch.Tensor
+             ) -> Dict[str, torch.Tensor]:
+    """The encoder memory's K/V for one decoder layer (whisper), computed
+    once a request at prefill: two CIM linears, role ``cross_qkv``."""
+    cfg = ctx.cfg
+    b, t, _ = memory.shape
+    kv, hd = cfg.n_kv_heads, cfg.hd
+    k = dense(ctx, p["k"], memory, "cross_qkv").reshape(b, t, kv, hd)
+    v = dense(ctx, p["v"], memory, "cross_qkv").reshape(b, t, kv, hd)
+    return {"k": k, "v": v}
+
+
+def cross_attention(ctx: Ctx, p: Params, x: torch.Tensor,
+                    kv: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Unmasked attention of the decoder's queries over the encoder
+    memory's K/V (the einsum softmax; the reference reaches no kernel
+    here)."""
+    cfg = ctx.cfg
+    b, s, _ = x.shape
+    h, hd = cfg.n_heads, cfg.hd
+    q = dense(ctx, p["q"], x, "cross_qkv").reshape(b, s, h, hd)
+    out = _sdpa(q, kv["k"], kv["v"], None).reshape(b, s, h * hd)
+    return dense(ctx, p["o"], out, "cross_out")
 
 
 # ----------------------------------------------------------------- MLA

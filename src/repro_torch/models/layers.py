@@ -1,6 +1,7 @@
-"""Building blocks: CIM-aware dense, norms, RoPE, SwiGLU, embeddings.
+"""Building blocks: CIM-aware dense, norms, RoPE, SwiGLU and GELU MLPs,
+embeddings, sinusoidal positions.
 
-Twin of ``src/repro/models/layers.py`` for the ported families. Every matmul
+Twin of ``src/repro/models/layers.py``. Every matmul
 goes through ``dense()`` with a *role* (attn_qkv / mlp_in / ...) so the SAC
 policy picks the macro operating point per layer. Parameters are plain
 dicts of tensors laid out like the JAX tree.
@@ -256,8 +257,10 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 
 
 def gelu_mlp(ctx: Ctx, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """up -> GELU (the tanh form, as ``jax.nn.gelu``) -> down."""
-    h = gelu_tanh(dense(ctx, p["up"], x, "mlp_in"))
+    """up -> GELU (the tanh form, as ``jax.nn.gelu``; a bf16 activation is
+    evaluated in f32 and rounded back) -> down."""
+    h = dense(ctx, p["up"], x, "mlp_in")
+    h = gelu_tanh(h.to(torch.float32)).to(h.dtype)
     return dense(ctx, p["down"], h, "mlp_out")
 
 
@@ -271,3 +274,19 @@ def unembed(ctx: Ctx, p: Params, x: torch.Tensor) -> torch.Tensor:
     """Logits head: digital per SAC (role 'head' maps to None), a plain
     matmul as in the reference."""
     return x @ p["e"].to(x.dtype).T
+
+
+def sinusoidal_positions(pos, d: int, device=None) -> torch.Tensor:
+    """pos: an int n (positions 0..n-1) or a tensor of positions of any
+    shape (...) -> (..., d) f32 embeddings: the sines of the d/2
+    frequencies ``pos / 10000^(2i/d)``, then their cosines. The power is
+    rounded from float64, as XLA's f32 ``pow`` rounds it (torch's f32
+    ``pow`` is an ulp off on some exponents, which moves the sine of a
+    large angle by 1e-5)."""
+    if isinstance(pos, int):
+        pos = torch.arange(pos, device=device)
+    pos = pos.to(torch.float32)[..., None]
+    i = torch.arange(d // 2, dtype=torch.float32, device=pos.device)
+    den = torch.pow(10000.0, (2 * i / d).to(torch.float64))
+    ang = pos / den.to(torch.float32)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)

@@ -1,12 +1,15 @@
 """Public model API: build an arch, get its init, loss and forward.
 
-Twin of ``build`` in ``src/repro/models/model.py`` for the dense, vlm,
-ssm, moe (MLA or GQA attention) and vit families.
+Twin of ``build`` in ``src/repro/models/model.py`` for every family.
 ``init(generator, device)`` draws torch-native parameters
 (``core.deploy.init_params``); parameters converted from a JAX tree come
 from ``core.deploy.params_from_jax``. ``loss(params, batch, key)`` is the
 training objective (``lm_loss``; ``vit_loss`` on ``batch["images"]``,
-``batch["labels"]``), each under ``Ctx.make(cfg, key)``.
+``batch["labels"]``), each under ``Ctx.make(cfg, key)``. For encdec,
+``forward`` and ``loss`` read the stub frame embeddings
+``batch["frames"]`` (B, n_frames, d_model) beside ``batch["tokens"]``
+(on an uncached or prefill forward; a decode step reads the cached
+cross K/V).
 """
 
 from __future__ import annotations

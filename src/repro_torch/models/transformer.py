@@ -1,21 +1,33 @@
-"""Decoder-LM assembly for the dense family (GQA + SwiGLU pre-norm blocks),
-the vlm family (the dense blocks behind a stub patch prefix: pixtral's
-backbone), the ssm family (pre-norm mamba2 blocks) and the moe family
-(MLA attention with routed and shared experts, deepseek-v2; or GQA
-attention with routed experts, olmoe).
+"""Decoder-LM assembly for every LM family of the registry: dense (GQA +
+SwiGLU pre-norm blocks), vlm (the dense blocks behind a stub patch prefix:
+pixtral's backbone), ssm (pre-norm mamba2 blocks), moe (MLA attention with
+routed and shared experts, deepseek-v2; or GQA attention with routed
+experts, olmoe), hybrid (zamba2: super-blocks of ``attn_period - 1``
+mamba2 layers and one attention+MLP block whose weights all super-blocks
+share) and encdec (whisper: a bidirectional encoder over stub frame
+embeddings, a causal decoder with cross-attention).
 
-Twin of the dense, vlm, ssm and moe parts of
-``src/repro/models/transformer.py``.
+Twin of ``src/repro/models/transformer.py``.
 The layer stack is a Python loop over the layers (the reference scans over
 stacked parameters); layer ``i`` keys its CIM noise off
-``fold_in(ctx.key, i)`` exactly as the reference's scan body does.
+``fold_in(ctx.key, i)`` exactly as the reference's scan body does. A
+hybrid super-block ``i`` has one such context, which its mamba layers and
+the shared block draw from in turn (11 keys for zamba2: in_proj, out_proj
+twice, then q, k, v, o, gate, up, down); encoder layer ``i`` is keyed
+``fold_in(key, i)``, decoder layer ``i`` ``fold_in(key, 1000 + i)``.
 
 Caches are stacked over layers like the reference's: dense
 ``{"k": (L, B, T, KV, D), "v": ..., ["ks", "vs": (L, B, T, KV, 1)],
 "len": (L, B)}`` (also vlm and moe with GQA); ssm ``{"conv": (L, B,
 width-1, conv_dim) in the model dtype, "state": (L, B, H, P, N) f32}``,
 with no length; MLA
-``{"ckv": (L, B, T, kv_lora), "krope": (L, B, T, rope_hd), "len": (L, B)}``. ``forward``
+``{"ckv": (L, B, T, kv_lora), "krope": (L, B, T, rope_hd), "len": (L, B)}``;
+hybrid one flat dict, ``conv``/``state`` (n_super * n_mamba, B, ...) in
+super-block-major order and ``k``/``v``/``len`` (with ``ks``/``vs``)
+(n_super, B, ...) (the reference nests them, ``hybrid_nested`` gives its
+layout as views); encdec the decoder's GQA self-cache over its layers,
+joined at prefill by the encoder memory's cross K/V ``xk``/``xv`` (L, B,
+n_frames, KV, D). The slot is axis 1 of every leaf. ``forward``
 writes the new keys (or window and state) in place and returns the same
 dict; ``take_slot`` returns views of one slot row, so a forward on a
 slot's views updates the engine's cache without a copy.
@@ -38,11 +50,8 @@ from repro_torch.kernels.fused_step import (fused_dense_layer, kernel_takes,
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import Ctx, Params, embed, rmsnorm, swiglu, \
-    unembed
-
-_NOT_PORTED = "is not ported yet; ROADMAP.md lists it as later work"
-
+from repro_torch.models.layers import Ctx, Params, embed, gelu_mlp, \
+    layernorm, rmsnorm, sinusoidal_positions, swiglu, unembed
 
 def _use_fused_layer(ctx: Ctx, p: Params, x, cache) -> bool:
     """Route a decode-shaped dense block through the per-layer megakernel
@@ -103,11 +112,21 @@ def _moe_block(ctx: Ctx, p: Params, x, positions, cache):
 
 _BLOCKS = {"dense": _dense_block, "vlm": _dense_block, "ssm": _ssm_block,
            "moe": _moe_block}
+_SSM_LEAVES = ("conv", "state")
+_CROSS_LEAVES = ("xk", "xv")
 
 
 def check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in _BLOCKS:
-        raise NotImplementedError(f"family {cfg.family!r} {_NOT_PORTED}")
+    """Raise on a family this module does not assemble (vit lives in
+    ``models/vit.py``)."""
+    if cfg.family not in _BLOCKS and cfg.family not in ("hybrid", "encdec"):
+        raise ValueError(f"family {cfg.family!r} is not a decoder-LM "
+                         f"family of models/transformer.py")
+
+
+def hybrid_dims(cfg: ModelConfig) -> Tuple[int, int]:
+    """(super-blocks, mamba layers a super-block) of a hybrid config."""
+    return cfg.n_layers // cfg.attn_period, cfg.attn_period - 1
 
 
 def _index(tree, i: int):
@@ -125,14 +144,37 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 device="cpu") -> Dict[str, torch.Tensor]:
     """Stacked per-layer decoding caches (leading 'layers' axis)."""
     check_family(cfg)
+    dt = dtype_of(cfg)
+
+    def stack(one, n):
+        return {k: v[None].repeat((n,) + (1,) * v.ndim)
+                for k, v in one.items()}
+
     if cfg.family == "ssm":
-        one = ssm_mod.init_ssm_cache(cfg, batch, dtype_of(cfg), device)
+        one = ssm_mod.init_ssm_cache(cfg, batch, dt, device)
     elif cfg.family == "moe" and cfg.mla is not None:
-        one = attn.init_mla_cache(cfg, batch, max_len, dtype_of(cfg), device)
+        one = attn.init_mla_cache(cfg, batch, max_len, dt, device)
+    elif cfg.family == "hybrid":
+        n_super, n_mamba = hybrid_dims(cfg)
+        return {**stack(ssm_mod.init_ssm_cache(cfg, batch, dt, device),
+                        n_super * n_mamba),
+                **stack(attn.init_gqa_cache(cfg, batch, max_len, dt,
+                                            device), n_super)}
     else:
-        one = attn.init_gqa_cache(cfg, batch, max_len, dtype_of(cfg), device)
-    return {k: v[None].repeat((cfg.n_layers,) + (1,) * v.ndim)
-            for k, v in one.items()}
+        one = attn.init_gqa_cache(cfg, batch, max_len, dt, device)
+    return stack(one, cfg.n_layers)
+
+
+def hybrid_nested(cfg: ModelConfig, caches) -> Dict[str, Any]:
+    """A hybrid flat cache as views in the reference's nested layout:
+    ``{"mamba": {"conv", "state": (n_super, n_mamba, B, ...)}, "attn":
+    {"k", "v", "len", ...: (n_super, B, ...)}}``."""
+    n_super, n_mamba = hybrid_dims(cfg)
+    return {"mamba": {k: caches[k].reshape((n_super, n_mamba)
+                                           + caches[k].shape[1:])
+                      for k in _SSM_LEAVES},
+            "attn": {k: v for k, v in caches.items()
+                     if k not in _SSM_LEAVES}}
 
 
 def take_slot(caches, slot: int) -> Dict[str, torch.Tensor]:
@@ -221,13 +263,40 @@ def cache_len(caches) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
-def _run_blocks(ctx: Ctx, blocks: Params, x, positions, caches):
+def _leaves(caches, i: int, keys):
+    """Layer ``i``'s views of the cache leaves ``keys`` (None uncached)."""
+    if caches is None:
+        return None
+    return {k: caches[k][i] for k in keys if k in caches}
+
+
+def _run_blocks(ctx: Ctx, params: Params, x, positions, caches):
+    if ctx.cfg.family == "hybrid":
+        return _hybrid_blocks(ctx, params, x, positions, caches)
+    blocks = params["blocks"]
     for i in range(ctx.cfg.n_layers):
         lctx = ctx.for_layer(i)
         layer_cache = None if caches is None else _index(caches, i)
         x, _ = _BLOCKS[ctx.cfg.family](lctx, _index(blocks, i), x,
                                        positions, layer_cache)
-    return x, caches
+    return x
+
+
+def _hybrid_blocks(ctx: Ctx, params: Params, x, positions, caches):
+    """zamba2's super-blocks: ``n_mamba`` mamba2 layers, then the shared
+    attention+MLP block (the same weights in every super-block, its own
+    GQA cache in each), all keyed by the super-block's one context."""
+    n_super, n_mamba = hybrid_dims(ctx.cfg)
+    attn_keys = [k for k in (caches or {}) if k not in _SSM_LEAVES]
+    for i in range(n_super):
+        lctx = ctx.for_layer(i)
+        sp = _index(params["mamba_blocks"], i)
+        for j in range(n_mamba):
+            x, _ = _ssm_block(lctx, _index(sp, j), x, positions,
+                              _leaves(caches, i * n_mamba + j, _SSM_LEAVES))
+        x, _ = _dense_block(lctx, params["shared_attn"], x, positions,
+                            _leaves(caches, i, attn_keys))
+    return x
 
 
 def _embed_input(cfg: ModelConfig, params: Params, batch: Dict[str, Any]):
@@ -243,9 +312,12 @@ def forward(params: Params, batch: Dict[str, Any], cfg: ModelConfig,
             ctx: Optional[Ctx] = None, caches=None
             ) -> Tuple[torch.Tensor, Any]:
     """Forward to logits. train: caches=None; prefill/decode: the stacked
-    cache, updated in place."""
+    cache, updated in place (encdec: ``batch["frames"]`` (B, n_frames,
+    d_model) feed the encoder, on the uncached and the prefill forward)."""
     check_family(cfg)
     ctx = ctx or Ctx.make(cfg)
+    if cfg.family == "encdec":
+        return _encdec_forward(params, batch, cfg, ctx, caches)
     x = _embed_input(cfg, params, batch)
     b, s, _ = x.shape
     steps = torch.arange(s, device=x.device)[None]
@@ -253,8 +325,68 @@ def forward(params: Params, batch: Dict[str, Any], cfg: ModelConfig,
         positions = steps.expand(b, s)
     else:
         positions = cache_len(caches)[:, None] + steps
-    x, caches = _run_blocks(ctx, params["blocks"], x, positions, caches)
+    x = _run_blocks(ctx, params, x, positions, caches)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return unembed(ctx, params["embed"], x), caches
+
+
+def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig,
+           ctx: Ctx) -> torch.Tensor:
+    """Whisper's encoder over stub frame embeddings -> memory (B, T, d):
+    sinusoidal positions, pre-layernorm blocks of non-causal self-attention
+    and a GELU MLP, a final layernorm."""
+    dt, eps = dtype_of(cfg), cfg.norm_eps
+    mem = frames.to(dt)
+    mem = mem + sinusoidal_positions(mem.shape[1], cfg.d_model,
+                                     mem.device).to(dt)[None]
+    b, t, _ = mem.shape
+    pos = torch.arange(t, device=mem.device)[None].expand(b, t)
+    for i in range(cfg.n_enc_layers):
+        lctx = ctx.for_layer(i)
+        p = _index(params["enc_blocks"], i)
+        h, _ = attn.gqa_attention(lctx, p["attn"],
+                                  layernorm(p["n1"], mem, eps), pos, None,
+                                  causal=False)
+        mem = mem + h
+        mem = mem + gelu_mlp(lctx, p["mlp"], layernorm(p["n2"], mem, eps))
+    return layernorm(params["enc_norm"], mem, eps)
+
+
+def _encdec_forward(params: Params, batch: Dict[str, Any], cfg: ModelConfig,
+                    ctx: Ctx, caches=None):
+    """Whisper's decoder. Uncached and on the prefill (a cache without
+    ``xk``) the encoder runs and every layer computes its cross K/V from
+    the memory (``cross_kv``, after the self-attention's draws), which a
+    prefill stores in the cache; a cached decode reads them back."""
+    dt, eps = dtype_of(cfg), cfg.norm_eps
+    cached_cross = caches is not None and "xk" in caches
+    mem = None if cached_cross else encode(params, batch["frames"], cfg, ctx)
+    x = embed(params["embed"], batch["tokens"], dt)
+    b, s, _ = x.shape
+    steps = torch.arange(s, device=x.device)[None]
+    positions = (steps.expand(b, s) if caches is None
+                 else cache_len(caches)[:, None] + steps)
+    x = x + sinusoidal_positions(positions, cfg.d_model).to(dt)
+    self_keys = [k for k in (caches or {}) if k not in _CROSS_LEAVES]
+    new_cross = []
+    for i in range(cfg.n_layers):
+        lctx = ctx.for_layer(1000 + i)
+        p = _index(params["dec_blocks"], i)
+        h, _ = attn.gqa_attention(lctx, p["attn"], layernorm(p["n1"], x, eps),
+                                  positions, _leaves(caches, i, self_keys))
+        x = x + h
+        if cached_cross:
+            kv = {"k": caches["xk"][i], "v": caches["xv"][i]}
+        else:
+            kv = attn.cross_kv(lctx, p["cross"], mem)
+            new_cross.append(kv)
+        x = x + attn.cross_attention(lctx, p["cross"],
+                                     layernorm(p["n2"], x, eps), kv)
+        x = x + gelu_mlp(lctx, p["mlp"], layernorm(p["n3"], x, eps))
+    if caches is not None and not cached_cross:
+        caches["xk"] = torch.stack([kv["k"] for kv in new_cross])
+        caches["xv"] = torch.stack([kv["v"] for kv in new_cross])
+    x = rmsnorm(params["final_norm"], x, eps)
     return unembed(ctx, params["embed"], x), caches
 
 

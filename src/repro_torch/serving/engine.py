@@ -1,11 +1,13 @@
 """Slot-batched continuous-batching serving engine on PyTorch.
 
 Twin of the fused ``Engine`` and the ``LoopEngine`` of
-``src/repro/serving/engine.py`` for the dense, vlm, ssm and moe families
-(the vlm family served token-only, as the reference serves it).
-One stacked cache of batch ``max_slots`` is allocated once (a KV or latent
-cache over-allocated to a chunk multiple, so a final padded chunk never
-clamps back onto live keys; for mamba2 the conv window and the f32 state).
+``src/repro/serving/engine.py`` for the dense, vlm, ssm, moe and hybrid
+families (the vlm family served token-only, as the reference serves it;
+encdec, whose requests would need encoder frames, raises ``ValueError`` as
+in the reference). One stacked cache of batch ``max_slots`` is allocated
+once (a KV or latent cache over-allocated to a chunk multiple, so a final
+padded chunk never clamps back onto live keys; for mamba2 the conv window
+and the f32 state; for zamba2 both).
 Each scheduler iteration advances every still-prefilling slot by one
 fixed-shape chunk of ``chunk_size`` tokens, in ascending slot order, then
 runs ONE batch decode step over every slot: idle and prefilling rows ride
@@ -16,7 +18,7 @@ of its tokens are real (``Ctx.prefill_valid``), so the ssm state skips the
 chunk's right-pad. ``chunk_size=0`` is the reference's whole-prompt path:
 a request is prefilled at admission in one forward, right-padded to a
 power-of-two bucket for the dense and vlm families and at its true length
-for ssm and moe.
+for ssm, moe and hybrid.
 
 The PRNG contract replays the reference bit for bit:
 
@@ -31,7 +33,8 @@ The PRNG contract replays the reference bit for bit:
 Sim mode deploys the weights once into int8 planes at construction and
 serves them on the CIM kernel (``cim.use_kernel=True``) or on the
 behavioural ``core.cim.cim_dense`` (``use_kernel=False``), as the
-reference does. On the kernel path of the dense, vlm and ssm families every
+reference does. On the kernel path of the dense, vlm, ssm and hybrid
+families every
 forward's noise seeds are one ``prng.seed_table`` (one vectorized host
 call), staged with the forward's other host inputs (active mask, chunk
 tokens, valid count) into one device buffer by one copy from pinned
@@ -45,8 +48,8 @@ engine captures the batch decode step as one CUDA graph and each slot's
 chunk forward as one graph (all in one memory pool; at most one replays at
 a time), and replays them, chunks first in slot order, then the decode,
 with the draw order of the per-call path. ``None`` (auto) takes it when
-prefill is chunked and the family and path can be captured (dense, vlm
-and ssm, in off mode or on the CIM kernel path); ``True`` raises where it
+prefill is chunked and the family and path can be captured (dense, vlm,
+ssm and hybrid, in off mode or on the CIM kernel path); ``True`` raises where it
 cannot. The moe family and the behavioural path draw their noise through eager
 ops keyed by host integers, which a replay would freeze, and serve
 per-call. On the CPU the option runs the per-call path. A capture that
@@ -108,8 +111,9 @@ DRAIN_EVERY = 64
 # a recurrent state would absorb it (the reference's _BUCKETED_FAMILIES)
 BUCKETED_FAMILIES = ("dense", "vlm")
 # families whose forward a CUDA graph captures, and the CIM noise seeds a
-# layer draws (q, k, v, o, gate, up, down; in_proj, out_proj)
-SEEDS_PER_LAYER = {"dense": 7, "vlm": 7, "ssm": 2}
+# layer draws (q, k, v, o, gate, up, down; in_proj, out_proj; a hybrid
+# super-block: in_proj, out_proj twice, then the shared block's seven)
+SEEDS_PER_LAYER = {"dense": 7, "vlm": 7, "ssm": 2, "hybrid": 11}
 # kernel wrappers whose launch counts a replay adds
 COUNTED = (cim_matmul_fused, cim_matmul_int8, decode_attention,
            flash_gqa_attention, flash_attention, fused_dense_layer,
@@ -205,6 +209,14 @@ def _row_sample_keys(rkeys: List[prng.Key], tok_idx,
 
 def _launch_counts() -> Dict[Any, int]:
     return {fn: fn.launches for fn in COUNTED}
+
+
+def _seed_units(cfg: ModelConfig) -> int:
+    """Keyed units of a forward, each ``fold_in(key, i)``: the layers, or a
+    hybrid's super-blocks."""
+    if cfg.family == "hybrid":
+        return tf.hybrid_dims(cfg)[0]
+    return cfg.n_layers
 
 
 def _seed_width(cfg: ModelConfig, mode: str) -> int:
@@ -336,7 +348,7 @@ class Engine:
         self.key = prng.PRNGKey(seed)
         self._sample_base = prng.fold_in(prng.PRNGKey(seed), 0x5A17)
         self._width = _seed_width(cfg, mode)
-        self._inputs = _Inputs(self.device, cfg.n_layers * self._width,
+        self._inputs = _Inputs(self.device, _seed_units(cfg) * self._width,
                                max_slots, self.chunk_size)
 
         params = _to_device(params, self.device)
@@ -490,7 +502,7 @@ class Engine:
         seed-table path)."""
         if not self._width:
             return None
-        return prng.seed_table(prng.split(key)[0], self.cfg.n_layers,
+        return prng.seed_table(prng.split(key)[0], _seed_units(self.cfg),
                                self._width)
 
     def _free_slot(self, s: int) -> None:
@@ -852,7 +864,7 @@ class LoopEngine:
         self.key = prng.PRNGKey(seed)
         self._width = _seed_width(self.cfg, self.mode)
         self._inputs = _Inputs(self.device,
-                               self.cfg.n_layers * self._width, 0, 0)
+                               _seed_units(self.cfg) * self._width, 0, 0)
         params = _to_device(params, self.device)
         self.params = (deploy_params(self.cfg, params) if self.mode == "sim"
                        else params)
@@ -934,8 +946,8 @@ class LoopEngine:
         ctx = Ctx.make(self.cfg, key, mode=self.mode,
                        deployed=self.mode == "sim")
         if self._width:
-            self._inputs.put(seeds=prng.seed_table(key, self.cfg.n_layers,
-                                                   self._width))
+            self._inputs.put(seeds=prng.seed_table(
+                key, _seed_units(self.cfg), self._width))
             ctx.seeds, ctx.seed_width = self._inputs.seeds, self._width
         logits, _ = tf.forward(self.params, {"tokens": tokens}, self.cfg,
                                ctx, cache)
@@ -960,6 +972,9 @@ def _resolve(cfg: ModelConfig, cim_mode: Optional[str],
     """The config with an ``attn_impl`` override applied, and the CIM
     mode; raises on what the port does not serve."""
     tf.check_family(cfg)
+    if cfg.family == "encdec":
+        raise ValueError("encdec serving needs per-request encoder frames; "
+                         "the token-only engines don't carry them")
     if attn_impl is not None:
         if attn_impl not in ("einsum", "kernel"):
             raise ValueError(f"attn_impl must be 'einsum' or 'kernel', "

@@ -82,12 +82,15 @@ def test_init_params_matches_jax_tree_in_law():
 
 
 def test_registry_lists_only_ported_archs():
-    assert list_archs() == ["deepseek-67b", "deepseek-v2-236b",
-                            "internlm2-1.8b", "mamba2-130m", "olmoe-1b-7b",
-                            "phi3-mini-3.8b", "pixtral-12b", "qwen2-0.5b",
-                            "vit-small-cifar"]
-    with pytest.raises(KeyError, match="not ported"):
-        get_config("zamba2-7b")
+    """Every arch of the reference's registry is ported: the lists equal,
+    and an unknown name raises ``KeyError``."""
+    from repro.configs.registry import list_archs as jlist
+    assert list_archs() == jlist() == [
+        "deepseek-67b", "deepseek-v2-236b", "internlm2-1.8b", "mamba2-130m",
+        "olmoe-1b-7b", "phi3-mini-3.8b", "pixtral-12b", "qwen2-0.5b",
+        "vit-small-cifar", "whisper-medium", "zamba2-7b"]
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("llama-9b")
     for arch in list_archs():
         full, ref = get_config(arch), jget(arch)
         for ours, theirs in ((full, ref), (full.reduced(), ref.reduced())):

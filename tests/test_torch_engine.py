@@ -146,8 +146,10 @@ def test_unported_options_and_bad_requests_raise(setup, monkeypatch):
     for kw in ({"guard": True}, {"ladder": object()}, {"cim_mode": "qat"}):
         with pytest.raises(NotImplementedError):
             Engine(cfg, tp, device="cpu", **kw)
-    with pytest.raises(NotImplementedError):
-        Engine(dataclasses.replace(cfg, family="hybrid"), tp, device="cpu")
+    # encdec requests would need encoder frames: the token-only engine
+    # raises, as the reference's does
+    with pytest.raises(ValueError, match="encdec"):
+        Engine(dataclasses.replace(cfg, family="encdec"), tp, device="cpu")
     # the behavioural sim path (use_kernel=False) is ported: it serves,
     # through cim_matmul_behavioral and not the CIM kernel's plain version
     behavioural = dataclasses.replace(cfg, cim=dataclasses.replace(
