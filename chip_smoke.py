@@ -88,8 +88,16 @@ prefill (the encoder's CIM calls in its first and last layers) and of a
 decode step held the same way (``serve_archs``); rows 2 and 3 at head
 dims 96 and 112 timed on phi3's and zamba2's units
 (``times_wide_heads``). The GQA kernels' shape checks and the MHA check
-cover head dims 96 and 112 as well. Every phase prints one JSON line;
-any failure exits non-zero. The last line is the device record.
+cover head dims 96 and 112 as well. The robustness layer: row 1 on a
+stuck-at plane and under the guard's re-read spec against its plain
+version, the stuck draw and the drift and fault epilogue card vs CPU
+(``robust_kernel_checks``); the reduced qwen2 guarded with a faulted
+slot and drifted with calibration, card vs CPU and replayed vs per call
+(``robust_parity``); full-width qwen2-0.5b under the guard quiet, with a
+faulted slot pinned against its pinned twin, on a stuck-at deploy, and
+drifted with calibration replayed vs per call (``serve_robust``). Every
+phase prints one JSON line; any failure exits non-zero. The last line is
+the device record.
 """
 
 from __future__ import annotations
@@ -896,9 +904,10 @@ def phase_whole_prompt_loop_parity():
 
 
 # ------------------------------------------------------- behavioural sim
-# the full-width behavioural session's depth: 4 of qwen2-0.5b's 24 layers
-# for the script's time (its eager Threefry draws take 6-9 s a layer)
-BEHAVIOURAL_LAYERS = 4
+# the full-width behavioural session's depth: 2 of qwen2-0.5b's 24 layers
+# for the script's time (its eager Threefry draws take 6-9 s a layer; 4
+# before the robustness phases came)
+BEHAVIOURAL_LAYERS = 2
 
 
 def phase_behavioural_sim(params):
@@ -3112,9 +3121,10 @@ def _vit_run(cfg, steps, warmup, name):
 # where one image's quantized activation flips) and 0.25 % (full width);
 # the same forward with the noise off or doubled reads 55-109 %.
 VIT_LOGIT_TOL = 0.05
-# QAT steps of the full-width vit-small-cifar: 100 for the script's time
-# (a step takes 0.65-0.9 s on an H100)
-VIT_FULL_STEPS = 100
+# QAT steps of the full-width vit-small-cifar: 40 for the script's time
+# (a step takes 0.65-0.9 s on an H100; 100 before the robustness phases
+# came)
+VIT_FULL_STEPS = 40
 
 
 def _vit_row1_parity(cfg, params, name):
@@ -3226,11 +3236,17 @@ def phase_vit_qat():
     return total
 
 
+# the uninterrupted LM run's steps (10 before the robustness phases came,
+# for the script's time; the resume check needs 6)
+LM_STEPS = 6
+
+
 def phase_train_lm():
     """Full-width qwen2-0.5b trained with --cim qat through ``Trainer``:
-    10 steps at batch 8 x seq 128, and a run cut after 5 steps (checkpoint)
-    then resumed for its sixth, whose loss must equal the uninterrupted
-    run's sixth within 1e-5 relative. Step ms and peak memory."""
+    ``LM_STEPS`` steps at batch 8 x seq 128 (of a 10-step schedule), and a
+    run cut after 5 steps (checkpoint) then resumed for its sixth, whose
+    loss must equal the uninterrupted run's sixth within 1e-5 relative.
+    Step ms and peak memory."""
     import shutil
     import torch
     from repro_torch.configs.base import CIMModelConfig
@@ -3267,7 +3283,7 @@ def phase_train_lm():
 
     key = prng.PRNGKey(0)
     torch.cuda.reset_peak_memory_stats()
-    tr, full = trainer("full", 10, every=10)     # one save, at the end
+    tr, full = trainer("full", LM_STEPS, every=LM_STEPS)  # one save
     tr.run(key, resume=False)
     peak = torch.cuda.max_memory_allocated()
     del tr
@@ -3285,7 +3301,8 @@ def phase_train_lm():
         fail(f"train_lm: losses {losses}, resumed {resumed}")
     shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
-    emit("train_lm", arch=cfg.name, cim="qat", steps=10, batch=8, seq=128,
+    emit("train_lm", arch=cfg.name, cim="qat", steps=LM_STEPS, batch=8,
+         seq=128,
          losses=losses, resumed_step6_loss=resumed[0][0],
          step_ms_median=float(np.median([t for _, t in full[1:]])),
          first_step_ms=full[0][1], peak_mem_gib=peak / 2 ** 30)
@@ -3299,6 +3316,389 @@ def phase_paper_figures():
     if figures(["--device", "cuda"]) != 0:
         fail("paper_figures: a figure failed")
     emit("paper_figures", seconds=time.perf_counter() - t0)
+
+
+# ------------------------------------------------- the robustness layer
+# the full-width robustness sessions' prompts (cell A's two shortest,
+# twice) and greedy tokens, sized to their time: a guarded step runs per
+# call and reads every plane twice (0.55 s of host a step)
+ROBUST_LENS = (60, 64, 60, 64)
+ROBUST_NEW = 6
+ROBUST_STUCK = 1e-3        # the kernel check's stuck-at rate
+ULP_LIMIT = 3              # card vs CPU normals (ROADMAP C4)
+
+
+def _ulps(a, b):
+    """|a - b| in units of b's f32 spacing, elementwise (float64)."""
+    a, b = a.double().cpu().numpy(), b.double().cpu().numpy()
+    return np.abs(a - b) / np.spacing(np.abs(b).astype(np.float32))
+
+
+def phase_robust_kernel_checks():
+    """Row 1 on the robustness layer's operands, card against plain, at
+    qwen2-0.5b's ``gate`` plane (896 x 4864, the 6-bit MLP point): the
+    stuck-at draw (rate ``ROBUST_STUCK``) card vs CPU, exactly, for one
+    layer's slice of a stacked ``q`` plane (4 bits), and its time on the
+    gate plane's slice; row 1 on the stuck gate plane (integer
+    part exact, noise at ``cim_operands_check``'s limits) and under
+    ``_retry_spec`` (CB on, 12 votes: another sigma); the deployed drift
+    and fault epilogue card vs CPU on the same kernel output (gain,
+    offset, stuck columns, trims within 1e-6 of the largest value), the
+    brownout's Threefry bits exactly and its normal within ``ULP_LIMIT``
+    ulp; and the epilogue keyed by a seed-table row's fold equal to the
+    host key's, bit for bit."""
+    import torch
+    from repro_torch.core import prng, quant
+    from repro_torch.core.cim import output_noise_std_int, \
+        output_noise_std_int_per_tile
+    from repro_torch.core.drift import DriftSpec, apply_drift
+    from repro_torch.core.faults import (FaultSpec, apply_output_faults,
+                                         stuck_bit_plane)
+    from repro_torch.core.guard import GuardSpec, _retry_spec
+    from repro_torch.core.sac import paper_sac
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    pol = paper_sac()
+    spec = pol.mlp
+    k, n = 896, 4864
+    key = prng.PRNGKey(3)
+    # layer 5's slice of a stacked q plane (4 bits), card vs CPU
+    q_plane = random_plane(g, k, k, pol.attn)
+    sq = stuck_bit_plane(q_plane, pol.attn.w_bits, ROBUST_STUCK, key,
+                         start=5 * k * k)
+    if not torch.equal(sq.cpu(), stuck_bit_plane(
+            q_plane.cpu(), pol.attn.w_bits, ROBUST_STUCK, key,
+            start=5 * k * k)):
+        fail("robust: the stuck plane differs card vs CPU")
+    clean = random_plane(g, k, n, spec)
+    stuck_bit_plane(clean[:8], spec.w_bits, ROBUST_STUCK, key)   # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sp = stuck_bit_plane(clean, spec.w_bits, ROBUST_STUCK, key,
+                         start=5 * k * n)
+    torch.cuda.synchronize()
+    draw_ms = 1e3 * (time.perf_counter() - t0)
+    changed = float((sp != clean).float().mean())
+    worst, cases = 0.0, 0
+    for sp_spec, label in ((spec, "first read"),
+                           (_retry_spec(spec, GuardSpec()), "retry")):
+        for m in (1, 4, 32):
+            x = torch.randn((m, k), generator=g, device="cuda").to(
+                torch.bfloat16)
+            xs = 4.0 * torch.sqrt(torch.mean(x.float() ** 2)) / quant.qmax(
+                sp_spec.in_bits)
+            err, _ = cim_operands_check(
+                x, sp, torch.stack([xs, torch.ones_like(xs)]),
+                (0x2468ACE0 + m, 0x13579BDF + len(label)),
+                output_noise_std_int_per_tile(sp_spec, k), sp_spec.in_bits)
+            worst = max(worst, err)
+            cases += 1
+    # the epilogue on one kernel output, card vs CPU
+    d = DriftSpec(seed=4, walk_gain_std=0.05, walk_offset_std=1.0,
+                  temp_gain_amp=0.02, supply_offset_mag=3.0, supply_every=16)
+    f = FaultSpec(seed=5, col_gain_std=0.05, col_offset_std=1.0,
+                  adc_stuck_rate=0.01, adc_stuck_code=600, brownout_rate=0.1)
+    es = dataclasses.replace(spec, drift=d, fault=f)
+    x = torch.randn((4, k), generator=g, device="cuda")
+    xs = quant.abs_max_scale(x, es.in_bits)
+    ws = torch.tensor(0.021, device="cuda")
+    y0 = ops.cim_matmul_deployed(x, sp, ws, spec, key, x_scale=xs)
+    trims = (1.0 + 0.01 * torch.randn(n, generator=g, device="cuda"),
+             0.1 * torch.randn(n, generator=g, device="cuda"))
+    bkey = prng.fold_in(key, 0x0FA1)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        unit = (xs * ws).to(dev)
+        y = apply_drift(y0.to(dev), d, output_noise_std_int(es, k) * unit,
+                        (torch.tensor(21, dtype=torch.int32, device=dev),)
+                        + tuple(t.to(dev) for t in trims))
+        outs[dev] = apply_output_faults(
+            y, f, output_noise_std_int(es, k) * unit,
+            600.0 * unit, 0.7 * unit, key=bkey)
+    epi = float((outs["cuda"].cpu() - outs["cpu"]).abs().max()
+                / outs["cpu"].abs().max())
+    bits_equal = torch.equal(
+        prng.random_bits(bkey, (4, n), device="cuda").cpu(),
+        prng.random_bits(bkey, (4, n)))
+    normal_ulps = float(_ulps(prng.normal(bkey, (4, n), device="cuda"),
+                              prng.normal(bkey, (4, n))).max())
+    # the whole deployed call: a seed-table row carrying the fold draws
+    # the host key's brownout, bit for bit
+    w0, w1 = prng.key_words(key)
+    table = torch.from_numpy(np.array([[w0, w1]], np.uint32).view(np.int32))
+    folds = torch.from_numpy(prng.fold_table(table.numpy(), 0x0FA1))
+    row = prng.SeedRow(table.cuda(), 0, (0x0FA1, folds.cuda()))
+    st = (torch.tensor(21, dtype=torch.int32, device="cuda"), *trims)
+    y_host = ops.cim_matmul_deployed(x, sp, ws, es, key, x_scale=xs,
+                                     dstate=st)
+    y_row = ops.cim_matmul_deployed(x, sp, ws, es, row, x_scale=xs,
+                                    dstate=st)
+    if (epi > 1e-6 or not bits_equal or normal_ulps > ULP_LIMIT
+            or not torch.equal(y_host, y_row)):
+        fail(f"robust epilogue: card vs CPU {epi} (limit 1e-6), brownout "
+             f"bits equal {bits_equal}, normal {normal_ulps} ulp (limit "
+             f"{ULP_LIMIT}), table row = host key "
+             f"{torch.equal(y_host, y_row)}")
+    emit("robust_kernel_checks", plane="qwen2-0.5b gate 896x4864, 6b",
+         stuck_rate=ROBUST_STUCK,
+         stuck_plane="card = CPU, exact (layer 5 of a stacked q plane)",
+         bits_changed_share=changed, stuck_draw_ms_one_layer=draw_ms,
+         row1_cases=cases, row1_integer_part="exact",
+         row1_max_abs_err=worst, retry_votes=GuardSpec().retry_votes,
+         epilogue_err_over_max=epi, epilogue_tol=1e-6,
+         brownout_bits_equal=True, brownout_normal_max_ulps=normal_ulps,
+         table_fold_equals_host_key=True)
+    return worst
+
+
+def _reduced_sim():
+    from repro_torch.configs.registry import get_config
+    base = get_config("qwen2-0.5b").reduced()
+    return dataclasses.replace(base, cim=dataclasses.replace(
+        base.cim, mode="sim", use_kernel=True))
+
+
+# the drift session of robust_parity and serve_robust (d): a walk, a
+# supply step every ``n_steps`` engine steps, a calibration every twice
+# that, a canary every 4; and runtime faults without a guard, with a
+# brownout (keyed by
+# the staged fold table under replay) at reduced size only: its normal
+# per call is some 200 eager Threefry kernels, 65 ms of device time a
+# full-width step
+def _drift_kw(n_steps=8, brownout=0.02):
+    from repro_torch.core.calibrate import CalibPolicy
+    from repro_torch.core.drift import DriftSpec
+    from repro_torch.core.faults import FaultSpec
+    return dict(drift=DriftSpec(seed=3, walk_gain_std=0.02,
+                                walk_offset_std=0.5, supply_offset_mag=8.0,
+                                supply_every=n_steps),
+                calib=CalibPolicy(probe_rows=16, probe_chunk=16, probe_k=128,
+                                  every_steps=2 * n_steps, canary_every=4),
+                fault=FaultSpec(seed=2, col_gain_std=0.01,
+                                col_offset_std=0.3, brownout_rate=brownout,
+                                adc_stuck_rate=0.002, adc_stuck_code=520))
+
+
+def phase_robust_parity():
+    """The reduced qwen2 (float32, sim on the CIM kernel path), card
+    against the port on the CPU: guarded, with a 64-sigma transient on
+    slot 1 (``DegradePolicy(pin_after=1)``), the greedy tokens, statuses,
+    per-layer trip and hard counts and every request's guard report equal;
+    drifted (a walk and a supply step inside the session, calibration,
+    runtime faults with a brownout), the tokens, the drift events' kinds
+    and steps and the calibrations equal, and on the card the replayed run
+    equal to the per-call one in tokens and launch counts (a step frozen
+    at capture shows as tokens parting after the supply step)."""
+    import torch
+    from repro_torch.core.deploy import init_params
+    from repro_torch.core.faults import FaultSpec
+    from repro_torch.serving.engine import COUNTED, DegradePolicy, Engine, \
+        Request
+
+    cfg = _reduced_sim()
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (40, 90, 57)]
+
+    def run(dev, **kw):
+        eng = Engine(cfg, params, max_slots=3, max_len=128,
+                     attn_impl="kernel", device=dev, **kw)
+        for f in COUNTED:
+            f.launches = 0
+        outs = eng.generate([Request(prompt=p, max_new_tokens=10,
+                                     rid=f"p{i}")
+                             for i, p in enumerate(prompts)])
+        return eng, outs, {f.__name__: f.launches for f in COUNTED
+                           if f.launches}
+
+    guarded = dict(guard=True, fault=FaultSpec(transient_mag=64.0),
+                   fault_slots={1}, degrade=DegradePolicy(pin_after=1))
+    res = {dev: run(dev, **guarded) for dev in ("cuda", "cpu")}
+    got = {dev: (o, e.status, e.guard_trip_counts.tolist(),
+                 e.guard_hard_counts.tolist(), e.guard_report)
+           for dev, (e, o, _) in res.items()}
+    if got["cuda"] != got["cpu"]:
+        fail(f"robust_parity guarded: card {got['cuda']} vs CPU "
+             f"{got['cpu']}")
+    e = res["cuda"][0]
+    if not (e.guard_report[1]["hard"] and not e.guard_report[0]["hard"]):
+        fail(f"robust_parity guarded: report {e.guard_report}")
+    runs = {"replayed": run("cuda", fused_step=True, **_drift_kw()),
+            "per_call": run("cuda", fused_step=False, **_drift_kw()),
+            "cpu": run("cpu", **_drift_kw())}
+    ev = {k: [(x["kind"], x["step"]) for x in v[0].take_drift_events()]
+          for k, v in runs.items()}
+    toks = {k: v[1] for k, v in runs.items()}
+    rep = runs["replayed"][0]
+    if (toks["replayed"] != toks["per_call"] or toks["replayed"] != toks["cpu"]
+            or runs["replayed"][2] != runs["per_call"][2]
+            or ev["replayed"] != ev["per_call"] or ev["replayed"] != ev["cpu"]
+            or not rep.replay_count or rep.fallbacks
+            or rep.drift_step <= 8 or not rep.calibrations):
+        fail(f"robust_parity drift: tokens {toks}, launches "
+             f"{runs['replayed'][2]} vs {runs['per_call'][2]}, events {ev}, "
+             f"replays {rep.replay_count}, fallbacks {rep.fallbacks}")
+    emit("robust_parity", model="qwen2-0.5b reduced, f32, sim, use_kernel",
+         guarded={"tokens_equal": True, "status": e.status,
+                  "trips_per_layer": e.guard_trip_counts.tolist(),
+                  "hard_per_layer": e.guard_hard_counts.tolist(),
+                  "report": {str(k): v for k, v in e.guard_report.items()}},
+         drift={"tokens_equal": True, "replayed_launches_equal": True,
+                "launches": runs["replayed"][2], "events": ev["replayed"],
+                "calibrations": rep.calibrations,
+                "watchdog_trips": rep.watchdog_trips,
+                "drift_steps": rep.drift_step, "replays": rep.replay_count})
+
+
+def robust_session(cfg, params, profile=True, **kw):
+    """A full-width session (``ROBUST_LENS``, ``ROBUST_NEW`` greedy tokens,
+    4 slots) on an engine built with ``kw``: the build's seconds (the
+    deploy; with ``fused_step`` the capture too), the tokens, the kernel
+    launches of the session, and at the first pure-decode step its host ms
+    and row-1 launches, then (``profile``) one profiled step's
+    device-busy ms."""
+    import torch
+    from repro_torch.kernels.cim_matmul import cim_matmul_fused
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_gqa_attention
+    from repro_torch.serving.engine import Engine, Request
+
+    kernels = (cim_matmul_fused, decode_attention, flash_gqa_attention)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = Engine(cfg, params, max_slots=4, max_len=320, attn_impl="kernel",
+                 device="cuda", **kw)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(5)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n),
+                    max_new_tokens=ROBUST_NEW, rid=f"r{i}")
+            for i, n in enumerate(ROBUST_LENS)]
+    for k in kernels:
+        k.launches = 0
+    eng.begin()
+    for r in reqs:
+        eng.submit(r)
+    step = {}
+    t0 = time.perf_counter()
+    while eng.has_work():
+        live = [s for s, r in enumerate(eng._slots) if r is not None]
+        if (not step and len(live) == 4 and not eng._queue
+                and all(eng._decoding[s] for s in live)):
+            n0 = cim_matmul_fused.launches
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            step = {"host_step_ms": 1e3 * (time.perf_counter() - ts),
+                    "row1_launches_per_step": cim_matmul_fused.launches - n0}
+            if profile:
+                step["device_busy_ms"] = decode_step_device_ms(eng)
+            continue
+        eng.step()
+    eng.drain_pending()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    outs = [eng.request_errors[i] if eng.status[i] == "failed"
+            else r.out_tokens for i, r in enumerate(reqs)]
+    if not step or any(not isinstance(o, list) or len(o) != ROBUST_NEW
+                       for o in outs):
+        fail(f"serve_robust {sorted(kw)}: outputs {outs}, step {step}")
+    return eng, outs, {k.__name__: k.launches for k in kernels}, {
+        "build_s": build_s, "wall_s": wall,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30, **step}
+
+
+def phase_serve_robust(params, unguarded_profile):
+    """qwen2-0.5b at full width and depth (bf16, sim on deployed planes,
+    the CIM kernel, kernel attention), ``robust_session`` each: (a) under
+    the guard, quiet: no trip, the unguarded per-call run's tokens, row 1
+    twice a linear; (b) a 64-sigma transient on slot 1: slot 1 trips on
+    every layer, is pinned and finishes on the digital rung, every slot
+    equal to the fault-free twin with slot 1 pinned from the start (the
+    batch shares one activation scale, so the twin and not (a) is the
+    isolation baseline, as in the reference's test); (c) a deploy with
+    stuck-at bitcells (rate 1e-4) under the guard: the build's seconds and
+    the trips; (d) drift with calibration and runtime faults (no
+    brownout: ``_drift_kw``), replayed through the CUDA graphs and per
+    call: equal tokens and launches. A profiled decode step's device ms
+    for (a) and (d) replayed (a guarded step's profile takes some 18 s;
+    (b) and (c) run (a)'s kernels, every rung being computed and selected
+    per row), beside ``unguarded_profile``, cell A's profiled per-call
+    step of this run. Returns the launches of the runs and their
+    seconds."""
+    import torch
+    from repro_torch.core.faults import FaultSpec
+
+    t_start = time.perf_counter()
+    cfg = full_config(False)
+    res, launches = {}, {}
+
+    def go(name, profile=True, **kw):
+        t0 = time.perf_counter()
+        eng, outs, counts, nums = robust_session(cfg, params, profile, **kw)
+        nums["session_s"] = time.perf_counter() - t0
+        res[name] = (eng, outs, counts, nums)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        return eng, outs, counts, nums
+
+    plain = go("unguarded", False, fused_step=False)
+    a = go("a_guarded_quiet", guard=True)
+    if (a[1] != plain[1] or a[0].guard_trip_counts.sum()
+            or a[2]["cim_matmul_fused"] != 2 * plain[2]["cim_matmul_fused"]):
+        fail(f"serve_robust (a): tokens {a[1]} vs {plain[1]}, trips "
+             f"{a[0].guard_trip_counts.tolist()}, row-1 launches "
+             f"{a[2]} vs {plain[2]}")
+    faulted = dict(guard=True, fault=FaultSpec(transient_mag=64.0),
+                   fault_slots={1})
+    b = go("b_guarded_transient_slot1", False, **faulted)
+    twin = go("b_twin_slot1_pinned", False, guard=True, pin_slots={1})
+    rep = b[0].guard_report
+    L = cfg.n_layers
+    if (b[1] != twin[1] or rep[1]["hard_layers"] != list(range(L))
+            or any(rep[i]["trips"] for i in (0, 2, 3))
+            or twin[0].guard_hard_counts.sum()):
+        fail(f"serve_robust (b): tokens {b[1]} vs twin {twin[1]}, report "
+             f"{rep}")
+    c = go("c_guarded_stuck_1e-4", False, guard=True,
+           fault=FaultSpec(seed=1, stuck_rate=1e-4))
+    # a supply step every 4 engine steps: the session runs about 9
+    d = go("d_drift_replayed", fused_step=True,
+           **_drift_kw(4, brownout=0.0))
+    dp = go("d_drift_per_call", False, fused_step=False,
+            **_drift_kw(4, brownout=0.0))
+    if (d[1] != dp[1] or d[2] != dp[2] or not d[0].replay_count
+            or d[0].fallbacks or not d[0].calibrations
+            or d[0].drift_step <= 4):
+        fail(f"serve_robust (d): tokens {d[1]} vs {dp[1]}, launches {d[2]} "
+             f"vs {dp[2]}, replays {d[0].replay_count}, fallbacks "
+             f"{d[0].fallbacks}, calibrations {d[0].calibrations}, drift "
+             f"steps {d[0].drift_step}")
+    emit("serve_robust", arch=cfg.name, n_layers=L, dtype=cfg.dtype,
+         requests=len(ROBUST_LENS), prompt_lens=list(ROBUST_LENS),
+         new_tokens=ROBUST_NEW, slots=4,
+         runs={k: v[3] for k, v in res.items()},
+         unguarded_per_call_profile_cell_a=unguarded_profile,
+         launches={k: v[2] for k, v in res.items()},
+         a={"zero_trips": True, "tokens_equal_unguarded": True},
+         b={"slot1_hard_layers": L, "slot1_trips": rep[1]["trips"],
+            "other_slots_trips": 0, "tokens_equal_pinned_twin": True,
+            "slots_equal_quiet_run": [b[1][i] == a[1][i] for i in range(4)]},
+         c={"trips_per_layer": c[0].guard_trip_counts.tolist(),
+            "hard_per_layer": c[0].guard_hard_counts.tolist(),
+            "report": {str(k): v for k, v in c[0].guard_report.items()}},
+         d={"tokens_equal": True, "launches_equal": True,
+            "calibrations": d[0].calibrations,
+            "watchdog_trips": d[0].watchdog_trips,
+            "events": [(e["kind"], e["step"])
+                       for e in d[0].take_drift_events()],
+            "replays": d[0].replay_count})
+    del res, a, b, c, d, dp, plain, twin
+    torch.cuda.empty_cache()
+    return launches, time.perf_counter() - t_start
 
 
 # ------------------------------------------------- the registry's archs
@@ -4303,13 +4703,20 @@ def main() -> int:
                (params["embed"]["e"], params["blocks"]["mlp"]["down"]["w"])):
         fail("non-finite parameters")
     runs = {int8: phase_serve(params, int8)[0] for int8 in (False, True)}
-    for int8 in (False, True):
-        for fused_step in (True, False):
-            phase_profile(params, full_config(int8), fused_step=fused_step)
+    profiles = {(int8, fused_step): phase_profile(
+        params, full_config(int8), fused_step=fused_step)
+        for int8 in (False, True) for fused_step in (True, False)}
     times = phase_times(params, cfg)
     phase_behavioural_sim(params)
     phase_fuse_fallback()
     phase_whole_prompt_loop_parity()
+    t_robust = time.perf_counter()
+    errs["cim_matmul_fused"] = max(errs["cim_matmul_fused"],
+                                   phase_robust_kernel_checks())
+    phase_robust_parity()
+    runs["robust"], _ = phase_serve_robust(params, profiles[False, False])
+    emit("robust", new_phases_s=time.perf_counter() - t_robust,
+         new_phases_limit_s=100)
     del params
     params32 = init_params(full_config32(False),
                            torch.Generator(device="cuda").manual_seed(0),
@@ -4443,6 +4850,9 @@ def main() -> int:
         if name in ("cim_matmul_fused", "decode_attention", "flash_gqa",
                     "ssm_decode_step"):
             n += runs["archs"][fn.__name__]
+        # the robustness sessions (bf16 qwen2, bf16 cache) run rows 1-3
+        if name in ("cim_matmul_fused", "decode_attention", "flash_gqa"):
+            n += runs["robust"][fn.__name__]
         line.append({"name": name, "route": "cuda", "source": path,
                      "replaces": tpu, "launches": n,
                      "max_abs_err": errs[name if name in errs else ekey],

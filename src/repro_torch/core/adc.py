@@ -4,7 +4,8 @@ The port's twin of the part of ``core/adc.py`` that the kernel's noise
 ``sigma`` depends on: the mismatched C-DAC weights (a ``jax.random.normal``
 draw under ``PRNGKey(mismatch_seed)``), the INL curve, the static DNL table
 (``PRNGKey(mismatch_seed + 1)``), the analytic comparator decision
-probabilities, the one-pass SAR conversion (no fault injection) and its
+probabilities, the one-pass SAR conversion (with the conversion-level
+faults of ``core/faults.py``: vote brownouts and stuck ADC codes) and its
 Monte-Carlo noise figure under ``PRNGKey(7)``. The card has no JAX to ask,
 so every draw replays ``jax.random`` through ``core.prng``. The DAC weights
 and the DNL table are computed once per operating point on the CPU, in
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import prng
+from repro_torch.core.faults import adc_stuck_cols, brownout_mask
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,11 +179,16 @@ def validate_adc_spec(spec: ADCSpec) -> None:
 
 
 def sar_convert(v: torch.Tensor, key: prng.Key, spec: ADCSpec,
-                cb: bool) -> torch.Tensor:
+                cb: bool, fault=None) -> torch.Tensor:
     """Convert analog values ``v`` (ideal-LSB units) to int32 codes on
     ``v``'s device: one Threefry uniform per decision at counter (flat
     index, step), each decision fired with its analytic (vote-summed)
-    probability."""
+    probability.
+
+    ``fault`` (``core.faults.FaultSpec``): under CB a brownout conversion
+    (``faults.brownout_mask`` of this call's key) votes its fine decisions
+    ``brownout_votes`` times; a stuck column (global column index: the
+    last axis of ``v``) returns ``adc_stuck_code``."""
     validate_adc_spec(spec)
     dev = v.device
     w = dac_bit_weights(spec).to(dev)
@@ -190,6 +197,9 @@ def sar_convert(v: torch.Tensor, key: prng.Key, spec: ADCSpec,
     k0, k1 = prng.key_words(key)
     k0 ^= prng.DOMAIN_SAR
     idx = torch.arange(v.shape[0], dtype=torch.int64, device=dev)
+    brown = None
+    if fault is not None and fault.brownout_rate > 0.0 and cb:
+        brown = brownout_mask(fault, k0, k1, idx)
     n_coarse = spec.adc_bits - spec.mv_bits
     code = torch.zeros(v.shape, dtype=torch.int32, device=dev)
     level = torch.zeros_like(v)
@@ -202,12 +212,20 @@ def sar_convert(v: torch.Tensor, key: prng.Key, spec: ADCSpec,
         trial = level + w[b]
         bits, _ = prng.threefry2x32(k0, k1, idx, step)
         u = prng.uniform_from_bits(bits)
-        p = majority_prob(decision_prob(v - trial, sigma, p_glitch,
-                                        spec.glitch_mag), votes)
+        p1 = decision_prob(v - trial, sigma, p_glitch, spec.glitch_mag)
+        p = majority_prob(p1, votes)
+        if brown is not None and votes > 1:
+            p = torch.where(brown, majority_prob(p1, fault.brownout_votes), p)
         bit = u < p
         code = code + bit.to(torch.int32) * (1 << b)
         level = torch.where(bit, trial, level)
-    return code.reshape(vshape)
+    code = code.reshape(vshape)
+    if fault is not None and fault.adc_stuck_rate > 0.0 and code.ndim >= 1:
+        stuck = adc_stuck_cols(fault, vshape[-1], dev)
+        code = torch.where(stuck, torch.tensor(fault.adc_stuck_code,
+                                               dtype=torch.int32, device=dev),
+                           code)
+    return code
 
 
 def linspace(start: float, stop: float, num: int,

@@ -1,15 +1,20 @@
 """CR-CIM macro operating point, its output-referred noise figure and the
 macro matmul at its two fidelities.
 
-Twin of ``core/cim.py`` without the fault and drift fields and epilogues
-(ROADMAP A5): ``CIMSpec``, the per-layer analog gain, the per-K-tile
-readout-noise std that the CIM kernel injects, the bit-exact engine
-(``cim_matmul_bit_exact``: every K-tile x weight-plane partial sum through
-one batched SAR conversion, the paper-metrics path), the behavioural sim
-path (``cim_matmul_behavioral``: the exact integer dot plus one whole-K
-``jax.random.normal`` draw, replayed by ``prng.normal``) and ``cim_dense``
-in its digital, qat (straight-through fake-quant plus the macro's noise,
-for training) and sim modes.
+Twin of ``core/cim.py``: ``CIMSpec`` (with its structural-fault and
+temporal-drift scenarios, ``core/faults.py`` and ``core/drift.py``), the
+per-layer analog gain, the per-K-tile readout-noise std that the CIM
+kernel injects, the output values of the runtime faults
+(``adc_stuck_value_int``, ``brownout_extra_std_int``), the bit-exact
+engine (``cim_matmul_bit_exact``: every K-tile x weight-plane partial sum
+through one batched SAR conversion with its conversion-level faults, the
+paper-metrics path), the behavioural sim path (``cim_matmul_behavioral``:
+the exact integer dot plus one whole-K ``jax.random.normal`` draw,
+replayed by ``prng.normal``, then the drift and fault epilogues) and
+``cim_dense`` in its digital, qat (straight-through fake-quant plus the
+macro's noise, for training) and sim modes. The load ladder's
+``vote_drop_extra_std_int`` belongs to the serving front-end and is not
+ported (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -24,6 +29,9 @@ import torch
 from repro_torch.core import prng, quant
 from repro_torch.core.adc import (ADCSpec, adc_noise_error_var_lsb2,
                                   adc_total_error_var_lsb2, sar_convert)
+from repro_torch.core.drift import DriftSpec, apply_drift
+from repro_torch.core.faults import (FaultSpec, apply_output_faults,
+                                     column_gain, column_offset_z)
 
 # Rows of one macro: the K tile of the readout noise and of the CUDA kernel
 # (csrc/cim_matmul.cu), fixed in the port.
@@ -40,6 +48,9 @@ class CIMSpec:
     scheme: str = "crcim"            # "crcim" | "conventional"
     comparator: str = "relaxed"      # "relaxed" | "lownoise"
     noise_scale: float = 1.0
+    fault: Optional[FaultSpec] = None  # structural faults; None = healthy
+    drift: Optional[DriftSpec] = None  # temporal drift; None = stable,
+                                       # evaluated at the caller's step
 
     @property
     def adc_bits(self) -> int:
@@ -101,8 +112,9 @@ def cim_matmul_bit_exact(xq: torch.Tensor, wq: torch.Tensor, key: prng.Key,
     array from one einsum (``plane_sums``), all ``T * w_bits`` of them
     through one ``sar_convert`` of the ``(T * w_bits, M, N)`` conversion
     tensor, then the signed shift-add of the codes. Returns the (M, N) f32
-    estimate of ``xq @ wq`` in integer product units. No fault epilogue
-    (ROADMAP A5)."""
+    estimate of ``xq @ wq`` in integer product units. ``spec.fault``: the
+    brownouts and stuck ADC codes act inside the conversion, the column
+    gain and offset on the shift-added output, as in the reference."""
     m, k = xq.shape
     n = wq.shape[1]
     s = plane_sums(xq, wq, spec)
@@ -112,7 +124,7 @@ def cim_matmul_bit_exact(xq: torch.Tensor, wq: torch.Tensor, key: prng.Key,
     gain = spec.analog_gain(rows=k) * spec.attenuation
     v = torch.clamp(gain * s + half, 0.0, 2.0 ** spec.adc_bits - 1.0)
     code = sar_convert(v.reshape(t * spec.w_bits, m, n), key,
-                       spec.effective_adc(), spec.cb)
+                       spec.effective_adc(), spec.cb, fault=spec.fault)
     c = code.reshape(t, spec.w_bits, m, n).to(torch.float32) - half
     inv_gain = float(np.float32(1.0) / np.float32(gain))
     # the reference sums the tiles out first, each product with 1/gain
@@ -128,7 +140,16 @@ def cim_matmul_bit_exact(xq: torch.Tensor, wq: torch.Tensor, key: prng.Key,
     y = pw[0] * acc[0]
     for j in range(1, spec.w_bits):
         y = y + pw[j] * acc[j]
-    return qx * y
+    y = qx * y
+    f = spec.fault
+    if f is not None:
+        g = column_gain(f, n, y.device)
+        if g is not None:
+            y = y * g
+        z = column_offset_z(f, n, y.device)
+        if z is not None:
+            y = y + (f.col_offset_std * output_noise_std_int(spec, k)) * z
+    return y
 
 
 def output_noise_std_int(spec: CIMSpec, k: int,
@@ -152,8 +173,43 @@ def output_noise_std_int_per_tile(spec: CIMSpec, k: int) -> float:
     return output_noise_std_int(spec, k) / math.sqrt(tiles)
 
 
+def adc_stuck_value_int(spec: CIMSpec, k: int) -> float:
+    """Output (integer product units) of a stuck-ADC column: every one of
+    the ``T * w_bits`` conversions returns ``adc_stuck_code``, and the
+    two's-complement plane weights sum to -1."""
+    f = spec.fault
+    if f is None:
+        return 0.0
+    gain = spec.analog_gain(rows=k) * spec.attenuation
+    half = 2.0 ** (spec.adc_bits - 1)
+    qx = quant.qmax(spec.in_bits)
+    return -_num_k_tiles(k) * qx * (f.adc_stuck_code - half) / gain
+
+
+def brownout_extra_std_int(spec: CIMSpec, k: int) -> float:
+    """The behavioural stand-in of vote brownouts: the extra output noise
+    std (integer product units) of a Bernoulli(rate) mixture of the
+    conversion variances at ``brownout_votes`` and at ``mv_votes``; 0
+    without CB."""
+    f = spec.fault
+    if f is None or f.brownout_rate <= 0.0 or not spec.cb:
+        return 0.0
+    adc = spec.effective_adc()
+    dvar = max(
+        adc_total_error_var_lsb2(
+            dataclasses.replace(adc, mv_votes=f.brownout_votes), spec.cb)
+        - adc_total_error_var_lsb2(adc, spec.cb), 0.0)
+    gain = spec.analog_gain(rows=k) * spec.attenuation
+    s_bw = quant.sum_sq_plane_weights(spec.w_bits)
+    qx = quant.qmax(spec.in_bits)
+    tiles = _num_k_tiles(k)
+    return (spec.noise_scale
+            * math.sqrt(f.brownout_rate * tiles * s_bw * dvar) * qx / gain)
+
+
 def cim_matmul_behavioral(xq: torch.Tensor, wq: torch.Tensor,
-                          key: prng.Key, spec: CIMSpec) -> torch.Tensor:
+                          key: prng.Key, spec: CIMSpec,
+                          dstate=None) -> torch.Tensor:
     """Behavioural macro matmul: exact integer dot plus the equivalent
     Gaussian error, f32 (twin of ``cim_matmul_behavioral``).
 
@@ -163,9 +219,10 @@ def cim_matmul_behavioral(xq: torch.Tensor, wq: torch.Tensor,
     default). Otherwise it runs in f64, exact below 2^53, and rounds to f32
     as the reference's int32 dot does while its sums fit int32. The noise is
     ``output_noise_std_int(spec, K) * normal(key, y.shape)``, one draw over
-    the whole output. The reference's drift and fault epilogues read
-    ``spec.drift`` / ``spec.fault``; this ``CIMSpec`` has neither (ROADMAP
-    A5), so neither is applied."""
+    the whole output. Then the drift epilogue at ``dstate`` (``spec.drift``)
+    and the runtime fault epilogue (``spec.fault``; the brownout normal
+    under ``fold_in(key, 0x0FA1)``, so the healthy noise stream is the
+    same with and without a fault), in the reference's order."""
     k = xq.shape[-1]
     if quant.qmax(spec.in_bits) * quant.qmax(spec.w_bits) * k < 2 ** 24:
         y = torch.matmul(xq.to(torch.float32), wq.to(torch.float32))
@@ -175,6 +232,12 @@ def cim_matmul_behavioral(xq: torch.Tensor, wq: torch.Tensor,
     sigma = output_noise_std_int(spec, k)
     if sigma > 0.0:
         y = y + sigma * prng.normal(key, tuple(y.shape), device=y.device)
+    y = apply_drift(y, spec.drift, sigma, dstate)
+    f = spec.fault
+    if f is not None and f.any_output_fault():
+        y = apply_output_faults(
+            y, f, sigma, adc_stuck_value_int(spec, k),
+            brownout_extra_std_int(spec, k), key=prng.fold_in(key, 0x0FA1))
     return y
 
 
@@ -182,7 +245,8 @@ def cim_dense(x: torch.Tensor, w: Optional[torch.Tensor],
               spec: Optional[CIMSpec], key: Optional[prng.Key],
               mode: str = "digital", x_scale: Optional[torch.Tensor] = None,
               w_scale: Optional[torch.Tensor] = None,
-              wq: Optional[torch.Tensor] = None) -> torch.Tensor:
+              wq: Optional[torch.Tensor] = None,
+              dstate=None) -> torch.Tensor:
     """y = x @ w, digitally, as QAT fake-quant or on the behavioural macro.
 
     ``digital`` (or no spec): the plain product. ``qat``: straight-through
@@ -191,8 +255,8 @@ def cim_dense(x: torch.Tensor, w: Optional[torch.Tensor],
     ``sigma * xs * ws * normal(key)`` (noise-aware QAT). ``sim``: quantize
     both operands (a deployed plane ``wq`` with its ``w_scale`` skips the
     weight side; ``w`` may then be None), run ``cim_matmul_behavioral``
-    under ``key`` (None: ``PRNGKey(0)``, as in the reference) and rescale
-    by ``xs * ws``, in x's dtype."""
+    under ``key`` (None: ``PRNGKey(0)``, as in the reference) with the
+    drift state ``dstate`` and rescale by ``xs * ws``, in x's dtype."""
     if mode == "digital" or spec is None:
         return torch.einsum("...k,kn->...n", x, w)
     if mode == "qat":
@@ -216,5 +280,5 @@ def cim_dense(x: torch.Tensor, w: Optional[torch.Tensor],
         wq=wq)
     if key is None:
         key = prng.PRNGKey(0)
-    y = cim_matmul_behavioral(xq, wq_i, key, spec)
+    y = cim_matmul_behavioral(xq, wq_i, key, spec, dstate)
     return (y * xs * ws).to(x.dtype)

@@ -7,8 +7,12 @@ gets a resident plane ``wq<bits>`` (int8) and its per-slice scale
 expert banks (raw ``(E, d_in, d_out)`` tensors, stacked over layers) get
 sibling ``<bank>_q<bits>``/``<bank>_s<bits>`` planes with one f32 scale
 per layer slice, the per-tensor scale ``models.moe._expert_dense`` uses.
-No guard checksum, fault masking or tensor-parallel placement in this
-slice.
+``deploy(fault=, guard=)`` attaches the ABFT checksum ``wc<bits>`` of the
+clean plane (``checksum_plane``: one int32 column, or G per-segment
+columns) and then masks each dense plane with stuck-at bitcells
+(``core.faults.stuck_bit_plane``, one key per plane in walk order); expert
+banks get neither, as in the reference. Tensor-parallel placement is not
+ported (ROADMAP A7).
 
 Also the parameter bridge of the port:
 
@@ -44,7 +48,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import quant
+from repro_torch.core import prng, quant
+from repro_torch.core.faults import FaultSpec, stuck_bit_plane
 from repro_torch.core.sac import Policy, get_policy
 
 _KEY_ROLE = {
@@ -72,6 +77,49 @@ def _role_for(name: Optional[str], parent: Optional[str]) -> Optional[str]:
     if parent == "cross" and role in ("attn_qkv", "attn_out"):
         return "cross_qkv" if role == "attn_qkv" else "cross_out"
     return role
+
+
+def guard_segments_of(guard: Any) -> int:
+    """Checksum segment count of a guard flag or spec (True: 1)."""
+    return int(getattr(guard, "segments", 1) or 1)
+
+
+def pick_segments(n_cols: int, requested: int) -> int:
+    """Largest divisor of the plane's output width at most the requested
+    G (equal-width segments)."""
+    g = max(1, min(int(requested), n_cols))
+    while n_cols % g != 0:
+        g -= 1
+    return g
+
+
+def checksum_plane(wq: torch.Tensor, segments: int = 1) -> torch.Tensor:
+    """ABFT checksum of a clean int plane: the int32 sum over the output
+    axis ``(..., K)``, or over G equal column groups ``(..., K, G)``."""
+    w32 = wq.to(torch.int32)
+    if segments <= 1:
+        return w32.sum(dim=-1, dtype=torch.int32)
+    n = wq.shape[-1]
+    g = pick_segments(n, segments)
+    return w32.reshape(wq.shape[:-1] + (g, n // g)).sum(dim=-1,
+                                                        dtype=torch.int32)
+
+
+def stuck_plane(wq: torch.Tensor, bits: int, fault: FaultSpec,
+                key: prng.Key) -> torch.Tensor:
+    """``stuck_bit_plane`` of a whole (stacked) plane under one key, drawn
+    a layer slice at a time (each slice's flat offset into the draw), so
+    the int64 Threefry temporaries are those of one slice: bit for bit the
+    whole-plane draw."""
+    k, n = wq.shape[-2:]
+    if wq.ndim == 2:
+        return stuck_bit_plane(wq, bits, fault.stuck_rate, key)
+    flat = wq.reshape(-1, k, n)
+    out = torch.empty_like(flat)
+    for i in range(flat.shape[0]):
+        out[i] = stuck_bit_plane(flat[i], bits, fault.stuck_rate, key,
+                                 start=i * k * n)
+    return out.reshape(wq.shape)
 
 
 def quantize_plane(w: torch.Tensor, bits: int, reduce_axes: int):
@@ -118,14 +166,24 @@ def quantize_bank(bank: torch.Tensor, bits: int):
 
 
 def deploy(cfg: ModelConfig, params: Any,
-           policy: Optional[Policy] = None) -> Any:
+           policy: Optional[Policy] = None,
+           fault: Optional[FaultSpec] = None, guard: Any = False) -> Any:
     """A new params tree with the pre-quantized planes attached (the f32
-    ``w`` stays, as in the reference)."""
+    ``w`` stays, as in the reference). ``guard`` (True or a spec with
+    ``segments``) adds the checksum ``wc<bits>`` of the clean plane;
+    ``fault`` with ``stuck_rate > 0`` then masks each dense plane under
+    ``fold_in(PRNGKey(fault.seed), i)``, ``i`` the plane's index in the
+    walk, which visits every dict's keys in sorted order (the order of
+    the reference's stacked-layer trees)."""
     if policy is None:
         policy = get_policy(cfg.cim.policy)
     if policy is None:
         return params
     dtype = dtype_of(cfg)
+    segments = guard_segments_of(guard)
+    fault_key = (prng.PRNGKey(fault.seed)
+                 if fault is not None and fault.stuck_rate > 0.0 else None)
+    plane_idx = [0]
 
     def walk(node, name, parent):
         if not isinstance(node, dict):
@@ -135,11 +193,18 @@ def deploy(cfg: ModelConfig, params: Any,
             spec = policy.spec_for_role(role) if role is not None else None
             if spec is None:
                 return dict(node)
-            wq, ws = quantize_plane(node["w"].to(dtype), spec.w_bits,
-                                    reduce_axes=2)
-            return dict(node, **{f"wq{spec.w_bits}": wq,
-                                 f"ws{spec.w_bits}": ws})
-        out = {k: walk(v, k, name) for k, v in node.items()}
+            bits = spec.w_bits
+            wq, ws = quantize_plane(node["w"].to(dtype), bits, reduce_axes=2)
+            extra = {f"ws{bits}": ws}
+            if guard:
+                extra[f"wc{bits}"] = checksum_plane(wq, segments)
+            if fault_key is not None:
+                wq = stuck_plane(wq, bits, fault,
+                                 prng.fold_in(fault_key, plane_idx[0]))
+                plane_idx[0] += 1
+            return dict(node, **{f"wq{bits}": wq}, **extra)
+        done = {k: walk(node[k], k, name) for k in sorted(node)}
+        out = {k: done[k] for k in node}
         spec = (policy.spec_for_role("moe_expert")
                 if any(b in node for b in _EXPERT_BANKS) else None)
         if spec is not None:

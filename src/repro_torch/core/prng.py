@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import math
 import dataclasses
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -81,8 +81,8 @@ def _bf16_uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
     draws bf16: 8 bits (the low byte, as XLA truncates the word), their top
     7 under the exponent of 1.0, minus 1."""
     b = ((bits & 0xFF) >> 1) | 0x3F80
-    return b.to(torch.int16).view(torch.bfloat16) - torch.tensor(
-        1.0, dtype=torch.bfloat16, device=bits.device)
+    return b.to(torch.int16).view(torch.bfloat16) - torch.full(
+        (), 1.0, dtype=torch.bfloat16, device=bits.device)
 
 
 def gaussian_from_bits(b0: torch.Tensor, b1: torch.Tensor) -> torch.Tensor:
@@ -131,10 +131,13 @@ def seed_from_key(key: Key) -> Key:
 class SeedRow:
     """Row ``row`` of a (rows, 2) int32 seed table (the uint32 words
     ``(seed0, seed1)`` as their bits): the noise seed of one CIM call, read
-    by the kernel from where the table lies."""
+    by the kernel from where the table lies. ``fold``: ``(data, table)``,
+    a table of the same rows holding ``fold_in(row key, data)`` (see
+    ``fold_table``), for an epilogue that draws under the folded key."""
 
     table: torch.Tensor
     row: int
+    fold: Optional[Tuple[int, torch.Tensor]] = None
 
 
 Seed = Union[Key, SeedRow]
@@ -165,6 +168,28 @@ def seed_table(key: Key, n_layers: int, per_layer: int) -> np.ndarray:
     return words.view(np.int32)
 
 
+def fold_table(table: np.ndarray, data: int) -> np.ndarray:
+    """(rows, 2) int32: ``fold_in`` of every row key of a ``seed_table``
+    by ``data``, in one vectorized Threefry call."""
+    w = table.view(np.uint32).astype(np.int64)
+    f0, f1 = threefry2x32(w[:, 0], w[:, 1], np.zeros_like(w[:, 0]),
+                          np.full_like(w[:, 0], int(data) & M32))
+    return np.stack([f0, f1], axis=-1).astype(np.uint32).view(np.int32)
+
+
+def fold_seed(seed: Seed, data: int):
+    """``fold_in(seed, data)`` of a host pair, or of a ``SeedRow`` whose
+    ``fold`` holds ``data``: then a pair of 0-d int64 tensors on the
+    table's device (the folded words, read there), which ``threefry2x32``
+    and the draws built on it take as a key."""
+    if not isinstance(seed, SeedRow):
+        return fold_in(seed, data)
+    if seed.fold is None or seed.fold[0] != data:
+        raise ValueError(f"seed-table row carries no fold by {data:#x}")
+    w = seed.fold[1][seed.row].to(torch.int64) & M32
+    return w[0], w[1]
+
+
 def random_bits(key: Key, shape, device="cpu",
                 start: int = 0) -> torch.Tensor:
     """32-bit ``jax.random.bits``: b0 ^ b1 at counter (hi, lo) of the flat
@@ -184,8 +209,9 @@ def uniform(key: Key, shape, minval: float = 0.0, maxval: float = 1.0,
     (max - min) + min, then max(min, .), each op rounded to ``dtype``."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(f"uniform in {dtype}")
-    lo = torch.tensor(minval, dtype=dtype, device=device)
-    hi = torch.tensor(maxval, dtype=dtype, device=device)
+    # constants by fills, not host copies: a CUDA graph can capture them
+    lo = torch.full((), minval, dtype=dtype, device=device)
+    hi = torch.full((), maxval, dtype=dtype, device=device)
     bits = random_bits(key, shape, device, start)
     floats = (uniform_from_bits(bits) if dtype == torch.float32
               else _bf16_uniform_from_bits(bits))
@@ -209,8 +235,8 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
 
     def coef(i):
         return torch.where(
-            lt, torch.tensor(_ERFINV_LT5[i], dtype=x.dtype, device=x.device),
-            torch.tensor(_ERFINV_GE5[i], dtype=x.dtype, device=x.device))
+            lt, torch.full((), _ERFINV_LT5[i], dtype=x.dtype, device=x.device),
+            torch.full((), _ERFINV_GE5[i], dtype=x.dtype, device=x.device))
 
     p = coef(0)
     for i in range(1, len(_ERFINV_LT5)):
@@ -224,8 +250,8 @@ def normal(key: Key, shape, device="cpu", start: int = 0) -> torch.Tensor:
     in ``random_bits`` (a slab of a larger draw)."""
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     u = uniform(key, shape, lo, 1.0, device, start)
-    return torch.tensor(np.float32(np.sqrt(2)), dtype=torch.float32,
-                        device=device) * erf_inv(u)
+    return torch.full((), float(np.float32(np.sqrt(2))), dtype=torch.float32,
+                      device=device) * erf_inv(u)
 
 
 def randint(key: Key, shape, minval: int, maxval: int,

@@ -1,10 +1,13 @@
 """Public CIM matmul ops (twin of ``src/repro/kernels/ops.py``).
 
 ``cim_matmul_fused_int`` and ``cim_matmul_deployed``: the inference path of
-every CIM linear, without the drift and fault epilogues (not ported yet).
-The weight arrives as the resident int8 plane ``(wq, ws)`` from
-``core.deploy``; the activation is quantized inside the kernel against the
-batch-global scale; the readout-noise seed is both words of the layer key.
+every CIM linear. The weight arrives as the resident int8 plane ``(wq,
+ws)`` from ``core.deploy`` (stuck-at bitcells already in it); the
+activation is quantized inside the kernel against the batch-global scale;
+the readout-noise seed is both words of the layer key. The temporal drift
+and the runtime faults (column gain and offset, stuck ADC columns, the
+brownout stand-in) act after the kernel, on its dequantized output, as in
+the reference: plain PyTorch ops, outside any kernel.
 
 ``cim_matmul_int`` and ``cim_matmul``: the integer-domain op on already
 quantized operands and the differentiable op on float operands, with a
@@ -21,7 +24,12 @@ from typing import Optional
 import torch
 
 from repro_torch.core import prng, quant
-from repro_torch.core.cim import CIMSpec, output_noise_std_int_per_tile
+from repro_torch.core.cim import (CIMSpec, adc_stuck_value_int,
+                                  brownout_extra_std_int,
+                                  output_noise_std_int,
+                                  output_noise_std_int_per_tile)
+from repro_torch.core.drift import apply_drift
+from repro_torch.core.faults import apply_output_faults
 from repro_torch.kernels.cim_matmul import cim_matmul_fused, cim_matmul_int8
 
 
@@ -41,10 +49,13 @@ def cim_matmul_fused_int(x: torch.Tensor, wq: torch.Tensor,
 
 def cim_matmul_deployed(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
                         spec: CIMSpec, key: Optional[prng.Seed],
-                        x_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        x_scale: Optional[torch.Tensor] = None,
+                        dstate=None) -> torch.Tensor:
     """y ~ macro(x @ (wq * ws)) with fused activation quantization; f32.
     ``key``: a host key or a ``prng.SeedRow`` of a seed table (whose row
-    holds the key's words)."""
+    holds the key's words). Then ``spec.drift`` at ``dstate`` and the
+    runtime faults of ``spec.fault``, in dequant units (the brownout normal
+    under ``fold_in(key, 0x0FA1)``: a ``SeedRow`` must carry that fold)."""
     orig = x.shape
     x2 = x.reshape(-1, orig[-1])
     xs = (x_scale if x_scale is not None
@@ -56,8 +67,21 @@ def cim_matmul_deployed(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
     if key is not None and sigma > 0:
         seed = key if isinstance(key, prng.SeedRow) else \
             prng.seed_from_key(key)
+    unit = xs * ws.to(torch.float32)
     y = cim_matmul_fused_int(x2, wq, xs, seed, sigma, spec.in_bits,
-                             scale=xs * ws.to(torch.float32))
+                             scale=unit)
+    d, f = spec.drift, spec.fault
+    if d is not None and d.active() and dstate is not None:
+        unit = unit.reshape(-1)[0]
+        y = apply_drift(y, d, output_noise_std_int(spec, k) * unit, dstate)
+    if f is not None and f.any_output_fault():
+        unit = unit.reshape(-1)[0]
+        bkey = (prng.fold_seed(key, 0x0FA1)
+                if key is not None and f.brownout_rate > 0.0 else None)
+        y = apply_output_faults(
+            y, f, output_noise_std_int(spec, k) * unit,
+            adc_stuck_value_int(spec, k) * unit,
+            brownout_extra_std_int(spec, k) * unit, key=bkey)
     return y.reshape(orig[:-1] + (n,))
 
 

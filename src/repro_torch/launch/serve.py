@@ -35,6 +35,24 @@ random, drawn from ``--seed``. The entry point runs on the card; ``--device cpu`
 kernels' plain versions. ``--arch whisper-medium`` (encdec) raises the
 engine's ``ValueError``: its requests would need encoder frames, which the
 token-only engines do not carry, as in the reference.
+
+Robustness, with the reference's flags and meanings (``--engine fused``,
+``--cim sim``): ``--guard`` runs every CIM linear under the ABFT checksum
+guard and its ladder (``--guard-segments G`` per-segment checksums,
+``--fail-after N`` fails a request after N hard-tripping steps) and
+prints the per-layer trip and hard counts; ``--fault-stuck`` (stuck-at
+bitcell rate of the deployed planes), ``--fault-transient`` (disturbance
+in output sigmas on the slots of ``--fault-slot``) and ``--fault-seed``
+inject faults; ``--drift-walk``, ``--drift-walk-offset``, ``--drift-temp``,
+``--drift-supply`` / ``--drift-supply-every`` and ``--drift-seed`` drift
+the readout, and ``--calibrate`` (``--calib-every``, ``--canary-every``)
+runs the background calibration and canary watchdog against it:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --cim sim \
+      --device cpu --guard --fault-transient 64 --fault-slot 1
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --cim sim \
+      --device cpu --drift-walk 0.02 --drift-supply 8 \
+      --drift-supply-every 16 --calibrate --calib-every 32
 """
 
 from __future__ import annotations
@@ -48,9 +66,13 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.registry import get_config
+from repro_torch.core.calibrate import CalibPolicy
 from repro_torch.core.deploy import init_params, plane_summary
-from repro_torch.serving.engine import Engine, LoopEngine, Request, \
-    RequestError
+from repro_torch.core.drift import DriftSpec
+from repro_torch.core.faults import FaultSpec
+from repro_torch.core.guard import GuardSpec
+from repro_torch.serving.engine import DegradePolicy, Engine, LoopEngine, \
+    Request, RequestError
 
 
 def _build_argparser():
@@ -87,7 +109,123 @@ def _build_argparser():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu' for the plain versions")
+    ap.add_argument("--guard", action="store_true",
+                    help="ABFT checksum guard and its ladder on every CIM "
+                         "matmul (fused engine, --cim sim only)")
+    ap.add_argument("--guard-segments", type=int, default=1,
+                    help="checksum segments per plane (needs --guard)")
+    ap.add_argument("--fault-stuck", type=float, default=0.0,
+                    help="stuck-at bitcell rate of the deployed planes")
+    ap.add_argument("--fault-transient", type=float, default=0.0,
+                    help="transient disturbance (layer output sigmas) on "
+                         "the slots named by --fault-slot")
+    ap.add_argument("--fault-slot", type=int, action="append", default=None,
+                    help="slot hit by the transient fault (repeatable)")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="fault scenario seed")
+    ap.add_argument("--fail-after", type=int, default=0,
+                    help="fail a request after this many hard-tripping "
+                         "steps (0: never; serve on the digital recompute)")
+    ap.add_argument("--drift-walk", type=float, default=0.0,
+                    help="per-column gain random-walk std at the horizon "
+                         "(fused engine, --cim sim only)")
+    ap.add_argument("--drift-walk-offset", type=float, default=0.0,
+                    help="per-column offset random-walk std, in readout "
+                         "sigmas")
+    ap.add_argument("--drift-temp", type=float, default=0.0,
+                    help="temperature-excursion gain amplitude")
+    ap.add_argument("--drift-supply", type=float, default=0.0,
+                    help="supply-step offset magnitude (readout sigmas); "
+                         "pairs with --drift-supply-every")
+    ap.add_argument("--drift-supply-every", type=int, default=0,
+                    help="steps between supply steps (0: none)")
+    ap.add_argument("--drift-seed", type=int, default=0,
+                    help="drift trajectory seed")
+    ap.add_argument("--calibrate", action="store_true",
+                    help="background calibration and canary watchdog "
+                         "against the drift (needs a --drift-* model)")
+    ap.add_argument("--calib-every", type=int, default=256,
+                    help="full-calibration cadence in engine steps")
+    ap.add_argument("--canary-every", type=int, default=8,
+                    help="canary cadence in engine steps (0 disables)")
     return ap
+
+
+def _drift_from_args(args):
+    if not (args.drift_walk or args.drift_walk_offset or args.drift_temp
+            or (args.drift_supply and args.drift_supply_every)):
+        return None
+    return DriftSpec(seed=args.drift_seed, walk_gain_std=args.drift_walk,
+                     walk_offset_std=args.drift_walk_offset,
+                     temp_gain_amp=args.drift_temp,
+                     supply_offset_mag=args.drift_supply,
+                     supply_every=args.drift_supply_every)
+
+
+def _robust_kw(args) -> dict:
+    """The Engine's robustness options from the CLI flags, as the
+    reference's ``_build_engine`` builds them."""
+    kw = {}
+    drift = _drift_from_args(args)
+    faulted = args.fault_stuck > 0.0 or args.fault_transient > 0.0
+    if args.engine != "fused":
+        if args.guard or faulted:
+            raise SystemExit("--guard/--fault-* need the fused engine "
+                             "(--engine fused): the loop reference engine "
+                             "has no guard path")
+        if drift is not None or args.calibrate:
+            raise SystemExit("--drift-*/--calibrate need the fused engine "
+                             "(--engine fused): the loop reference engine "
+                             "has no drift or calibration path")
+        return kw
+    if args.guard:
+        kw["guard"] = (GuardSpec(segments=args.guard_segments)
+                       if args.guard_segments > 1 else True)
+        if args.fail_after > 0:
+            kw["degrade"] = DegradePolicy(pin_after=1,
+                                          fail_after=args.fail_after)
+    if faulted:
+        kw["fault"] = FaultSpec(seed=args.fault_seed,
+                                stuck_rate=args.fault_stuck,
+                                transient_mag=args.fault_transient)
+        kw["fault_slots"] = args.fault_slot or ()
+    if drift is not None:
+        kw["drift"] = drift
+    if args.calibrate:
+        if drift is None:
+            raise SystemExit("--calibrate needs a drift model "
+                             "(--drift-walk/--drift-temp/--drift-supply)")
+        kw["calib"] = CalibPolicy(every_steps=args.calib_every,
+                                  canary_every=args.canary_every)
+    return kw
+
+
+def _report(engine, reqs) -> None:
+    """The guard's counts and the drift controller's events, as the
+    reference's CLI prints them."""
+    if getattr(engine, "guard", None) is not None:
+        trips, hard = engine.guard_trip_counts, engine.guard_hard_counts
+        print(f"  guard: per-layer trips {trips.tolist()} / "
+              f"hard {hard.tolist()} "
+              f"(total {int(trips.sum())}/{int(hard.sum())})")
+        for i, r in enumerate(reqs):
+            rep = engine.guard_report_of(r)
+            if rep is not None and (rep["trips"] or rep["hard"]):
+                print(f"  req{i}: guard trips={rep['trips']} "
+                      f"hard={rep['hard']} layers={rep['hard_layers']}")
+    if getattr(engine, "drift", None) is not None:
+        evs = engine.take_drift_events()
+        cals = [e for e in evs if e["kind"] == "calibrate"]
+        trips_w = [e for e in evs if e["kind"] == "watchdog_trip"]
+        print(f"  drift: {engine.drift_step} steps, "
+              f"{len(cals)} calibrations, {len(trips_w)} watchdog trips"
+              + (", ESCALATED to digital" if engine.drift_degraded
+                 or engine._drift_pin_all else ""))
+        for e in evs[:8]:
+            q = e.get("quality")
+            print(f"    step {e['step']}: {e['kind']}"
+                  + (f" quality={q:.2f}" if q is not None else "")
+                  + (f" [{e['action']}]" if "action" in e else ""))
 
 
 def main(argv=None):
@@ -105,11 +243,12 @@ def main(argv=None):
               max_len=args.prompt_len + args.new_tokens + 8,
               attn_impl=None if args.attn_impl == "config"
               else args.attn_impl, device=device)
+    robust = _robust_kw(args)
     if args.engine == "loop":
         engine = LoopEngine(cfg, params, **kw)
     else:
         engine = Engine(cfg, params, chunk_size=args.chunk_size,
-                        record_ttft=True, **kw)
+                        record_ttft=True, **robust, **kw)
     if engine.mode == "sim":
         ps = plane_summary(engine.params)
         print(f"deployed {ps['planes']} pre-quantized weight planes "
@@ -132,6 +271,7 @@ def main(argv=None):
     if ttfts:
         print(f"  TTFT mean {np.mean(ttfts) * 1e3:.0f} ms / max "
               f"{np.max(ttfts) * 1e3:.0f} ms (chunk={engine.chunk_size})")
+    _report(engine, reqs)
     for i, o in enumerate(outs[:4]):
         print(f"  req{i}: " + (f"FAILED ({o})" if isinstance(o, RequestError)
                                else f"{o[:10]}..."))

@@ -15,6 +15,16 @@ the reference, unless the context says the tree is deployed
 (``Ctx.deployed``) or the weight carries a plane of another width: then a
 missing plane raises rather than silently bypass the kernel. QAT mode runs ``cim_dense(mode="qat")``: straight-through
 fake-quant plus the macro's noise under the call's key, for training.
+
+The robustness fields of ``Ctx`` are the reference's: ``guard`` routes a
+deployed sim call whose plane carries a checksum ``wc<bits>`` through
+``core.guard.guarded_dense``; ``fault`` and ``drift`` ride into each
+call's ``CIMSpec`` (the drift at ``drift_state``, sim mode only);
+``fault_rows`` / ``pin_rows`` are (B,) bool row masks (rows disturbed by
+``fault.transient_mag`` / rows the engine pinned to the digital path);
+``trip_log`` / ``hard_log`` collect the guard's (B,) counts per layer,
+which ``models.transformer`` stacks into (L, B) ``guard_trips`` /
+``guard_hard``.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import prng, quant
 from repro_torch.core.cim import CIMSpec, cim_dense
+from repro_torch.core.guard import guarded_dense
 from repro_torch.core.sac import Policy, get_policy
 from repro_torch.kernels import ops as kops
 
@@ -63,17 +74,32 @@ class Ctx:
     seeds: Optional[torch.Tensor] = None  # (rows, 2) int32 seed table
     seed_width: int = 0               # table rows a layer may draw
     seed_base: int = 0                # this layer's first row
+    seed_fold: Optional[tuple] = None  # (data, table): fold_in(row key,
+                                       # data) per seed-table row
     deployed: bool = False            # the tree carries its sim planes
+    guard: Optional[Any] = None       # core.guard.GuardSpec
+    fault: Optional[Any] = None       # core.faults.FaultSpec
+    drift: Optional[Any] = None       # core.drift.DriftSpec
+    drift_state: Optional[Any] = None  # (step, trim_gain, trim_off)
+    fault_rows: Optional[torch.Tensor] = None   # (B,) bool
+    pin_rows: Optional[torch.Tensor] = None     # (B,) bool, set per layer
+    pin_layers: Optional[torch.Tensor] = None   # (B, L) bool
+    trip_log: Optional[list] = None
+    hard_log: Optional[list] = None
+    guard_trips: Optional[torch.Tensor] = None  # (L, B) int32
+    guard_hard: Optional[torch.Tensor] = None   # (L, B) int32
 
     @classmethod
     def make(cls, cfg: ModelConfig, key: Optional[prng.Key] = None,
-             mode: Optional[str] = None, deployed: bool = False) -> "Ctx":
+             mode: Optional[str] = None, deployed: bool = False,
+             guard: Optional[Any] = None,
+             fault: Optional[Any] = None) -> "Ctx":
         mode = cfg.cim.mode if mode is None else mode
         if mode not in ("off", "qat", "sim"):
             raise NotImplementedError(f"cim mode {mode!r} is {_NOT_PORTED}")
         policy = get_policy(cfg.cim.policy) if mode != "off" else None
         return cls(cfg=cfg, mode=mode, policy=policy, key=key,
-                   deployed=deployed)
+                   deployed=deployed, guard=guard, fault=fault)
 
     def for_layer(self, i: int) -> "Ctx":
         """The context of layer ``i``: key ``fold_in(key, i)``, as the
@@ -97,7 +123,8 @@ class Ctx:
             if self.counter > self.seed_width:
                 raise ValueError(f"a layer drew {self.counter} seeds; the "
                                  f"table holds {self.seed_width} a layer")
-            return prng.SeedRow(self.seeds, self.seed_base + self.counter - 1)
+            return prng.SeedRow(self.seeds, self.seed_base + self.counter - 1,
+                                self.seed_fold)
         return prng.fold_in(self.key, self.counter)
 
     def spec_for(self, role: str) -> Optional[CIMSpec]:
@@ -118,13 +145,29 @@ def dense(ctx: Ctx, p: Params, x: torch.Tensor, role: str) -> torch.Tensor:
     mode, and in sim a weight of an undeployed tree, goes through
     ``cim_dense`` with the float weight. A sim weight without the plane of
     its width raises when ``ctx.deployed`` is set or when it carries a
-    plane of another width (a tree deployed under another policy)."""
+    plane of another width (a tree deployed under another policy).
+
+    ``ctx.fault`` rides into the spec; in sim mode ``ctx.drift`` too, with
+    ``ctx.drift_state``. With ``ctx.guard`` a sim call on a plane with its
+    checksum runs ``core.guard.guarded_dense``."""
     spec = ctx.spec_for(role)
     if spec is None:
         y = x @ p["w"].to(x.dtype)
     else:
+        if ctx.fault is not None:
+            spec = dataclasses.replace(spec, fault=ctx.fault)
+        dstate = None
+        if ctx.drift is not None and ctx.mode == "sim":
+            spec = dataclasses.replace(spec, drift=ctx.drift)
+            dstate = ctx.drift_state
         k = ctx.next_key()
         xs = _act_scale(ctx, x, spec)
+        if (ctx.guard is not None and ctx.mode == "sim"
+                and f"wc{spec.w_bits}" in p):
+            y = guarded_dense(ctx, p, x, spec, k, xs)
+            if "b" in p:
+                y = y + p["b"].to(x.dtype)
+            return y
         wq = p.get(f"wq{spec.w_bits}") if ctx.mode == "sim" else None
         if wq is None and ctx.mode == "sim" and (
                 ctx.deployed or any(n.startswith("wq") for n in p)):
@@ -135,13 +178,15 @@ def dense(ctx: Ctx, p: Params, x: torch.Tensor, role: str) -> torch.Tensor:
                 "resolves")
         if wq is not None and ctx.cfg.cim.use_kernel:
             y = kops.cim_matmul_deployed(x, wq, p[f"ws{spec.w_bits}"], spec,
-                                         k, x_scale=xs).to(x.dtype)
+                                         k, x_scale=xs,
+                                         dstate=dstate).to(x.dtype)
         elif wq is not None:
             y = cim_dense(x, None, spec, k, mode="sim", x_scale=xs,
-                          w_scale=p[f"ws{spec.w_bits}"], wq=wq)
+                          w_scale=p[f"ws{spec.w_bits}"], wq=wq,
+                          dstate=dstate)
         else:
             y = cim_dense(x, p["w"].to(x.dtype), spec, k, mode=ctx.mode,
-                          x_scale=xs)
+                          x_scale=xs, dstate=dstate)
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y

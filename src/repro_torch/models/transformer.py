@@ -56,13 +56,15 @@ from repro_torch.models.layers import Ctx, Params, embed, gelu_mlp, \
 def _use_fused_layer(ctx: Ctx, p: Params, x, cache) -> bool:
     """Route a decode-shaped dense block through the per-layer megakernel
     (``kernels/fused_step.py``): single-token cached decode of a float32
-    model with rope, in ideal-digital ("off") mode or in sim mode on
-    deployed planes with a key and a clip-fitted activation scale. On the
-    card, only where the kernel takes the shape (``kernel_takes``); the
-    plain version on the CPU takes any, so there the route is the
-    reference's."""
+    model with rope and no guard or fault instrumentation, in
+    ideal-digital ("off") mode or in sim mode on deployed planes with a key
+    and a clip-fitted activation scale. On the card, only where the kernel
+    takes the shape (``kernel_takes``); the plain version on the CPU takes
+    any, so there the route is the reference's."""
     cfg = ctx.cfg
     if not (cfg.fuse_layer and cache is not None and x.shape[1] == 1):
+        return False
+    if ctx.guard is not None or ctx.fault is not None:
         return False
     if not cfg.use_rope or x.dtype != torch.float32:
         return False
@@ -271,14 +273,31 @@ def _leaves(caches, i: int, keys):
 
 
 def _run_blocks(ctx: Ctx, params: Params, x, positions, caches):
+    """The layer stack. Under a guard each layer gets fresh trip and hard
+    lists and its pinned rows ``pin_layers[:, i]``; the per-layer sums are
+    stacked into (L, B) ``ctx.guard_trips`` / ``ctx.guard_hard``, as the
+    reference's scan outputs them."""
     if ctx.cfg.family == "hybrid":
         return _hybrid_blocks(ctx, params, x, positions, caches)
     blocks = params["blocks"]
+    guard = ctx.guard is not None
+    trips, hard = [], []
     for i in range(ctx.cfg.n_layers):
         lctx = ctx.for_layer(i)
+        if guard:
+            lctx.trip_log, lctx.hard_log = [], []
+            if ctx.pin_layers is not None:
+                lctx.pin_rows = ctx.pin_layers[:, i]
         layer_cache = None if caches is None else _index(caches, i)
         x, _ = _BLOCKS[ctx.cfg.family](lctx, _index(blocks, i), x,
                                        positions, layer_cache)
+        if guard:
+            zero = torch.zeros((x.shape[0],), dtype=torch.int32,
+                               device=x.device)
+            trips.append(sum(lctx.trip_log, zero))
+            hard.append(sum(lctx.hard_log, zero))
+    if guard:
+        ctx.guard_trips, ctx.guard_hard = torch.stack(trips), torch.stack(hard)
     return x
 
 

@@ -73,12 +73,39 @@ it goes, so before each probe, and after a probe that raises, the
 ``_FROZEN`` leaves go back to ``_frozen``: a failure at any layer leaves
 the surviving slots as the reference's functional step would. A failed
 prefill fails its request only. Emitted tokens stay on the device until
-drained (every ``DRAIN_EVERY`` pending entries and at the end of
+drained (every ``drain_every`` pending entries and at the end of
 ``generate``).
 
+Robustness, as in the reference: ``guard=`` runs every CIM linear under
+the ABFT checksum guard (``core/guard.py``; sim mode, deployed planes;
+dense, vlm, moe and ssm), and ``degrade=`` (``DegradePolicy``) escalates
+per (slot, layer) on its hard trips: a (slot, layer) is pinned to the
+digital path after ``pin_after`` of them, a request fails with a
+``RequestError`` after ``fail_after`` steps with one.
+``guard_trip_counts`` / ``guard_hard_counts`` sum the trips per layer,
+``guard_report_of`` gives a finished request's. The guard needs per-slot
+blame, so a guarded engine serves per call (``fused_step=True`` raises
+``ValueError``). ``fault=`` (``core.faults.FaultSpec``) deploys stuck-at
+planes and applies the runtime faults in every CIM call;
+``fault_slots`` names the slots its ``transient_mag`` disturbs, and
+``pin_slots`` serves slots on the digital path from the start.
+``drift=`` (``core.drift.DriftSpec``) drifts the readout at the engine's
+step counter ``drift_step`` (monotonic over the engine's life) and
+``calib=`` (``core.calibrate.CalibPolicy``) runs the background
+calibration and canary watchdog, at most one probe a step, outside the
+step's graphs; ``take_drift_events``, ``calibrations``,
+``watchdog_trips`` and ``drift_degraded`` report it. Under ``fused_step``
+the drift step and the trims are device tensors the graphs read (the step
+staged with the seeds, the trims written in place by a calibration), and
+a brownout draws under a table of ``fold_in(key, 0x0FA1)`` staged beside
+the seed table, so faults and drift replay as they run per call.
+
+``deploy`` is the reference's: None deploys the planes in sim mode,
+False serves sim mode on the float weights, quantized per call (the
+behavioural path: no CIM kernel, no CUDA graphs).
+
 Not in this slice (they raise ``NotImplementedError``, see ROADMAP.md):
-the ABFT guard, the degradation ladder, fault and drift injection,
-calibration and replica failover.
+the load ladder (``ladder=``), deadlines and replica failover (A6).
 """
 
 from __future__ import annotations
@@ -94,7 +121,12 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import prng
+from repro_torch.core.calibrate import (CalibPolicy, DriftController,
+                                        max_plane_width)
 from repro_torch.core.deploy import deploy as deploy_params
+from repro_torch.core.drift import DriftState
+from repro_torch.core.guard import GuardSpec
+from repro_torch.core.sac import get_policy
 from repro_torch.kernels.cim_matmul import cim_matmul_fused, cim_matmul_int8
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import (flash_attention,
@@ -140,14 +172,31 @@ class Request:
 
 @dataclasses.dataclass
 class RequestError:
-    """Structured per-request failure record."""
+    """Structured per-request failure record: the phase it died in
+    (prefill | decode), its slot, the first hard-tripping layer when the
+    guard failed it, and whether a retry is worth it (a guard hard-fail,
+    a persistent analog fault, is not)."""
 
     reason: str
     phase: str
     slot: Optional[int] = None
+    layer: Optional[int] = None
+    retryable: bool = True
 
     def __str__(self) -> str:
-        return f"[{self.phase}/slot={self.slot}] {self.reason}"
+        lay = f", layer={self.layer}" if self.layer is not None else ""
+        return f"[{self.phase}/slot={self.slot}{lay}] {self.reason}"
+
+
+@dataclasses.dataclass
+class DegradePolicy:
+    """Guard escalation per (slot, layer): after ``pin_after`` hard trips
+    of a layer for a slot, that (slot, layer) serves on the digital path
+    for the rest of the request (None: never pin); after ``fail_after``
+    steps with any hard trip, the request fails (None: never)."""
+
+    pin_after: Optional[int] = 1
+    fail_after: Optional[int] = None
 
 
 def _validate_requests(requests: List[Request], max_len: int) -> None:
@@ -219,31 +268,50 @@ def _seed_units(cfg: ModelConfig) -> int:
     return cfg.n_layers
 
 
-def _seed_width(cfg: ModelConfig, mode: str) -> int:
-    """Seed-table rows a layer draws on the CIM kernel path of a family
-    whose noise is all kernel-drawn (0: the forward keeps host keys)."""
-    if mode != "sim" or not cfg.cim.use_kernel:
+def _seed_width(cfg: ModelConfig, mode: str, deployed: bool = True,
+                guard=None) -> int:
+    """Seed-table rows a layer draws on the CIM kernel path (deployed
+    planes) of a family whose noise is all kernel-drawn (0: the forward
+    keeps host keys; so does a guarded forward, whose re-reads fold their
+    keys on the host)."""
+    if (mode != "sim" or not cfg.cim.use_kernel or not deployed
+            or guard is not None):
         return 0
     return SEEDS_PER_LAYER.get(cfg.family, 0)
 
 
+def _resolve_deploy(deploy: Optional[bool], mode: str) -> bool:
+    """None: deploy the planes for sim-mode serving; True requires sim."""
+    if deploy is None:
+        return mode == "sim"
+    if deploy and mode != "sim":
+        raise ValueError(
+            f"deploy=True only affects cim_mode='sim' (got mode '{mode}'): "
+            "pre-quantized weight planes are the sim-mode inference fast "
+            "path; off/qat would silently ignore them")
+    return bool(deploy)
+
+
 class _Inputs:
     """The host inputs of one forward in one device buffer: the seed table
-    (rows x 2 int32 words), the active mask (slots), the chunk's tokens
-    and its valid count, each a fixed view. ``put`` fills a pinned host
-    copy (a ring of them, each reused only after its copy has run) and
-    copies the whole buffer in one asynchronous copy on the current
-    stream; on the CPU it writes the buffer itself."""
+    (rows x 2 int32 words), the active mask (slots), the chunk's tokens,
+    its valid count, the drift step and (``folds``) the table of the seeds
+    folded by the brownout constant, each a fixed view. ``put`` fills a
+    pinned host copy (a ring of them, each reused only after its copy has
+    run) and copies the whole buffer in one asynchronous copy on the
+    current stream; on the CPU it writes the buffer itself."""
 
     RING = 8
 
     def __init__(self, device: torch.device, rows: int, slots: int,
-                 chunk: int):
-        sizes = (2 * rows, slots, chunk, 1)
+                 chunk: int, folds: bool = False):
+        sizes = (2 * rows, slots, chunk, 1, 1, 2 * rows if folds else 0)
         self.buf = torch.zeros(sum(sizes), dtype=torch.int32, device=device)
-        seeds, self.act, self.tokens, self.valid = torch.split(self.buf,
-                                                               sizes)
+        seeds, self.act, self.tokens, self.valid, step, fold = torch.split(
+            self.buf, sizes)
         self.seeds = seeds.view(rows, 2)
+        self.step = step[0]
+        self.folds = fold.view(rows, 2) if folds else None
         self._offsets = np.cumsum((0,) + sizes[:-1])
         self._cuda = device.type == "cuda"
         if self._cuda:
@@ -254,7 +322,8 @@ class _Inputs:
             self._next = 0
 
     def put(self, seeds: Optional[np.ndarray] = None, act=None, tokens=None,
-            valid: int = 0) -> None:
+            valid: int = 0, step: int = 0,
+            folds: Optional[np.ndarray] = None) -> None:
         if self._cuda:
             i = self._next
             self._next = (i + 1) % self.RING
@@ -264,7 +333,7 @@ class _Inputs:
             host = self.buf
         h = host.numpy()
         h[:] = 0
-        s0, a0, t0, v0 = self._offsets
+        s0, a0, t0, v0, st0, f0 = self._offsets
         if seeds is not None:
             h[s0:s0 + seeds.size] = seeds.reshape(-1)
         if act is not None:
@@ -272,6 +341,9 @@ class _Inputs:
         if tokens is not None:
             h[t0:t0 + tokens.size] = tokens.reshape(-1)
         h[v0] = valid
+        h[st0] = step
+        if folds is not None:
+            h[f0:f0 + folds.size] = folds.reshape(-1)
         if self._cuda:
             self.buf.copy_(host, non_blocking=True)
             self._copied[i].record()
@@ -310,27 +382,38 @@ class Engine:
                  chunk_size: Optional[int] = None,
                  record_ttft: bool = False, record_steps: bool = False,
                  fuse_layer: bool = False, fused_step: Optional[bool] = None,
-                 device="cuda", **unported):
+                 guard: Any = None, degrade: Optional[DegradePolicy] = None,
+                 fault: Any = None, fault_slots: Any = None,
+                 pin_slots: Any = None, drift: Any = None, calib: Any = None,
+                 deploy: Optional[bool] = None,
+                 drain_every: int = DRAIN_EVERY, device="cuda", **unported):
         if unported:
             raise NotImplementedError(
                 f"Engine options {sorted(unported)} are not ported yet; "
                 "ROADMAP.md lists them as later work")
         self.device = resolve_device(device)
         cfg, mode = _resolve(cfg, cim_mode, attn_impl)
+        self.deployed = _resolve_deploy(deploy, mode)
+        self.drain_every = drain_every
         if fuse_layer:
             cfg = dataclasses.replace(cfg, fuse_layer=True)
         if chunk_size is None:
             chunk_size = DEFAULT_CHUNK_SIZE
         if chunk_size < 0:
             raise ValueError(f"chunk_size must be >= 0, got {chunk_size}")
+        self.max_slots = max_slots
+        self._robustness(cfg, mode, guard, degrade, fault, fault_slots,
+                         pin_slots, drift, calib)
         graphable = cfg.family in SEEDS_PER_LAYER and (
-            mode == "off" or cfg.cim.use_kernel)
+            mode == "off" or cfg.cim.use_kernel and self.deployed)
         if fused_step is None:
-            fused_step = chunk_size > 0 and graphable
-        elif fused_step and chunk_size == 0:
+            fused_step = (chunk_size > 0 and graphable
+                          and self.guard is None)
+        elif fused_step and (chunk_size == 0 or self.guard is not None):
             raise ValueError(
-                "fused_step=True requires chunked prefill (chunk_size > 0): "
-                "the step programs have no whole-prompt admission path")
+                "fused_step=True requires chunked prefill (chunk_size > 0) "
+                "and no guard: the step programs have no whole-prompt "
+                "admission path and no per-slot failure isolation")
         elif fused_step and not graphable:
             raise NotImplementedError(_UNGRAPHED)
         self.cfg = cfg
@@ -347,12 +430,29 @@ class Engine:
                            if self.chunk_size else max_len)
         self.key = prng.PRNGKey(seed)
         self._sample_base = prng.fold_in(prng.PRNGKey(seed), 0x5A17)
-        self._width = _seed_width(cfg, mode)
+        self._width = _seed_width(cfg, mode, self.deployed, self.guard)
+        # a brownout draws under fold_in(key, 0x0FA1): staged as a table
+        self._fold = bool(self._width and fault is not None
+                          and fault.brownout_rate > 0.0)
         self._inputs = _Inputs(self.device, _seed_units(cfg) * self._width,
-                               max_slots, self.chunk_size)
+                               max_slots, self.chunk_size, folds=self._fold)
 
         params = _to_device(params, self.device)
-        self.params = deploy_params(cfg, params) if mode == "sim" else params
+        self.params = (deploy_params(cfg, params, fault=fault,
+                                     guard=self.guard or False)
+                       if self.deployed else params)
+        self._drift_ctl = None
+        if self.calib is not None:
+            pol = get_policy(cfg.cim.policy)
+            probe_spec = pol.mlp if pol.mlp is not None else pol.attn
+            if probe_spec is None:
+                raise ValueError(
+                    "calib needs at least one CIM-routed class in the SAC "
+                    "policy to define the probe operating point")
+            self._drift_ctl = DriftController(
+                probe_spec, self.drift, self.calib,
+                max_plane_width(self.params),
+                use_kernel=cfg.cim.use_kernel, device=self.device)
         self.caches = tf.init_caches(cfg, max_slots, self._alloc_len,
                                      self.device)
         self.last_tok = torch.zeros((max_slots,), dtype=torch.int64,
@@ -364,11 +464,69 @@ class Engine:
             self._capture()
         self.begin()
 
+    def _robustness(self, cfg: ModelConfig, mode: str, guard, degrade,
+                    fault, fault_slots, pin_slots, drift, calib) -> None:
+        """Check and set the guard, fault and drift options, with the
+        reference's rules and messages."""
+        if guard is True:
+            guard = GuardSpec()
+        self.guard = guard or None
+        if self.guard is not None:
+            if mode != "sim" or not self.deployed:
+                raise ValueError(
+                    "guard requires cim_mode='sim' with deployed weight "
+                    "planes — the ABFT checksum column is attached at "
+                    "deploy time (core.deploy) and compares the *analog* "
+                    "column sum")
+            if cfg.family not in ("dense", "vlm", "moe", "ssm"):
+                raise ValueError(
+                    f"guard trip export rides the stacked layer stack; "
+                    f"family '{cfg.family}' is not wired for it")
+        if calib is True:
+            calib = CalibPolicy()
+        self.drift = drift or None
+        self.calib = calib or None
+        if self.drift is not None:
+            if mode != "sim":
+                raise ValueError(
+                    "drift requires cim_mode='sim': temporal drift acts on "
+                    "the analog readout chain — there is nothing to drift "
+                    "on the digital path")
+            if cfg.fuse_layer:
+                raise ValueError(
+                    "drift requires fuse_layer=False: the per-layer "
+                    "megakernel bypasses the layers.dense dequant epilogue "
+                    "where drift (and its trim correction) is applied")
+        if self.calib is not None and self.drift is None:
+            raise ValueError(
+                "calib requires drift=: background calibration estimates "
+                "trims against the temporal drift model")
+        if self.calib is not None and not self.deployed:
+            raise ValueError(
+                "calib requires deployed weight planes: the trim width is "
+                "the widest deployed macro plane (core.calibrate)")
+        self.fault = fault
+        self.fault_slots = frozenset(int(s) for s in (fault_slots or ()))
+        self.pin_slots = frozenset(int(s) for s in (pin_slots or ()))
+        if self.pin_slots and self.guard is None:
+            raise ValueError("pin_slots requires guard: the digital bypass "
+                             "is routed by the guarded dense")
+        self.degrade = degrade if degrade is not None else (
+            DegradePolicy() if self.guard is not None else None)
+        self.guard_trip_counts = np.zeros(cfg.n_layers, np.int64)
+        self.guard_hard_counts = np.zeros(cfg.n_layers, np.int64)
+        self._frow_host = np.array([s in self.fault_slots
+                                    for s in range(self.max_slots)])
+        self.drift_step = 0
+        self.drift_events: List[Dict[str, Any]] = []
+        self.drift_degraded = False
+        self._drift_pin_all = False
+
     # -------------------------------------------- incremental session API
     def begin(self) -> None:
         """Reset scheduler state for a fresh session. The device cache is
         not touched: a recycled slot is wiped by its first chunk (or its
-        whole-prompt prefill)."""
+        whole-prompt prefill). The drift clock runs on."""
         S = self.max_slots
         self._reqs: List[Request] = []
         self._req_index: Dict[int, int] = {}
@@ -389,6 +547,16 @@ class Engine:
         self.replay_count = 0
         self._t0 = time.perf_counter()
         self._turnover = False
+        # guard state per (slot, layer), reset on recycle; the report of
+        # each retired request
+        L = self.cfg.n_layers
+        self._pinned = np.zeros((S, L), bool)
+        for s in self.pin_slots:
+            self._pinned[s] = True
+        self._hard_counts = np.zeros((S, L), np.int64)
+        self._trip_counts = np.zeros((S, L), np.int64)
+        self._fail_steps = np.zeros(S, np.int64)
+        self.guard_report: Dict[int, Dict[str, Any]] = {}
 
     def submit(self, r: Request) -> int:
         _validate_requests([r], self.max_len)
@@ -414,8 +582,9 @@ class Engine:
         if self.status[ri] == "queued":
             self._queue.remove(r)
         else:
-            self._free_slot(next(i for i, o in enumerate(self._slots)
-                                 if o is r))
+            s = next(i for i, o in enumerate(self._slots) if o is r)
+            self._capture_guard(s)
+            self._free_slot(s)
             self._turnover = True
         self.status[ri] = "cancelled"
         return True
@@ -435,6 +604,9 @@ class Engine:
         t0 = time.perf_counter()
         launches, replays = self.launch_count, self.replay_count
         n_chunks, decoded = self._iteration()
+        if self.drift is not None:
+            # at most one calibration probe, then the macro's clock ticks
+            self._drift_tick()
         if self.record_steps:
             self._sync()
             n = self.launch_count - launches
@@ -443,7 +615,7 @@ class Engine:
                 "s": time.perf_counter() - t0, "launches": n,
                 "replays": self.replay_count - replays,
                 "graph": n > 0 and self.replay_count - replays == n})
-        if len(self._pend) >= DRAIN_EVERY:
+        if len(self._pend) >= self.drain_every:
             self.drain_pending()
         return True
 
@@ -479,6 +651,108 @@ class Engine:
                 if self.status[self._req_index[id(r)]] == "failed"
                 else r.out_tokens for r in requests]
 
+    # ----------------------------------------------- drift + calibration
+    def _dstate(self):
+        """The drift state of a forward: the staged step and the
+        controller's trims (None without a controller), one per forward
+        (its fields are computed once a width), or None."""
+        if self.drift is None:
+            return None
+        if self._drift_ctl is None:
+            return DriftState(self._inputs.step)
+        return DriftState(self._inputs.step, self._drift_ctl.trim_gain,
+                          self._drift_ctl.trim_off)
+
+    def _drift_tick(self) -> None:
+        """Run the calibration and watchdog schedule for this step and
+        advance the drift clock. An "escalate" event pins every (slot,
+        layer) to the digital path when the guard is armed, or flags the
+        engine degraded otherwise."""
+        ctl = self._drift_ctl
+        if ctl is not None:
+            for e in ctl.tick(self.drift_step):
+                e = dict(e)
+                if e["kind"] == "escalate":
+                    if self.guard is not None:
+                        self._drift_pin_all = True
+                        self._pinned[:, :] = True
+                        e["action"] = "pin_digital"
+                    else:
+                        self.drift_degraded = True
+                        e["action"] = "flag_degraded"
+                self.drift_events.append(e)
+        self.drift_step += 1
+
+    def take_drift_events(self) -> List[Dict[str, Any]]:
+        """Drain the calibration and watchdog events."""
+        evs, self.drift_events = self.drift_events, []
+        return evs
+
+    @property
+    def calibrations(self) -> int:
+        return 0 if self._drift_ctl is None else self._drift_ctl.calibrations
+
+    @property
+    def watchdog_trips(self) -> int:
+        return (0 if self._drift_ctl is None
+                else self._drift_ctl.watchdog_trips)
+
+    # ------------------------------------------------------------ guard
+    def _reset_slot_guard(self, s: int) -> None:
+        # a drift escalation pins the whole engine: a recycled slot stays
+        # pinned
+        self._pinned[s] = (s in self.pin_slots) or self._drift_pin_all
+        self._hard_counts[s] = 0
+        self._trip_counts[s] = 0
+        self._fail_steps[s] = 0
+
+    def _capture_guard(self, s: int) -> None:
+        """Snapshot the retiring slot's guard counters for its request."""
+        r = self._slots[s]
+        if self.guard is None or r is None:
+            return
+        self.guard_report[self._req_index[id(r)]] = {
+            "trips": int(self._trip_counts[s].sum()),
+            "hard": int(self._hard_counts[s].sum()),
+            "hard_layers": np.nonzero(self._hard_counts[s])[0].tolist()}
+
+    def guard_report_of(self, r: Request) -> Optional[Dict[str, Any]]:
+        """A retired request's guard outcome ({"trips", "hard",
+        "hard_layers"}), or None."""
+        ri = self._req_index.get(id(r))
+        return None if ri is None else self.guard_report.get(ri)
+
+    def _note_guard(self, ctx: Ctx, slot_cols) -> List[int]:
+        """Fold one forward's (L, B) guard counts into the host state;
+        ``slot_cols``: (slot, batch column) pairs. Returns the slots whose
+        request just reached ``fail_after``."""
+        t = ctx.guard_trips.cpu().numpy()
+        h = ctx.guard_hard.cpu().numpy()
+        self.guard_trip_counts += t.sum(axis=1).astype(np.int64)
+        self.guard_hard_counts += h.sum(axis=1).astype(np.int64)
+        dead = []
+        pol = self.degrade
+        for s, col in slot_cols:
+            self._trip_counts[s] += t[:, col].astype(np.int64)
+            hcol = h[:, col]
+            if not hcol.any():
+                continue
+            self._hard_counts[s, hcol > 0] += 1
+            if pol is not None and pol.pin_after is not None:
+                self._pinned[s] |= self._hard_counts[s] >= pol.pin_after
+            if pol is not None and pol.fail_after is not None:
+                self._fail_steps[s] += 1
+                if self._fail_steps[s] >= pol.fail_after:
+                    dead.append(s)
+        return dead
+
+    def _guard_err(self, s: int, phase: str) -> RequestError:
+        layers_hit = np.nonzero(self._hard_counts[s])[0]
+        return RequestError(
+            reason=f"guard hard-fail during {phase}", phase=phase, slot=s,
+            layer=int(layers_hit[0]) if layers_hit.size else None,
+            retryable=False)
+
     # ------------------------------------------------- scheduler internals
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -488,22 +762,40 @@ class Engine:
         self.key, k = prng.split(self.key)
         return k
 
-    def _ctx(self, key: prng.Key) -> Ctx:
+    def _ctx(self, key: prng.Key, rows: Optional[slice] = None) -> Ctx:
         """The CIM context of a forward keyed by ``key`` (split(key)[0]);
-        on the seed-table path its draws read the staged table."""
+        on the seed-table path its draws read the staged table. Under a
+        guard, ``rows`` (slot rows of the forward's batch) selects the
+        pinned and disturbed rows."""
         ctx = Ctx.make(self.cfg, prng.split(key)[0], mode=self.mode,
-                       deployed=self.mode == "sim")
+                       deployed=self.deployed, guard=self.guard,
+                       fault=self.fault)
         if self._width:
             ctx.seeds, ctx.seed_width = self._inputs.seeds, self._width
+            if self._fold:
+                ctx.seed_fold = (0x0FA1, self._inputs.folds)
+        if self.drift is not None:
+            ctx.drift, ctx.drift_state = self.drift, self._dstate()
+        if self.guard is not None:
+            rows = slice(None) if rows is None else rows
+            ctx.pin_layers = torch.from_numpy(self._pinned[rows]).to(
+                self.device)
+            ctx.fault_rows = torch.from_numpy(self._frow_host[rows]).to(
+                self.device)
         return ctx
 
-    def _seeds(self, key: prng.Key) -> Optional[np.ndarray]:
-        """The seed table of a forward keyed by ``key`` (None off the
-        seed-table path)."""
-        if not self._width:
-            return None
-        return prng.seed_table(prng.split(key)[0], _seed_units(self.cfg),
-                               self._width)
+    def _stage(self, key: Optional[prng.Key], **kw) -> None:
+        """Stage a forward's host inputs: the seed table of ``key`` (and
+        its brownout folds) on the seed-table path, the drift step, and
+        ``kw`` (active mask, tokens, valid count)."""
+        seeds = folds = None
+        if self._width and key is not None:
+            seeds = prng.seed_table(prng.split(key)[0],
+                                    _seed_units(self.cfg), self._width)
+            if self._fold:
+                folds = prng.fold_table(seeds, 0x0FA1)
+        self._inputs.put(seeds=seeds, folds=folds, step=self.drift_step,
+                         **kw)
 
     def _free_slot(self, s: int) -> None:
         self._slots[s] = None
@@ -511,9 +803,11 @@ class Engine:
         self._counts[s] = 0
         self._offsets[s] = 0
         self._rk_slot[s] = (0, 0)
+        self._reset_slot_guard(s)
 
     def _finish_request(self, s: int) -> None:
         self.status[self._req_index[id(self._slots[s])]] = "completed"
+        self._capture_guard(s)
         self._free_slot(s)
         self._turnover = True
 
@@ -521,6 +815,7 @@ class Engine:
         ri = self._req_index[id(self._slots[s])]
         self.status[ri] = "failed"
         self.request_errors[ri] = err
+        self._capture_guard(s)
         self._free_slot(s)
 
     def _fill_slots(self) -> None:
@@ -530,6 +825,7 @@ class Engine:
                 ri = self._req_index[id(r)]
                 self.status[ri] = "running"
                 self._rk_slot[s] = self._rkeys[ri]
+                self._reset_slot_guard(s)
                 self._slots[s] = r
                 if self.chunk_size > 0:
                     # the prompt streams through the main loop, one chunk
@@ -544,6 +840,8 @@ class Engine:
                     self._fail_request(s, RequestError(
                         reason=f"prefill failed: {e!r}", phase="prefill",
                         slot=s))
+                    continue
+                if self._guard_failed(s, "prefill"):
                     continue
                 self._pend.append((tok, [ri]))
                 self._note_first_token(r)
@@ -602,6 +900,9 @@ class Engine:
                     slot=s))
                 finished = True
                 continue
+            if self._guard_failed(s, "prefill"):
+                finished = True
+                continue
             self._offsets[s] = off + valid
             if is_final:
                 self._pend.append((tok, [self._req_index[id(r)]]))
@@ -613,6 +914,15 @@ class Engine:
                     self._finish_request(s)
                 finished = True
         return n, finished
+
+    def _guard_failed(self, s: int, phase: str) -> bool:
+        """Under a guard, fold slot ``s``'s batch-1 forward's counts in and
+        fail its request if it reached ``fail_after``."""
+        if self.guard is None or not self._note_guard(self._guard_ctx,
+                                                      [(s, 0)]):
+            return False
+        self._fail_request(s, self._guard_err(s, phase))
+        return True
 
     def _graphed(self) -> bool:
         return self._graphs is not None and self.fused_ok
@@ -640,7 +950,7 @@ class Engine:
         """Advance slot ``s``'s prefill by one fixed-shape chunk, on views
         of its cache row. Returns the token sampled at the last valid
         position (committed to ``last_tok`` on the final chunk)."""
-        self._inputs.put(seeds=self._seeds(key), tokens=chunk, valid=valid)
+        self._stage(key, tokens=chunk, valid=valid)
         if reset:
             for t in tf.take_slot(self.caches, s).values():
                 t.zero_()
@@ -648,7 +958,8 @@ class Engine:
         if self._graphed():
             logits = self._replay(self._graphs["chunk"][s])
         if logits is None:
-            logits = self._chunk_forward(s, self._ctx(key))
+            self._guard_ctx = self._ctx(key, slice(s, s + 1))
+            logits = self._chunk_forward(s, self._guard_ctx)
         tok = _sample_tokens(logits[:, valid - 1], [temp],
                              _row_sample_keys([self._rk_slot[s]], [0],
                                               [temp]))[0]
@@ -680,8 +991,8 @@ class Engine:
         padded = np.zeros((1, bucket), np.int64)
         padded[0, :true_len] = prompt
         key = self._next_key()
-        self._inputs.put(seeds=self._seeds(key), valid=true_len)
-        ctx = self._ctx(key)
+        self._stage(key, valid=true_len)
+        ctx = self._guard_ctx = self._ctx(key, slice(s, s + 1))
         ctx.prefill_valid = self._inputs.valid
         sl = tf.take_slot(self.caches, s)
         for t in sl.values():
@@ -705,10 +1016,11 @@ class Engine:
         temps = [float(r.temperature) if r is not None else 0.0
                  for r in self._slots]
         key = self._next_key()
-        self._inputs.put(seeds=self._seeds(key), act=act)
+        self._stage(key, act=act)
         self.launch_count += 1
         self._snapshot()
         dead: Dict[int, RequestError] = {}
+        gdead: List[int] = []
         try:
             logits = None
             if self._graphed():
@@ -717,7 +1029,12 @@ class Engine:
                 if logits is None:
                     self._restore()    # the failed replay may have run
             if logits is None:
-                logits = self._decode_forward(self._ctx(key), self.last_tok)
+                ctx = self._ctx(key)
+                logits = self._decode_forward(ctx, self.last_tok)
+                if self.guard is not None:
+                    gdead = self._note_guard(
+                        ctx, [(s, s) for s in range(self.max_slots)
+                              if act[s]])
             toks = self._pick(logits, self.last_tok, temps, tok_idx)
         except Exception:                  # noqa: BLE001
             toks, dead = self._isolate_decode(act, key, temps, tok_idx)
@@ -730,6 +1047,10 @@ class Engine:
                 continue
             if s in dead:
                 self._fail_request(s, dead[s])
+                self._turnover = True
+                continue
+            if s in gdead:
+                self._fail_request(s, self._guard_err(s, "decode"))
                 self._turnover = True
                 continue
             self._counts[s] += 1
@@ -775,7 +1096,6 @@ class Engine:
         returned with its error. Each probe starts from ``_frozen``: the
         caches before the failed step, then after each surviving probe."""
         toks = self.last_tok
-        seeds = self._seeds(key)
         dead: Dict[int, RequestError] = {}
         self._restore()
         for s in range(self.max_slots):
@@ -784,9 +1104,12 @@ class Engine:
             solo = [i == s for i in range(self.max_slots)]
             self.launch_count += 1
             try:
-                self._inputs.put(seeds=seeds, act=solo)
-                logits = self._decode_forward(self._ctx(key), toks)
+                self._stage(key, act=solo)
+                ctx = self._ctx(key)
+                logits = self._decode_forward(ctx, toks)
                 toks = self._pick(logits, toks, temps, tok_idx)
+                if self.guard is not None:
+                    self._note_guard(ctx, [(s, s)])
             except Exception as e:         # noqa: BLE001
                 dead[s] = RequestError(reason=f"decode step failed: {e!r}",
                                        phase="decode", slot=s)
@@ -808,11 +1131,9 @@ class Engine:
         self._tok_in = torch.zeros((S,), dtype=torch.int64,
                                    device=self.device)
         ctx = self._ctx(prng.PRNGKey(0))
-        rows = self._inputs.seeds.shape[0]
-        self._inputs.put(seeds=np.zeros((rows, 2), np.int32),
-                         act=[True] * S,
-                         tokens=np.zeros((self.chunk_size,), np.int64),
-                         valid=self.chunk_size)
+        self._stage(prng.PRNGKey(0), act=[True] * S,
+                    tokens=np.zeros((self.chunk_size,), np.int64),
+                    valid=self.chunk_size)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
@@ -852,7 +1173,13 @@ class LoopEngine:
     def __init__(self, cfg: ModelConfig, params: Any, max_slots: int = 4,
                  max_len: int = 512, cim_mode: Optional[str] = None,
                  seed: int = 0, attn_impl: Optional[str] = None,
-                 device="cuda", **unported):
+                 deploy: Optional[bool] = None, drift: Any = None,
+                 calib: Any = None, device="cuda", **unported):
+        if drift is not None or calib:
+            raise ValueError(
+                "LoopEngine has no drift/calibration path — temporal drift "
+                "injection and background calibration are fused-Engine "
+                "features (use Engine)")
         if unported:
             raise NotImplementedError(
                 f"LoopEngine options {sorted(unported)} are not ported yet; "
@@ -862,11 +1189,12 @@ class LoopEngine:
         self.max_slots = max_slots
         self.max_len = max_len
         self.key = prng.PRNGKey(seed)
-        self._width = _seed_width(self.cfg, self.mode)
+        self.deployed = _resolve_deploy(deploy, self.mode)
+        self._width = _seed_width(self.cfg, self.mode, self.deployed)
         self._inputs = _Inputs(self.device,
                                _seed_units(self.cfg) * self._width, 0, 0)
         params = _to_device(params, self.device)
-        self.params = (deploy_params(self.cfg, params) if self.mode == "sim"
+        self.params = (deploy_params(self.cfg, params) if self.deployed
                        else params)
         self.request_errors: List[Optional[RequestError]] = []
 
@@ -944,7 +1272,7 @@ class LoopEngine:
         logits (1, V)."""
         key = self._next_key()
         ctx = Ctx.make(self.cfg, key, mode=self.mode,
-                       deployed=self.mode == "sim")
+                       deployed=self.deployed)
         if self._width:
             self._inputs.put(seeds=prng.seed_table(
                 key, _seed_units(self.cfg), self._width))

@@ -143,9 +143,13 @@ def test_session_api_cancel_and_slot_reuse(setup):
 def test_unported_options_and_bad_requests_raise(setup, monkeypatch):
     cfg_of, _, tp, _ = setup
     cfg = cfg_of(get_config("qwen2-0.5b"), False)
-    for kw in ({"guard": True}, {"ladder": object()}, {"cim_mode": "qat"}):
+    for kw in ({"ladder": object()}, {"cim_mode": "qat"}):
         with pytest.raises(NotImplementedError):
             Engine(cfg, tp, device="cpu", **kw)
+    # the guard is ported: outside deployed sim mode it raises the
+    # reference's ValueError
+    with pytest.raises(ValueError, match="guard requires cim_mode='sim'"):
+        Engine(cfg, tp, device="cpu", cim_mode="off", guard=True)
     # encdec requests would need encoder frames: the token-only engine
     # raises, as the reference's does
     with pytest.raises(ValueError, match="encdec"):

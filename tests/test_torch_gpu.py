@@ -927,3 +927,103 @@ def test_decode_failure_at_the_last_layer_card_equals_cpu(cuda, arch,
     assert outs[0] == outs[1]
     assert any(isinstance(o, RequestError) for o in outs[0])
     assert any(isinstance(o, list) for o in outs[0])
+
+
+# ---------------------------------------------------- the robustness layer
+
+def _robust_drift_kw(every=8):
+    from repro_torch.core.calibrate import CalibPolicy
+    from repro_torch.core.drift import DriftSpec
+    from repro_torch.core.faults import FaultSpec
+    return dict(drift=DriftSpec(seed=3, walk_gain_std=0.02,
+                                walk_offset_std=0.5, supply_offset_mag=8.0,
+                                supply_every=every),
+                calib=CalibPolicy(probe_rows=16, probe_chunk=16, probe_k=128,
+                                  every_steps=2 * every, canary_every=4),
+                fault=FaultSpec(seed=2, col_gain_std=0.01, col_offset_std=0.3,
+                                brownout_rate=0.02, adc_stuck_rate=0.002,
+                                adc_stuck_code=520))
+
+
+@pytest.mark.parametrize("m", [1, 4, 32])
+def test_cim_kernel_on_stuck_plane_and_retry_spec_matches_plain(cuda, m):
+    """Row 1 on a stuck-at plane (rate 1e-3; the card's draw equals the
+    CPU's) at qwen2-0.5b's gate shape, at the first read's and the
+    re-read's (CB on, 12 votes) sigma: integer part exact, noise within
+    the kernel checks' tolerance."""
+    from repro_torch.core import quant
+    from repro_torch.core.cim import output_noise_std_int_per_tile
+    from repro_torch.core.faults import stuck_bit_plane
+    from repro_torch.core.guard import GuardSpec, _retry_spec
+    from repro_torch.core.sac import paper_sac
+    from repro_torch.kernels.cim_matmul import (cim_matmul_fused,
+                                                cim_matmul_fused_plain)
+    spec = paper_sac().mlp
+    g = torch.Generator(device=cuda).manual_seed(m)
+    k, n = 896, 4864
+    w = torch.randn((k, n), generator=g, device=cuda)
+    clean = quant.quantize(w, quant.abs_max_scale(w, 6), 6).to(torch.int8)
+    key = (0, 3)
+    sp = stuck_bit_plane(clean, 6, 1e-3, key)
+    assert torch.equal(sp.cpu(), stuck_bit_plane(clean.cpu(), 6, 1e-3, key))
+    assert (sp != clean).any()
+    x = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
+    xs = 4.0 * torch.sqrt(torch.mean(x.float() ** 2)) / quant.qmax(6)
+    qp = torch.stack([xs, torch.ones_like(xs)])
+    assert torch.equal(cim_matmul_fused(x, sp, qp, None, 0.0, 6),
+                       cim_matmul_fused_plain(x, sp, qp, None, 0.0, 6))
+    for s in (spec, _retry_spec(spec, GuardSpec())):
+        sigma = output_noise_std_int_per_tile(s, k)
+        yk = cim_matmul_fused(x, sp, qp, (11, 12), sigma, 6)
+        yp = cim_matmul_fused_plain(x, sp, qp, (11, 12), sigma, 6)
+        tol = 1e-6 * yp.abs().max().item() + 1e-5 * sigma
+        assert (yk - yp).abs().max().item() <= tol
+
+
+def test_guarded_engine_card_equals_cpu(cuda):
+    """The reduced qwen2 under the guard with a 64-sigma transient on
+    slot 1: tokens, statuses, per-layer counts and reports card = CPU."""
+    from repro_torch.core.faults import FaultSpec
+    cfg = _reduced("qwen2-0.5b")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    got = []
+    for dev in (cuda, "cpu"):
+        eng = Engine(cfg, params, max_slots=3, max_len=96,
+                     attn_impl="kernel", guard=True,
+                     fault=FaultSpec(transient_mag=64.0), fault_slots={1},
+                     device=dev)
+        outs = eng.generate(_graph_requests(cfg, sampled=None))
+        got.append((outs, eng.status, eng.guard_trip_counts.tolist(),
+                    eng.guard_hard_counts.tolist(), eng.guard_report))
+    assert got[0] == got[1]
+    assert got[0][4][1]["hard"] > 0
+    with pytest.raises(ValueError, match="no guard"):
+        Engine(cfg, params, guard=True, fused_step=True, device=cuda)
+
+
+def test_drift_engine_replayed_equals_per_call_and_cpu(cuda):
+    """Drift (a supply step every 8 steps), calibration and runtime faults
+    with a brownout: replayed through the graphs (the step and the trims
+    read on the card, the brownout keyed by the staged fold table) = per
+    call = CPU in tokens and drift events, replayed = per call in launch
+    counts."""
+    cfg = _reduced("qwen2-0.5b")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    runs = {}
+    for name, dev, fused in (("replayed", cuda, True),
+                             ("per_call", cuda, False), ("cpu", "cpu", None)):
+        eng = Engine(cfg, params, max_slots=2, max_len=96,
+                     attn_impl="kernel", fused_step=fused, device=dev,
+                     **_robust_drift_kw())
+        for f in engine.COUNTED:
+            f.launches = 0
+        outs = eng.generate(_graph_requests(cfg, sampled=None))
+        runs[name] = (outs, {f.__name__: f.launches for f in engine.COUNTED},
+                      [(e["kind"], e["step"])
+                       for e in eng.take_drift_events()], eng)
+    assert runs["replayed"][0] == runs["per_call"][0] == runs["cpu"][0]
+    assert runs["replayed"][1] == runs["per_call"][1]
+    assert runs["replayed"][2] == runs["per_call"][2] == runs["cpu"][2]
+    eng = runs["replayed"][3]
+    assert eng.replay_count > 0 and eng.fallbacks == 0
+    assert eng.drift_step > 8 and eng.calibrations >= 1
