@@ -66,7 +66,8 @@ models (``whole_prompt_loop_parity``). Last, the paper's own results:
 SQNR, CSNR, column noise, the energy model and the FoMs measured on the
 card and held against the port's CPU run and the paper's bands, with the
 bit-exact SAR engine at 256x4096x512 (``paper_metrics``); noise-aware QAT
-of the reference test's ViT and of full-width vit-small-cifar, evaluated
+of the reference test's ViT and of vit-small-cifar at its published
+width (6 of its 12 layers), evaluated
 off, in behavioural sim and through the CIM kernel, which is held against
 its plain version on the ViT's own operands, its logits against the
 CPU's (``vit_qat``); full-width qwen2-0.5b trained in qat mode with a
@@ -95,9 +96,14 @@ version, the stuck draw and the drift and fault epilogue card vs CPU
 slot and drifted with calibration, card vs CPU and replayed vs per call
 (``robust_parity``); full-width qwen2-0.5b under the guard quiet, with a
 faulted slot pinned against its pinned twin, on a stuck-at deploy, and
-drifted with calibration replayed vs per call (``serve_robust``). Every
-phase prints one JSON line; any failure exits non-zero. The last line is
-the device record.
+drifted with calibration replayed vs per call (``serve_robust``). The
+front-end and the load ladder: full-width qwen2-0.5b replayed under
+``DegradeLadder((None, 3, 1))`` driven through the front-end by a
+scripted burst on a fake clock (sheds, deadlines, a client cancel,
+admissions at rungs 1 and 2 and back at 0), the same script per call
+giving every record, rung 0 = no ladder, and the ladder's noise card vs
+CPU (``serve_frontend``). Every phase prints one JSON line; any failure
+exits non-zero. The last line is the device record.
 """
 
 from __future__ import annotations
@@ -3123,8 +3129,10 @@ def _vit_run(cfg, steps, warmup, name):
 VIT_LOGIT_TOL = 0.05
 # QAT steps of the full-width vit-small-cifar: 40 for the script's time
 # (a step takes 0.65-0.9 s on an H100; 100 before the robustness phases
-# came)
+# came), on 6 of its 12 layers since the front-end phase came (every
+# layer runs row 1 at the same shapes)
 VIT_FULL_STEPS = 40
+VIT_FULL_LAYERS = 6
 
 
 def _vit_row1_parity(cfg, params, name):
@@ -3202,7 +3210,8 @@ def _vit_row1_parity(cfg, params, name):
 def phase_vit_qat():
     """The paper's CIFAR demo on the card: the reference test's recipe
     (tests/test_system.py: 3 layers, d 128, 150 QAT steps, batch 64, lr
-    1.5e-3) and full-width vit-small-cifar (``VIT_FULL_STEPS`` QAT steps:
+    1.5e-3) and vit-small-cifar at its published width and
+    ``VIT_FULL_LAYERS`` of its 12 layers (``VIT_FULL_STEPS`` QAT steps:
     its accuracy is not gated and its step ms is a mean), each evaluated
     off, in behavioural sim and in sim through row 1 on deployed planes
     (M = B * 65 rows). Row 1's launches on the ViT path are counted, and
@@ -3215,11 +3224,14 @@ def phase_vit_qat():
         get_config("vit-small-cifar").reduced(), n_layers=3, d_model=128,
         d_ff=256, n_heads=4, n_kv_heads=4, head_dim=32,
         cim=CIMModelConfig(mode="qat", policy="paper_sac"))
-    full = get_config("vit-small-cifar")
+    full = dataclasses.replace(get_config("vit-small-cifar"),
+                               n_layers=VIT_FULL_LAYERS)
     total = 0
     for cfg, steps, warmup, name in (
             (small, 150, 10, "test recipe (3 layers, d 128)"),
-            (full, VIT_FULL_STEPS, 15, "vit-small-cifar (full width)")):
+            (full, VIT_FULL_STEPS, 15,
+             f"vit-small-cifar (full width, {VIT_FULL_LAYERS} of 12 "
+             f"layers)")):
         params, losses, step_ms, accs, eval_ms, launches = _vit_run(
             cfg, steps, warmup, name)
         if (launches <= 0 or cfg is small and (
@@ -3237,16 +3249,17 @@ def phase_vit_qat():
 
 
 # the uninterrupted LM run's steps (10 before the robustness phases came,
-# for the script's time; the resume check needs 6)
+# for the script's time; the resume check from its step-5 checkpoint needs
+# 6)
 LM_STEPS = 6
 
 
 def phase_train_lm():
     """Full-width qwen2-0.5b trained with --cim qat through ``Trainer``:
-    ``LM_STEPS`` steps at batch 8 x seq 128 (of a 10-step schedule), and a
-    run cut after 5 steps (checkpoint) then resumed for its sixth, whose
-    loss must equal the uninterrupted run's sixth within 1e-5 relative.
-    Step ms and peak memory."""
+    ``LM_STEPS`` steps at batch 8 x seq 128 (of a 10-step schedule), with a
+    checkpoint after its fifth; a second trainer resumes from that
+    checkpoint for the sixth step, whose loss must equal the uninterrupted
+    run's sixth within 1e-5 relative. Step ms and peak memory."""
     import shutil
     import torch
     from repro_torch.configs.base import CIMModelConfig
@@ -3283,14 +3296,11 @@ def phase_train_lm():
 
     key = prng.PRNGKey(0)
     torch.cuda.reset_peak_memory_stats()
-    tr, full = trainer("full", LM_STEPS, every=LM_STEPS)  # one save
+    tr, full = trainer("full", LM_STEPS)       # one save, after step 5
     tr.run(key, resume=False)
     peak = torch.cuda.max_memory_allocated()
     del tr
-    tr, _ = trainer("cut", 5)
-    tr.run(key, resume=False)
-    del tr
-    tr, resumed = trainer("cut", 6)
+    tr, resumed = trainer("full", 6)
     out = tr.run(key, resume=True)
     del tr
     losses = [v for v, _ in full]
@@ -3428,7 +3438,7 @@ def phase_robust_kernel_checks():
     w0, w1 = prng.key_words(key)
     table = torch.from_numpy(np.array([[w0, w1]], np.uint32).view(np.int32))
     folds = torch.from_numpy(prng.fold_table(table.numpy(), 0x0FA1))
-    row = prng.SeedRow(table.cuda(), 0, (0x0FA1, folds.cuda()))
+    row = prng.SeedRow(table.cuda(), 0, {0x0FA1: folds.cuda()})
     st = (torch.tensor(21, dtype=torch.int32, device="cuda"), *trims)
     y_host = ops.cim_matmul_deployed(x, sp, ws, es, key, x_scale=xs,
                                      dstate=st)
@@ -3699,6 +3709,302 @@ def phase_serve_robust(params, unguarded_profile):
     del res, a, b, c, d, dp, plain, twin
     torch.cuda.empty_cache()
     return launches, time.perf_counter() - t_start
+
+
+# --------------------------------------- the front-end and the load ladder
+FE_BURST = 14              # requests submitted at once ...
+FE_QUEUE = 10              # ... into this admission bound: 4 shed
+FE_HIGH, FE_LOW = 4, 2     # the ladder's watermarks
+FE_NEW = 16
+FE_DT = 0.01               # fake-clock seconds a tick
+FE_DEADLINE = (0, 0.05)    # request 0 (60 tokens): deadline 5 ticks in
+FE_CANCEL = 3              # request 3 (95 tokens): cancelled after a token
+FE_LATE = (211, 64)        # arrive after the burst drains
+FE_LEVELS = (0, 1, 2, 1)   # the noise check's row levels
+
+
+def frontend_script(eng):
+    """The front-end session on ``eng`` under a fake clock (``FE_DT`` a
+    tick): ``FE_BURST`` requests at once (cell A's lengths in turn,
+    ``FE_NEW`` greedy tokens; request ``FE_DEADLINE[0]`` with a deadline,
+    request ``FE_CANCEL`` cancelled by its client after its first token),
+    ticks until the burst drains and the ladder is back at rung 0, then
+    ``FE_LATE`` and ticks until they finish. Returns the front-end, the
+    tickets, and per tick (host ms, row-3 launches, whether the tick was a
+    pure decode)."""
+    import torch
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_gqa_attention
+    from repro_torch.serving.frontend import Frontend
+
+    clock = {"t": 0.0}
+    fe = Frontend(eng, queue_limit=FE_QUEUE, high_watermark=FE_HIGH,
+                  low_watermark=FE_LOW, clock=lambda: clock["t"])
+    rng = np.random.default_rng(6)
+    vocab = eng.cfg.vocab_size
+    tks = [fe.submit(list(rng.integers(0, vocab,
+                                       SESSION_LENS[i % len(SESSION_LENS)])),
+                     FE_NEW, rid=f"f{i}",
+                     timeout_s=FE_DEADLINE[1] if i == FE_DEADLINE[0]
+                     else None)
+           for i in range(FE_BURST)]
+    ticks = []
+
+    def tick():
+        f0, d0 = flash_gqa_attention.launches, decode_attention.launches
+        t0 = time.perf_counter()
+        fe.tick(clock["t"])
+        ticks.append((1e3 * (time.perf_counter() - t0),
+                      flash_gqa_attention.launches == f0
+                      and decode_attention.launches > d0))
+        clock["t"] += FE_DT
+        c = tks[FE_CANCEL]
+        if c.tokens and not c._cancel_asked and not c.done.is_set():
+            c.cancel()
+        if len(ticks) > 2000:
+            fail("serve_frontend: the front-end wedged")
+
+    while fe.pending() or fe.level:
+        tick()
+    tks += [fe.submit(list(rng.integers(0, vocab, n)), FE_NEW,
+                      rid=f"f{FE_BURST + i}") for i, n in enumerate(FE_LATE)]
+    while fe.pending():
+        tick()
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize()
+    return fe, tks, ticks
+
+
+def _records(tks):
+    return [(t.rid, t.outcome, t.record.reason, t.tokens,
+             dataclasses.astuple(t.record)) for t in tks]
+
+
+def phase_serve_frontend(params):
+    """The front-end (``serving/frontend.py``) and the load ladder on
+    qwen2-0.5b at full width and depth as in cell A (bf16, bf16 cache, sim
+    on deployed planes, the CIM kernel, kernel attention, 4 slots, chunk
+    32), replayed (``fused_step``) with ``DegradeLadder((None, 3, 1))``,
+    driven by ``frontend_script``: every ticket ends in one outcome, the 4
+    past the bound shed with their reason, admissions at rungs 1 and 2, the
+    ladder back at 0 and the late pair admitted there, the deadline and
+    the client's cancel hit mid-decode; the same script per call
+    (``fused_step=False``) gives every ticket the same outcome, tokens and
+    record; a laddered engine whose requests all sit at rung 0 gives a
+    ladder-free engine's tokens, both replayed; ``_degrade_noise`` on a
+    full-width gate output card against CPU (Threefry bits equal, the
+    normal within ``ULP_LIMIT`` ulp, level-0 rows the input bit for bit,
+    the others within one bf16 ulp). Prints host ms a front-end tick
+    against the engine's own replayed step, device ms a pure-decode step
+    with the ladder's epilogue and without it (CUDA events after a spin),
+    row-1 launches a step, the records' p99s and the phase's seconds.
+    Returns the rows' launches in the replayed session and the
+    seconds."""
+    import torch
+    from repro_torch.core import prng, quant
+    from repro_torch.core.sac import DegradeLadder, paper_sac
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cim_matmul import cim_matmul_fused
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_gqa_attention
+    from repro_torch.models import layers
+    from repro_torch.serving.engine import OUTCOMES, Engine, Request
+
+    t_start = time.perf_counter()
+    kernels = (cim_matmul_fused, decode_attention, flash_gqa_attention)
+    cfg = full_config(False)
+    ladder = DegradeLadder(votes=(None, 3, 1))
+
+    # _degrade_noise on a full-width gate output, card against CPU
+    g = torch.Generator(device="cuda").manual_seed(11)
+    spec = paper_sac().mlp
+    k, n = cfg.d_model, cfg.d_ff
+    wq = random_plane(g, k, n, spec)
+    ws = torch.tensor(0.0213, dtype=torch.bfloat16, device="cuda")
+    x = torch.randn((4, 1, k), generator=g, device="cuda").to(torch.bfloat16)
+    xs = 4.0 * torch.sqrt(torch.mean(x.float() ** 2)) / quant.qmax(
+        spec.in_bits)
+    key = prng.PRNGKey(21)
+    y = ops.cim_matmul_deployed(x, wq, ws, spec, key, x_scale=xs).to(
+        torch.bfloat16)
+    # the card draws layer 5's gate call (row 5 * 7 + 4 of a forward's
+    # table) with its column, the 24 layers' gate calls at once; the CPU
+    # draws it alone under the host key
+    words = np.zeros((cfg.n_layers * 7, 2), np.uint32)
+    words[:, 0] = np.arange(words.shape[0])
+    words[5 * 7 + 4] = prng.key_words(key)
+    table = torch.from_numpy(words.view(np.int32))
+    folds = torch.from_numpy(prng.fold_table(table.numpy(),
+                                             layers.DEGRADE_FOLD))
+    row = prng.SeedRow(table.cuda(), 5 * 7 + 4,
+                       {layers.DEGRADE_FOLD: folds.cuda()})
+    outs = {}
+    for dev, kk, width in (("cuda", row, 7), ("cpu", key, 0)):
+        ctx = layers.Ctx(cfg=cfg, mode="sim", degrade_levels=ladder.votes,
+                         degrade_rows=torch.tensor(FE_LEVELS,
+                                                   dtype=torch.int32,
+                                                   device=dev),
+                         seed_width=width)
+        outs[dev] = layers._degrade_noise(
+            ctx, {"ws6": ws.to(dev)}, x.to(dev), y.to(dev), spec, kk,
+            xs.to(dev)).cpu()
+    fk = prng.fold_in(key, layers.DEGRADE_FOLD)
+    bits_equal = torch.equal(prng.random_bits(fk, y.shape, "cuda").cpu(),
+                             prng.random_bits(fk, y.shape))
+    normal_ulps = float(_ulps(prng.normal(fk, y.shape, "cuda"),
+                              prng.normal(fk, y.shape)).max())
+    lvl = torch.tensor(FE_LEVELS)
+    rows0 = lvl == 0
+    level0_exact = (torch.equal(outs["cuda"][rows0], y.cpu()[rows0])
+                    and torch.equal(outs["cpu"][rows0], y.cpu()[rows0]))
+    hit = outs["cuda"][~rows0].float()
+    ref = outs["cpu"][~rows0].float()
+    bf16_ulps = float(((hit - ref).abs() / torch.maximum(
+        ref.abs(), torch.full_like(ref, 2.0 ** -126)) / 2.0 ** -8).max())
+    moved = not torch.equal(outs["cuda"][~rows0], y.cpu()[~rows0])
+    if (not bits_equal or normal_ulps > ULP_LIMIT or not level0_exact
+            or bf16_ulps > 1.0 or not moved):
+        fail(f"serve_frontend noise: bits equal {bits_equal}, normal "
+             f"{normal_ulps} ulp (limit {ULP_LIMIT}), level-0 rows exact "
+             f"{level0_exact}, laddered rows {bf16_ulps} bf16 ulp (limit 1), "
+             f"moved {moved}")
+    noise = {"operand": f"gate output (4, {n}) bf16, K {k}",
+             "card": "layer 5's gate row, drawn with its column of 24",
+             "levels": list(FE_LEVELS), "bits_equal": True,
+             "normal_max_ulps": normal_ulps, "level0_rows_exact": True,
+             "laddered_rows_max_bf16_ulps": bf16_ulps}
+
+    # the front-end session, replayed, then the same script per call
+    runs = {}
+    for name, fused in (("replayed", True), ("per_call", False)):
+        t0 = time.perf_counter()
+        eng = Engine(cfg, params, max_slots=4, max_len=320,
+                     attn_impl="kernel", fused_step=fused, ladder=ladder,
+                     device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        for kern in kernels:
+            kern.launches = 0
+        t0 = time.perf_counter()
+        fe, tks, ticks = frontend_script(eng)
+        runs[name] = dict(eng=eng, fe=fe, tks=tks, ticks=ticks,
+                          build_s=build_s,
+                          session_s=time.perf_counter() - t0,
+                          launches={kern.__name__: kern.launches
+                                    for kern in kernels},
+                          replays=eng.replay_count)
+    rep, pc = runs["replayed"], runs["per_call"]
+    tks, fe, eng = rep["tks"], rep["fe"], rep["eng"]
+    recs = [t.record for t in tks]
+    shed = [t for t in tks if t.outcome == "shed"]
+    burst_lvls = {r.degrade_level for r in recs[:FE_BURST]
+                  if r.admitted_s is not None}
+    downs = [tr for tr in fe.metrics.transitions if tr.level_to == 0]
+    dl, cn = tks[FE_DEADLINE[0]], tks[FE_CANCEL]
+    checks = {
+        "one_outcome_each": all(t.done.is_set() and t.outcome in OUTCOMES
+                                for t in tks),
+        "shed_4_with_reason": len(shed) == FE_BURST - FE_QUEUE and all(
+            "admission queue full" in t.record.reason for t in shed),
+        "rungs_1_and_2": {1, 2} <= burst_lvls,
+        "ladder_back_to_0": bool(downs) and fe.level == 0,
+        "late_pair_at_rung_0": all(r.degrade_level == 0
+                                   and r.outcome == "completed"
+                                   for r in recs[FE_BURST:]),
+        "deadline_mid_decode": dl.outcome == "deadline_expired"
+        and 0 < len(dl.tokens) < FE_NEW,
+        "client_cancel_after_first_token": cn.outcome == "cancelled"
+        and 0 < len(cn.tokens) < FE_NEW,
+        "per_call_records_equal": _records(tks) == _records(pc["tks"]),
+        "per_call_launches_equal": rep["launches"] == pc["launches"],
+        "replayed": rep["replays"] > 0 and eng.fallbacks == 0,
+    }
+    if not all(checks.values()):
+        got = [(t.rid, t.outcome, t.record.degrade_level, len(t.tokens))
+               for t in tks]
+        fail(f"serve_frontend: {checks}; outcomes {got}; transitions "
+             f"{fe.metrics.transitions}")
+    summary = fe.metrics.summary()
+    tick_ms = [ms for ms, pure in rep["ticks"] if pure]
+
+    # rung 0 under a ladder = no ladder, both replayed; the engine's own
+    # replayed step and the device ms a step with and without the ladder's
+    # epilogue
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in ROBUST_LENS]
+
+    def own_session(e):
+        # a fresh session on the engine's seed: the front-end session
+        # advanced its key chain
+        e.begin()
+        e.key = prng.PRNGKey(0)
+        reqs = [Request(prompt=p, max_new_tokens=FE_NEW, rid=f"z{i}")
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            e.submit(r)
+        steps, dev = [], None
+        while e.has_work():
+            pure = (all(e._decoding[s] for s, r in enumerate(e._slots)
+                        if r is not None) and not e._queue
+                    and any(r is not None for r in e._slots))
+            n0 = cim_matmul_fused.launches
+            if pure and dev is None:
+                torch.cuda.synchronize()
+                a, b = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+                torch.cuda._sleep(int(2e9 * 0.05))
+                a.record()
+                e.step()
+                b.record()
+                torch.cuda.synchronize()
+                dev = (a.elapsed_time(b),
+                       cim_matmul_fused.launches - n0)
+                continue
+            t0 = time.perf_counter()
+            e.step()
+            if pure:
+                steps.append(1e3 * (time.perf_counter() - t0))
+        e.drain_pending()
+        torch.cuda.synchronize()
+        return [r.out_tokens for r in reqs], steps, dev
+
+    z_lad = own_session(eng)
+    plain_eng = Engine(cfg, params, max_slots=4, max_len=320,
+                       attn_impl="kernel", fused_step=True, device="cuda")
+    z_plain = own_session(plain_eng)
+    if z_lad[0] != z_plain[0] or not plain_eng.replay_count:
+        fail(f"serve_frontend: rung-0 tokens {z_lad[0]} vs no ladder "
+             f"{z_plain[0]}")
+    new_s = time.perf_counter() - t_start
+    emit("serve_frontend", arch=cfg.name, n_layers=cfg.n_layers,
+         dtype=cfg.dtype, slots=4, chunk=32, ladder_votes=list(ladder.votes),
+         burst=FE_BURST, queue_limit=FE_QUEUE, watermarks=[FE_HIGH, FE_LOW],
+         late=list(FE_LATE), new_tokens=FE_NEW, fake_dt_s=FE_DT,
+         checks=checks, noise_check=noise,
+         outcomes=summary["outcomes"],
+         degraded_admissions=summary["degraded_admissions"],
+         ladder_transitions=summary["ladder_transitions"],
+         queue_wait_p99_fake_s=summary["queue_wait_p99_s"],
+         ttft_p99_fake_s=summary["ttft_p99_s"],
+         admitted_levels=[r.degrade_level for r in recs],
+         ticks=len(rep["ticks"]),
+         frontend_tick_host_ms_pure_decode=float(np.mean(tick_ms)),
+         engine_step_host_ms_pure_decode_laddered=float(np.mean(z_lad[1])),
+         engine_step_host_ms_pure_decode_no_ladder=float(
+             np.mean(z_plain[1])),
+         device_ms_step_laddered=z_lad[2][0],
+         device_ms_step_no_ladder=z_plain[2][0],
+         row1_launches_per_step=z_lad[2][1],
+         replayed={"build_s": rep["build_s"], "session_s": rep["session_s"],
+                   "launches": rep["launches"],
+                   "replays": rep["replays"]},
+         per_call={"build_s": pc["build_s"], "session_s": pc["session_s"],
+                   "launches": pc["launches"]},
+         seconds=new_s)
+    launches = rep["launches"]
+    del runs, rep, pc, eng, fe, plain_eng
+    torch.cuda.empty_cache()
+    return launches, new_s
 
 
 # ------------------------------------------------- the registry's archs
@@ -4717,6 +5023,8 @@ def main() -> int:
     runs["robust"], _ = phase_serve_robust(params, profiles[False, False])
     emit("robust", new_phases_s=time.perf_counter() - t_robust,
          new_phases_limit_s=100)
+    runs["frontend"], frontend_s = phase_serve_frontend(params)
+    emit("frontend", new_phases_s=frontend_s, new_phases_limit_s=60)
     del params
     params32 = init_params(full_config32(False),
                            torch.Generator(device="cuda").manual_seed(0),
@@ -4850,9 +5158,10 @@ def main() -> int:
         if name in ("cim_matmul_fused", "decode_attention", "flash_gqa",
                     "ssm_decode_step"):
             n += runs["archs"][fn.__name__]
-        # the robustness sessions (bf16 qwen2, bf16 cache) run rows 1-3
+        # the robustness and the front-end sessions (bf16 qwen2, bf16
+        # cache) run rows 1-3
         if name in ("cim_matmul_fused", "decode_attention", "flash_gqa"):
-            n += runs["robust"][fn.__name__]
+            n += runs["robust"][fn.__name__] + runs["frontend"][fn.__name__]
         line.append({"name": name, "route": "cuda", "source": path,
                      "replaces": tpu, "launches": n,
                      "max_abs_err": errs[name if name in errs else ekey],

@@ -12,9 +12,9 @@ paper-metrics path), the behavioural sim path (``cim_matmul_behavioral``:
 the exact integer dot plus one whole-K ``jax.random.normal`` draw,
 replayed by ``prng.normal``, then the drift and fault epilogues) and
 ``cim_dense`` in its digital, qat (straight-through fake-quant plus the
-macro's noise, for training) and sim modes. The load ladder's
-``vote_drop_extra_std_int`` belongs to the serving front-end and is not
-ported (ROADMAP A6).
+macro's noise, for training) and sim modes, and the load ladder's
+``vote_drop_extra_std_int`` (the extra noise of a conversion voted fewer
+times).
 """
 
 from __future__ import annotations
@@ -30,7 +30,8 @@ from repro_torch.core import prng, quant
 from repro_torch.core.adc import (ADCSpec, adc_noise_error_var_lsb2,
                                   adc_total_error_var_lsb2, sar_convert)
 from repro_torch.core.drift import DriftSpec, apply_drift
-from repro_torch.core.faults import (FaultSpec, apply_output_faults,
+from repro_torch.core.faults import (BROWNOUT_FOLD, FaultSpec,
+                                     apply_output_faults,
                                      column_gain, column_offset_z)
 
 # Rows of one macro: the K tile of the readout noise and of the CUDA kernel
@@ -207,6 +208,32 @@ def brownout_extra_std_int(spec: CIMSpec, k: int) -> float:
             * math.sqrt(f.brownout_rate * tiles * s_bw * dvar) * qx / gain)
 
 
+def vote_drop_extra_std_int(spec: CIMSpec, k: int,
+                            votes: Optional[int]) -> float:
+    """Extra output noise std (integer product units) when the CB majority
+    votes run at ``votes`` instead of ``spec.adc.mv_votes``: the variance
+    of the smaller vote count less the full one's, through the gain and
+    shift-add chain of ``output_noise_std_int`` (``brownout_extra_std_int``
+    at rate 1 with an explicit count). ``votes=None``, ``votes >=
+    mv_votes`` or a spec without CB give exactly 0.0, so a ladder-level-0
+    row adds no noise."""
+    if votes is None or not spec.cb or votes >= spec.adc.mv_votes:
+        return 0.0
+    if votes < 1:
+        raise ValueError(f"degraded vote count must be >= 1, got {votes}")
+    adc = spec.effective_adc()
+    dvar = max(
+        adc_total_error_var_lsb2(
+            dataclasses.replace(adc, mv_votes=votes), spec.cb)
+        - adc_total_error_var_lsb2(adc, spec.cb), 0.0)
+    gain = spec.analog_gain(rows=k) * spec.attenuation
+    s_bw = quant.sum_sq_plane_weights(spec.w_bits)
+    qx = quant.qmax(spec.in_bits)
+    tiles = _num_k_tiles(k)
+    return (spec.noise_scale
+            * math.sqrt(tiles * s_bw * dvar) * qx / gain)
+
+
 def cim_matmul_behavioral(xq: torch.Tensor, wq: torch.Tensor,
                           key: prng.Key, spec: CIMSpec,
                           dstate=None) -> torch.Tensor:
@@ -237,7 +264,8 @@ def cim_matmul_behavioral(xq: torch.Tensor, wq: torch.Tensor,
     if f is not None and f.any_output_fault():
         y = apply_output_faults(
             y, f, sigma, adc_stuck_value_int(spec, k),
-            brownout_extra_std_int(spec, k), key=prng.fold_in(key, 0x0FA1))
+            brownout_extra_std_int(spec, k),
+            key=prng.fold_in(key, BROWNOUT_FOLD))
     return y
 
 

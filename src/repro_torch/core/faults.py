@@ -34,6 +34,8 @@ import torch
 from repro_torch.core import prng
 
 DOMAIN_FAULT = 0x5D2F8A31
+# the brownout draws its normal under fold_in(key, BROWNOUT_FOLD)
+BROWNOUT_FOLD = 0x0FA1
 
 
 @dataclasses.dataclass(frozen=True)

@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import math
 import dataclasses
-from typing import Optional, Tuple, Union
+from typing import Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -131,13 +131,14 @@ def seed_from_key(key: Key) -> Key:
 class SeedRow:
     """Row ``row`` of a (rows, 2) int32 seed table (the uint32 words
     ``(seed0, seed1)`` as their bits): the noise seed of one CIM call, read
-    by the kernel from where the table lies. ``fold``: ``(data, table)``,
-    a table of the same rows holding ``fold_in(row key, data)`` (see
-    ``fold_table``), for an epilogue that draws under the folded key."""
+    by the kernel from where the table lies. ``fold``: a mapping from
+    ``data`` to a table of the same rows holding ``fold_in(row key,
+    data)`` (see ``fold_table``), one for each epilogue that draws under a
+    folded key (the brownout's, the load ladder's)."""
 
     table: torch.Tensor
     row: int
-    fold: Optional[Tuple[int, torch.Tensor]] = None
+    fold: Optional[Mapping[int, torch.Tensor]] = None
 
 
 Seed = Union[Key, SeedRow]
@@ -184,10 +185,22 @@ def fold_seed(seed: Seed, data: int):
     and the draws built on it take as a key."""
     if not isinstance(seed, SeedRow):
         return fold_in(seed, data)
-    if seed.fold is None or seed.fold[0] != data:
+    if seed.fold is None or data not in seed.fold:
         raise ValueError(f"seed-table row carries no fold by {data:#x}")
-    w = seed.fold[1][seed.row].to(torch.int64) & M32
+    w = seed.fold[data][seed.row].to(torch.int64) & M32
     return w[0], w[1]
+
+
+def fold_column(seed: SeedRow, data: int, width: int):
+    """The keys ``fold_in(row key, data)`` of ``seed``'s column of its
+    table, ``width`` rows a unit (the same call of every layer), read from
+    the staged fold table: a key of two (units, 1) int64 tensors, under
+    which ``random_bits``, ``uniform`` and ``normal`` draw one row a
+    unit."""
+    if seed.fold is None or data not in seed.fold:
+        raise ValueError(f"seed-table row carries no fold by {data:#x}")
+    w = seed.fold[data][seed.row % width::width].to(torch.int64) & M32
+    return w[:, :1], w[:, 1:]
 
 
 def random_bits(key: Key, shape, device="cpu",
@@ -195,11 +208,12 @@ def random_bits(key: Key, shape, device="cpu",
     """32-bit ``jax.random.bits``: b0 ^ b1 at counter (hi, lo) of the flat
     index, as an int64 tensor of ``shape``. ``start`` offsets the flat
     index: the result is the slice ``[start, start + prod(shape))`` of the
-    flat draw of a larger shape, bit for bit."""
+    flat draw of a larger shape, bit for bit. A key of (R, 1) tensors
+    (``fold_column``) gives (R, *shape): one draw a key."""
     n = int(np.prod(shape)) if len(shape) else 1
     idx = torch.arange(start, start + n, dtype=torch.int64, device=device)
     b0, b1 = threefry2x32(key[0], key[1], idx >> 32, idx & M32)
-    return (b0 ^ b1).reshape(shape)
+    return (b0 ^ b1).reshape(b0.shape[:-1] + tuple(shape))
 
 
 def uniform(key: Key, shape, minval: float = 0.0, maxval: float = 1.0,

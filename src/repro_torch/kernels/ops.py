@@ -29,7 +29,7 @@ from repro_torch.core.cim import (CIMSpec, adc_stuck_value_int,
                                   output_noise_std_int,
                                   output_noise_std_int_per_tile)
 from repro_torch.core.drift import apply_drift
-from repro_torch.core.faults import apply_output_faults
+from repro_torch.core.faults import BROWNOUT_FOLD, apply_output_faults
 from repro_torch.kernels.cim_matmul import cim_matmul_fused, cim_matmul_int8
 
 
@@ -76,7 +76,7 @@ def cim_matmul_deployed(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
         y = apply_drift(y, d, output_noise_std_int(spec, k) * unit, dstate)
     if f is not None and f.any_output_fault():
         unit = unit.reshape(-1)[0]
-        bkey = (prng.fold_seed(key, 0x0FA1)
+        bkey = (prng.fold_seed(key, BROWNOUT_FOLD)
                 if key is not None and f.brownout_rate > 0.0 else None)
         y = apply_output_faults(
             y, f, output_noise_std_int(spec, k) * unit,

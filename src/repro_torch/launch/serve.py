@@ -53,12 +53,31 @@ runs the background calibration and canary watchdog against it:
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --cim sim \
       --device cpu --drift-walk 0.02 --drift-supply 8 \
       --drift-supply-every 16 --calibrate --calib-every 32
+
+``--frontend`` serves through the asyncio front-end
+(``serving/frontend.py``) instead of one ``generate()`` call: bounded
+admission (``--queue-limit``; overflow is shed with its reason),
+per-request deadlines (``--deadline-s``) and TTFT budgets
+(``--ttft-budget-s``), retries with backoff (``--retries``), arrivals
+spaced by ``--stagger-s`` and a graceful drain on SIGINT/SIGTERM bounded
+by ``--drain-deadline-s``. ``--ladder`` (``--ladder-votes``, the vote
+counts of rungs 1..) lets the backlog's watermarks (``--high-watermark``,
+``--low-watermark``) admit requests at reduced CB votes: in sim mode each
+degraded row's CIM linears add the extra noise of its vote count (not with
+``--guard``). The run prints every ticket's record and the metrics
+summary. ``--temperature`` samples (0: greedy), ``--deploy off`` serves
+sim mode on the float weights, quantized per call:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+      --cim sim --frontend --ladder --requests 6
 """
 
 from __future__ import annotations
 
 import argparse
+import asyncio
 import dataclasses
+import signal
 import time
 
 import numpy as np
@@ -71,6 +90,7 @@ from repro_torch.core.deploy import init_params, plane_summary
 from repro_torch.core.drift import DriftSpec
 from repro_torch.core.faults import FaultSpec
 from repro_torch.core.guard import GuardSpec
+from repro_torch.core.sac import DegradeLadder
 from repro_torch.serving.engine import DegradePolicy, Engine, LoopEngine, \
     Request, RequestError
 
@@ -148,6 +168,45 @@ def _build_argparser():
                     help="full-calibration cadence in engine steps")
     ap.add_argument("--canary-every", type=int, default=8,
                     help="canary cadence in engine steps (0 disables)")
+    ap.add_argument("--deploy", default="auto", choices=["auto", "on", "off"],
+                    help="pre-quantize the CIM weights once at engine "
+                         "construction; 'auto' deploys with --cim sim")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0: greedy)")
+    ap.add_argument("--frontend", action="store_true",
+                    help="serve through the asyncio front-end: bounded "
+                         "admission, deadlines and TTFT budgets, retries, "
+                         "streaming, graceful drain on SIGINT/SIGTERM "
+                         "(fused engine only)")
+    ap.add_argument("--queue-limit", type=int, default=16,
+                    help="front-end admission backlog bound; overflow is "
+                         "shed with a structured reason")
+    ap.add_argument("--high-watermark", type=int, default=None,
+                    help="backlog depth at which the ladder climbs one "
+                         "rung a tick (default queue-limit // 2)")
+    ap.add_argument("--low-watermark", type=int, default=None,
+                    help="backlog depth below which the ladder descends "
+                         "(default high-watermark // 2)")
+    ap.add_argument("--ladder", action="store_true",
+                    help="load-adaptive CB vote degradation: admissions "
+                         "above the high watermark run reduced majority "
+                         "votes (extra readout noise in sim mode); not "
+                         "with --guard")
+    ap.add_argument("--ladder-votes", default="3,1",
+                    help="vote counts of ladder rungs 1.. (rung 0 is full "
+                         "votes), strictly decreasing, e.g. '3,1'")
+    ap.add_argument("--deadline-s", type=float, default=None,
+                    help="per-request deadline, seconds from submission")
+    ap.add_argument("--ttft-budget-s", type=float, default=None,
+                    help="per-request time-to-first-token budget")
+    ap.add_argument("--retries", type=int, default=1,
+                    help="retries of a retryable failure (the same token "
+                         "stream, keyed by the request id)")
+    ap.add_argument("--drain-deadline-s", type=float, default=10.0,
+                    help="graceful-drain bound after stop or SIGINT")
+    ap.add_argument("--stagger-s", type=float, default=0.0,
+                    help="spacing of arrivals in --frontend mode (0: all "
+                         "at once)")
     return ap
 
 
@@ -169,10 +228,10 @@ def _robust_kw(args) -> dict:
     drift = _drift_from_args(args)
     faulted = args.fault_stuck > 0.0 or args.fault_transient > 0.0
     if args.engine != "fused":
-        if args.guard or faulted:
-            raise SystemExit("--guard/--fault-* need the fused engine "
-                             "(--engine fused): the loop reference engine "
-                             "has no guard path")
+        if args.guard or args.ladder or faulted:
+            raise SystemExit("--guard/--ladder/--fault-* need the fused "
+                             "engine (--engine fused): the loop reference "
+                             "engine has no guard or ladder path")
         if drift is not None or args.calibrate:
             raise SystemExit("--drift-*/--calibrate need the fused engine "
                              "(--engine fused): the loop reference engine "
@@ -184,6 +243,9 @@ def _robust_kw(args) -> dict:
         if args.fail_after > 0:
             kw["degrade"] = DegradePolicy(pin_after=1,
                                           fail_after=args.fail_after)
+    if args.ladder:
+        votes = tuple(int(v) for v in args.ladder_votes.split(",") if v)
+        kw["ladder"] = DegradeLadder(votes=(None,) + votes)
     if faulted:
         kw["fault"] = FaultSpec(seed=args.fault_seed,
                                 stuck_rate=args.fault_stuck,
@@ -228,8 +290,73 @@ def _report(engine, reqs) -> None:
                   + (f" [{e['action']}]" if "action" in e else ""))
 
 
+async def _run_frontend(args, engine, cfg):
+    """Serve ``args.requests`` requests through the front-end; print each
+    ticket's record and the metrics summary. Returns the tickets."""
+    from repro_torch.serving.frontend import Frontend
+    fe = Frontend(engine, queue_limit=args.queue_limit,
+                  high_watermark=args.high_watermark,
+                  low_watermark=args.low_watermark,
+                  default_ttft_budget_s=args.ttft_budget_s,
+                  max_retries=args.retries,
+                  drain_deadline_s=args.drain_deadline_s)
+    loop = asyncio.get_running_loop()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        try:
+            loop.add_signal_handler(sig, fe.stop)
+        except (NotImplementedError, RuntimeError):
+            pass    # no unix signals: ctrl-C raises KeyboardInterrupt
+    runner = asyncio.create_task(fe.run())
+    rng = np.random.default_rng(args.seed)
+    tickets = []
+    t0 = time.perf_counter()
+    for i in range(args.requests):
+        tickets.append(fe.submit(
+            list(rng.integers(0, cfg.vocab_size, args.prompt_len)),
+            args.new_tokens, temperature=args.temperature, rid=f"req-{i}",
+            timeout_s=args.deadline_s))
+        if args.stagger_s > 0:
+            await asyncio.sleep(args.stagger_s)
+    await asyncio.gather(*(t.wait() for t in tickets))
+    fe.stop()
+    await runner
+    dt = time.perf_counter() - t0
+    total = sum(len(t.tokens) for t in tickets)
+    print(f"[frontend] {len(tickets)} requests, {total} tokens in {dt:.2f}s "
+          f"({total / dt:.1f} tok/s)")
+    for t in tickets:
+        r = t.record
+        print(f"  {t.rid}: {r.outcome:<16} wait={r.queue_wait_s or 0:.3f}s "
+              f"ttft={'-' if r.ttft_s is None else f'{r.ttft_s:.3f}s'} "
+              f"toks={r.tokens_out} votes={r.votes_used} "
+              f"retries={r.retries}"
+              + (f" guard={r.guard_trips}/{r.guard_hard}"
+                 if r.guard_trips is not None else "")
+              + (f"  [{r.reason}]" if r.reason else ""))
+    s = fe.metrics.summary()
+    print(f"  summary: outcomes={s['outcomes']} "
+          f"queue_wait_p99={s['queue_wait_p99_s']} "
+          f"ttft_p99={s['ttft_p99_s']} "
+          f"degraded={s['degraded_admissions']} "
+          f"transitions={s['ladder_transitions']}")
+    if getattr(engine, "drift", None) is not None:
+        print(f"  drift: {engine.drift_step} steps, "
+              f"calibrations={s['calibrations']} "
+              f"watchdog_trips={s['watchdog_trips']} "
+              f"escalations={s['drift_escalations']}")
+        for c in fe.metrics.calibrations[:8]:
+            q = c.quality
+            print(f"    step {c.step}: {c.kind}"
+                  + (f" quality={q:.2f}" if q is not None else ""))
+    return tickets
+
+
 def main(argv=None):
     args = _build_argparser().parse_args(argv)
+    if args.frontend and args.engine != "fused":
+        raise SystemExit("--frontend needs the fused engine (--engine "
+                         "fused): the front-end drives the incremental "
+                         "session API")
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -242,20 +369,25 @@ def main(argv=None):
     kw = dict(max_slots=args.slots,
               max_len=args.prompt_len + args.new_tokens + 8,
               attn_impl=None if args.attn_impl == "config"
-              else args.attn_impl, device=device)
+              else args.attn_impl,
+              deploy={"auto": None, "on": True, "off": False}[args.deploy],
+              device=device)
     robust = _robust_kw(args)
     if args.engine == "loop":
         engine = LoopEngine(cfg, params, **kw)
     else:
         engine = Engine(cfg, params, chunk_size=args.chunk_size,
                         record_ttft=True, **robust, **kw)
-    if engine.mode == "sim":
+    if engine.deployed:
         ps = plane_summary(engine.params)
         print(f"deployed {ps['planes']} pre-quantized weight planes "
               f"({ps['int8_bytes'] / 2**20:.1f} MiB int8)")
+    if args.frontend:
+        return asyncio.run(_run_frontend(args, engine, cfg))
     rng = np.random.default_rng(args.seed)
     reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, args.prompt_len),
-                    max_new_tokens=args.new_tokens, rid=f"req-{i}")
+                    max_new_tokens=args.new_tokens,
+                    temperature=args.temperature, rid=f"req-{i}")
             for i in range(args.requests)]
     t0 = time.perf_counter()
     outs = engine.generate(reqs)

@@ -25,19 +25,26 @@ call's ``CIMSpec`` (the drift at ``drift_state``, sim mode only);
 ``trip_log`` / ``hard_log`` collect the guard's (B,) counts per layer,
 which ``models.transformer`` stacks into (L, B) ``guard_trips`` /
 ``guard_hard``.
+
+The load ladder's fields are the reference's too: ``degrade_levels`` (the
+vote count of each level, ``sac.DegradeLadder.votes``) and
+``degrade_rows`` ((B,) int levels on the device); in sim mode every CIM
+``dense`` outside the guard adds each row's extra noise of its reduced
+vote count (``_degrade_noise``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import prng, quant
-from repro_torch.core.cim import CIMSpec, cim_dense
+from repro_torch.core.cim import CIMSpec, cim_dense, \
+    vote_drop_extra_std_int
 from repro_torch.core.guard import guarded_dense
 from repro_torch.core.sac import Policy, get_policy
 from repro_torch.kernels import ops as kops
@@ -74,8 +81,9 @@ class Ctx:
     seeds: Optional[torch.Tensor] = None  # (rows, 2) int32 seed table
     seed_width: int = 0               # table rows a layer may draw
     seed_base: int = 0                # this layer's first row
-    seed_fold: Optional[tuple] = None  # (data, table): fold_in(row key,
-                                       # data) per seed-table row
+    seed_fold: Optional[Mapping[int, torch.Tensor]] = None  # data ->
+                                       # table of fold_in(row key, data)
+                                       # per seed-table row
     deployed: bool = False            # the tree carries its sim planes
     guard: Optional[Any] = None       # core.guard.GuardSpec
     fault: Optional[Any] = None       # core.faults.FaultSpec
@@ -88,6 +96,12 @@ class Ctx:
     hard_log: Optional[list] = None
     guard_trips: Optional[torch.Tensor] = None  # (L, B) int32
     guard_hard: Optional[torch.Tensor] = None   # (L, B) int32
+    degrade_levels: tuple = ()        # ladder: vote count per level (index
+                                      # 0 None: full votes)
+    degrade_rows: Optional[torch.Tensor] = None  # (B,) int ladder level
+    degrade_draws: dict = dataclasses.field(default_factory=dict)  # the
+                                      # forward's ladder normals, drawn a
+                                      # call position at a time
 
     @classmethod
     def make(cls, cfg: ModelConfig, key: Optional[prng.Key] = None,
@@ -149,7 +163,9 @@ def dense(ctx: Ctx, p: Params, x: torch.Tensor, role: str) -> torch.Tensor:
 
     ``ctx.fault`` rides into the spec; in sim mode ``ctx.drift`` too, with
     ``ctx.drift_state``. With ``ctx.guard`` a sim call on a plane with its
-    checksum runs ``core.guard.guarded_dense``."""
+    checksum runs ``core.guard.guarded_dense``; otherwise the load
+    ladder's noise (``_degrade_noise``) follows the matmul, before the
+    bias."""
     spec = ctx.spec_for(role)
     if spec is None:
         y = x @ p["w"].to(x.dtype)
@@ -187,9 +203,66 @@ def dense(ctx: Ctx, p: Params, x: torch.Tensor, role: str) -> torch.Tensor:
         else:
             y = cim_dense(x, p["w"].to(x.dtype), spec, k, mode=ctx.mode,
                           x_scale=xs, dstate=dstate)
+        y = _degrade_noise(ctx, p, x, y, spec, k, xs)
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
+
+
+DEGRADE_FOLD = 0xD364    # the ladder's noise key: fold_in(layer key, .)
+
+
+def _degrade_noise(ctx: Ctx, p: Params, x: torch.Tensor, y: torch.Tensor,
+                   spec: CIMSpec, k: Optional[prng.Seed], xs):
+    """Per-row noise of the load ladder's reduced vote counts (sim mode
+    only): row ``b`` at level ``l`` adds ``vote_drop_extra_std_int(spec,
+    K, votes[l]) * xs * ws`` times a standard normal. The normal covers
+    the whole ``y.shape`` under ``fold_in(k, 0xD364)`` (a ``SeedRow``
+    reads its staged fold), so the readout noise is the same with and
+    without a ladder; level-0 rows are selected by ``torch.where``, not
+    by adding zero, and stay bit-identical to a ladder-free run. The
+    sigma table is built from fills (a CUDA graph can capture them)."""
+    if (ctx.degrade_rows is None or not ctx.degrade_levels
+            or ctx.mode != "sim" or k is None):
+        return y
+    table = [vote_drop_extra_std_int(spec, x.shape[-1], v)
+             for v in ctx.degrade_levels]
+    if not any(s > 0.0 for s in table):
+        return y
+    ws = p.get(f"ws{spec.w_bits}")
+    if ws is None:
+        ws = quant.abs_max_scale(p["w"].to(torch.float32), spec.w_bits)
+    if xs is None:
+        xs = quant.abs_max_scale(x.to(torch.float32), spec.in_bits)
+    rows = ctx.degrade_rows
+    sig = torch.full(rows.shape, table[0], dtype=torch.float32,
+                     device=rows.device)
+    for level, s in enumerate(table[1:], 1):
+        sig = torch.where(rows == level, torch.full(
+            (), s, dtype=torch.float32, device=rows.device), sig)
+    sig = sig.reshape(sig.shape + (1,) * (y.ndim - 1))
+    noise = _ladder_normal(ctx, k, tuple(y.shape), y.device)
+    return torch.where(sig > 0.0,
+                       (y.to(torch.float32) + sig * xs * ws * noise)
+                       .to(y.dtype), y)
+
+
+def _ladder_normal(ctx: Ctx, k: prng.Seed, shape, device) -> torch.Tensor:
+    """``normal(fold_in(k, 0xD364), shape)``. On the seed-table path the
+    draws of this call's position in every layer of the forward are made
+    at once, one Threefry over the staged folded keys of the column
+    (``prng.fold_column``), and kept in ``ctx.degrade_draws`` for the
+    forward's other layers: the same values, some 250 eager launches a
+    position instead of 250 a call."""
+    if not isinstance(k, prng.SeedRow) or not ctx.seed_width:
+        return prng.normal(prng.fold_seed(k, DEGRADE_FOLD), shape,
+                           device=device)
+    pos = (k.row % ctx.seed_width, shape)
+    if pos not in ctx.degrade_draws:
+        ctx.degrade_draws[pos] = prng.normal(
+            prng.fold_column(k, DEGRADE_FOLD, ctx.seed_width), shape,
+            device=device)
+    return ctx.degrade_draws[pos][k.row // ctx.seed_width]
 
 
 def _act_scale(ctx: Ctx, x: torch.Tensor, spec: CIMSpec):

@@ -104,8 +104,22 @@ the seed table, so faults and drift replay as they run per call.
 False serves sim mode on the float weights, quantized per call (the
 behavioural path: no CIM kernel, no CUDA graphs).
 
-Not in this slice (they raise ``NotImplementedError``, see ROADMAP.md):
-the load ladder (``ladder=``), deadlines and replica failover (A6).
+The front-end's surface (``serving/frontend.py``), as in the reference:
+``Request.deadline`` (the caller's clock) and ``step(now)``, which expires
+deadlines before it admits (``expire_deadlines``); ``cancel(r,
+outcome=)`` with an outcome from ``OUTCOMES``; ``free_slots``,
+``result_of``, ``status_of`` and ``error_of``. ``ladder=``
+(``core.sac.DegradeLadder``) admits each request at its
+``Request.degrade_level``, clamped to the ladder: in sim mode every CIM
+linear adds the level's extra noise per row (``layers._degrade_noise``;
+not with a guard or the fused layer). Under ``fused_step`` the per-slot
+levels are staged with the seeds (``_Inputs.levels``), and on the
+seed-table path the ladder's draw reads a staged table of the seeds
+folded by ``0xD364``, so a level that changes between admissions
+replays as it runs per call.
+
+Not in this slice (``replica=`` raises ``NotImplementedError``, see
+ROADMAP.md): replica failover (A6.2).
 """
 
 from __future__ import annotations
@@ -125,6 +139,7 @@ from repro_torch.core.calibrate import (CalibPolicy, DriftController,
                                         max_plane_width)
 from repro_torch.core.deploy import deploy as deploy_params
 from repro_torch.core.drift import DriftState
+from repro_torch.core.faults import BROWNOUT_FOLD
 from repro_torch.core.guard import GuardSpec
 from repro_torch.core.sac import get_policy
 from repro_torch.kernels.cim_matmul import cim_matmul_fused, cim_matmul_int8
@@ -135,10 +150,12 @@ from repro_torch.kernels.fused_step import fused_dense_layer
 from repro_torch.kernels.mla_decode import mla_decode_attention
 from repro_torch.kernels.ssm_scan import ssm_decode_step
 from repro_torch.models import transformer as tf
-from repro_torch.models.layers import Ctx
+from repro_torch.models.layers import DEGRADE_FOLD, Ctx
 
 DEFAULT_CHUNK_SIZE = 32
 DRAIN_EVERY = 64
+# a request's terminal outcomes; "shed" is the front-end's alone
+OUTCOMES = ("completed", "failed", "cancelled", "deadline_expired", "shed")
 # prompt padding of the whole-prompt path: attention masks a right-pad,
 # a recurrent state would absorb it (the reference's _BUCKETED_FAMILIES)
 BUCKETED_FAMILIES = ("dense", "vlm")
@@ -168,24 +185,30 @@ class Request:
     temperature: float = 0.0
     out_tokens: Optional[List[int]] = None
     rid: Optional[str] = None    # stable id behind the sampling key
+    degrade_level: int = 0       # ladder level (with ``Engine(ladder=)``)
+    deadline: Optional[float] = None   # absolute, on ``step(now)``'s clock
 
 
 @dataclasses.dataclass
 class RequestError:
     """Structured per-request failure record: the phase it died in
-    (prefill | decode), its slot, the first hard-tripping layer when the
-    guard failed it, and whether a retry is worth it (a guard hard-fail,
-    a persistent analog fault, is not)."""
+    (submit | prefill | decode), its slot (None: still queued), the first
+    hard-tripping layer when the guard failed it, whether a retry is worth
+    it (a guard hard-fail, a persistent analog fault, is not) and the
+    replica that produced it (None on a single engine)."""
 
     reason: str
-    phase: str
+    phase: str = "decode"
     slot: Optional[int] = None
     layer: Optional[int] = None
     retryable: bool = True
+    replica: Optional[str] = None
 
     def __str__(self) -> str:
+        where = f"slot={self.slot}" if self.slot is not None else "queued"
         lay = f", layer={self.layer}" if self.layer is not None else ""
-        return f"[{self.phase}/slot={self.slot}{lay}] {self.reason}"
+        rep = f"{self.replica}:" if self.replica is not None else ""
+        return f"[{rep}{self.phase}/{where}{lay}] {self.reason}"
 
 
 @dataclasses.dataclass
@@ -280,6 +303,17 @@ def _seed_width(cfg: ModelConfig, mode: str, deployed: bool = True,
     return SEEDS_PER_LAYER.get(cfg.family, 0)
 
 
+def _ladder_draws(cfg: ModelConfig, mode: str, ladder) -> bool:
+    """Whether a ladder's rungs add noise: sim mode, and a rung below the
+    full votes of a CB operating point of the policy."""
+    pol = get_policy(cfg.cim.policy) if mode == "sim" else None
+    if ladder is None or pol is None:
+        return False
+    return any(spec is not None and spec.cb and v is not None
+               and v < spec.adc.mv_votes
+               for spec in (pol.attn, pol.mlp) for v in ladder.votes)
+
+
 def _resolve_deploy(deploy: Optional[bool], mode: str) -> bool:
     """None: deploy the planes for sim-mode serving; True requires sim."""
     if deploy is None:
@@ -295,23 +329,26 @@ def _resolve_deploy(deploy: Optional[bool], mode: str) -> bool:
 class _Inputs:
     """The host inputs of one forward in one device buffer: the seed table
     (rows x 2 int32 words), the active mask (slots), the chunk's tokens,
-    its valid count, the drift step and (``folds``) the table of the seeds
-    folded by the brownout constant, each a fixed view. ``put`` fills a
-    pinned host copy (a ring of them, each reused only after its copy has
-    run) and copies the whole buffer in one asynchronous copy on the
-    current stream; on the CPU it writes the buffer itself."""
+    its valid count, the drift step, the ladder level of each slot and
+    (``folds``: data -> view) the tables of the seeds folded by each
+    constant in ``folds``, each a fixed view. ``put`` fills a pinned host
+    copy (a ring of them, each reused only after its copy has run) and
+    copies the whole buffer in one asynchronous copy on the current
+    stream; on the CPU it writes the buffer itself."""
 
     RING = 8
 
     def __init__(self, device: torch.device, rows: int, slots: int,
-                 chunk: int, folds: bool = False):
-        sizes = (2 * rows, slots, chunk, 1, 1, 2 * rows if folds else 0)
+                 chunk: int, folds: Tuple[int, ...] = ()):
+        sizes = (2 * rows, slots, chunk, 1, 1, slots) + (2 * rows,) * len(
+            folds)
         self.buf = torch.zeros(sum(sizes), dtype=torch.int32, device=device)
-        seeds, self.act, self.tokens, self.valid, step, fold = torch.split(
-            self.buf, sizes)
+        parts = torch.split(self.buf, sizes)
+        seeds, self.act, self.tokens, self.valid, step, self.levels = \
+            parts[:6]
         self.seeds = seeds.view(rows, 2)
         self.step = step[0]
-        self.folds = fold.view(rows, 2) if folds else None
+        self.folds = {d: t.view(rows, 2) for d, t in zip(folds, parts[6:])}
         self._offsets = np.cumsum((0,) + sizes[:-1])
         self._cuda = device.type == "cuda"
         if self._cuda:
@@ -322,8 +359,8 @@ class _Inputs:
             self._next = 0
 
     def put(self, seeds: Optional[np.ndarray] = None, act=None, tokens=None,
-            valid: int = 0, step: int = 0,
-            folds: Optional[np.ndarray] = None) -> None:
+            valid: int = 0, step: int = 0, levels=None,
+            folds: Optional[Dict[int, np.ndarray]] = None) -> None:
         if self._cuda:
             i = self._next
             self._next = (i + 1) % self.RING
@@ -333,7 +370,7 @@ class _Inputs:
             host = self.buf
         h = host.numpy()
         h[:] = 0
-        s0, a0, t0, v0, st0, f0 = self._offsets
+        s0, a0, t0, v0, st0, l0 = self._offsets[:6]
         if seeds is not None:
             h[s0:s0 + seeds.size] = seeds.reshape(-1)
         if act is not None:
@@ -342,8 +379,11 @@ class _Inputs:
             h[t0:t0 + tokens.size] = tokens.reshape(-1)
         h[v0] = valid
         h[st0] = step
-        if folds is not None:
-            h[f0:f0 + folds.size] = folds.reshape(-1)
+        if levels is not None:
+            h[l0:l0 + len(levels)] = levels
+        for f0, d in zip(self._offsets[6:], self.folds):
+            if folds is not None and d in folds:
+                h[f0:f0 + folds[d].size] = folds[d].reshape(-1)
         if self._cuda:
             self.buf.copy_(host, non_blocking=True)
             self._copied[i].record()
@@ -385,7 +425,7 @@ class Engine:
                  guard: Any = None, degrade: Optional[DegradePolicy] = None,
                  fault: Any = None, fault_slots: Any = None,
                  pin_slots: Any = None, drift: Any = None, calib: Any = None,
-                 deploy: Optional[bool] = None,
+                 ladder: Any = None, deploy: Optional[bool] = None,
                  drain_every: int = DRAIN_EVERY, device="cuda", **unported):
         if unported:
             raise NotImplementedError(
@@ -404,6 +444,17 @@ class Engine:
         self.max_slots = max_slots
         self._robustness(cfg, mode, guard, degrade, fault, fault_slots,
                          pin_slots, drift, calib)
+        self.ladder = ladder
+        if ladder is not None:
+            if self.guard is not None:
+                raise ValueError(
+                    "ladder and guard are mutually exclusive: guarded dense "
+                    "bypasses the per-row degraded-vote noise path")
+            if cfg.fuse_layer:
+                raise ValueError(
+                    "ladder requires fuse_layer=False: the per-layer "
+                    "megakernel bypasses layers.dense, where the per-row "
+                    "degraded-vote noise is applied")
         graphable = cfg.family in SEEDS_PER_LAYER and (
             mode == "off" or cfg.cim.use_kernel and self.deployed)
         if fused_step is None:
@@ -431,11 +482,16 @@ class Engine:
         self.key = prng.PRNGKey(seed)
         self._sample_base = prng.fold_in(prng.PRNGKey(seed), 0x5A17)
         self._width = _seed_width(cfg, mode, self.deployed, self.guard)
-        # a brownout draws under fold_in(key, 0x0FA1): staged as a table
-        self._fold = bool(self._width and fault is not None
-                          and fault.brownout_rate > 0.0)
+        # a brownout draws under fold_in(key, 0x0FA1), the ladder under
+        # fold_in(key, 0xD364): on the seed-table path each a staged table
+        folds = ()
+        if self._width and fault is not None and fault.brownout_rate > 0.0:
+            folds += (BROWNOUT_FOLD,)
+        if self._width and _ladder_draws(cfg, mode, ladder):
+            folds += (DEGRADE_FOLD,)
+        self._folds = folds
         self._inputs = _Inputs(self.device, _seed_units(cfg) * self._width,
-                               max_slots, self.chunk_size, folds=self._fold)
+                               max_slots, self.chunk_size, folds=folds)
 
         params = _to_device(params, self.device)
         self.params = (deploy_params(cfg, params, fault=fault,
@@ -459,6 +515,7 @@ class Engine:
                                     device=self.device)
         # the _FROZEN leaves as they were before the current decode step
         self._frozen = tf.freeze_all(self.caches)
+        self._lvl_slot = np.zeros(max_slots, np.int32)   # staged by capture
         self._graphs: Optional[Dict[str, Any]] = None
         if self.fused_step and self.device.type == "cuda":
             self._capture()
@@ -538,6 +595,8 @@ class Engine:
         self._pend: List[Tuple[torch.Tensor, List[Optional[int]]]] = []
         self._rk_slot: List[prng.Key] = [(0, 0)] * S
         self._rkeys: List[prng.Key] = []
+        self._lvl_slot = np.zeros(S, np.int32)    # ladder level per slot
+        self._levels: List[int] = []               # and per request
         self.status: List[str] = []
         self.request_errors: List[Optional[RequestError]] = []
         self.ttft_s: List[Optional[float]] = []
@@ -570,12 +629,20 @@ class Engine:
         self.ttft_s.append(None)
         self._rkeys.append(prng.fold_in(self._sample_base,
                                         _request_uid(r, ri)))
+        lvl = 0
+        if self.ladder is not None:
+            lvl = min(max(int(r.degrade_level), 0), self.ladder.n_levels - 1)
+        self._levels.append(lvl)
         return ri
 
-    def cancel(self, r: Request) -> bool:
-        """Withdraw a queued or running request between steps; its slot is
-        freed host-side (the next occupant's first chunk wipes it). Tokens
-        already emitted stay in ``r.out_tokens``."""
+    def cancel(self, r: Request, outcome: str = "cancelled") -> bool:
+        """Withdraw a queued or running request between steps with a
+        terminal ``outcome`` of ``OUTCOMES[1:]``; its slot is freed
+        host-side (the next occupant's first chunk wipes it). Tokens
+        already emitted stay in ``r.out_tokens``. Returns False if the
+        request is unknown or already terminal."""
+        if outcome not in OUTCOMES[1:]:
+            raise ValueError(f"cancel outcome must be one of {OUTCOMES[1:]}")
         ri = self._req_index.get(id(r))
         if ri is None or self.status[ri] not in ("queued", "running"):
             return False
@@ -586,16 +653,59 @@ class Engine:
             self._capture_guard(s)
             self._free_slot(s)
             self._turnover = True
-        self.status[ri] = "cancelled"
+        self.status[ri] = outcome
         return True
+
+    def expire_deadlines(self, now: float) -> int:
+        """Cancel every request (queued, mid-prefill or mid-decode) whose
+        ``deadline`` has passed at ``now``; returns the count."""
+        n = 0
+        live = list(self._queue) + [r for r in self._slots if r is not None]
+        for r in live:
+            if r.deadline is not None and now >= r.deadline:
+                if self.cancel(r, outcome="deadline_expired"):
+                    n += 1
+        return n
 
     def has_work(self) -> bool:
         return bool(self._queue) or any(r is not None for r in self._slots)
 
-    def step(self) -> bool:
-        """One scheduler iteration: admit from the queue (whole-prompt:
-        prefill at admission), advance every prefilling slot by one chunk,
-        run the batch decode. Returns True if any slot did work."""
+    @property
+    def free_slots(self) -> int:
+        """Slots with no occupant and no queued request waiting for one:
+        the front-end's admission headroom."""
+        return sum(r is None for r in self._slots) - len(self._queue)
+
+    def result_of(self, r: Request):
+        """Terminal result: the token list, the ``RequestError``, or None
+        while the request is live (or unknown)."""
+        ri = self._req_index.get(id(r))
+        if ri is None:
+            return None
+        st = self.status[ri]
+        if st == "failed":
+            return self.request_errors[ri]
+        if st in ("queued", "running"):
+            return None
+        return r.out_tokens
+
+    def status_of(self, r: Request) -> Optional[str]:
+        """queued | running | completed | failed | cancelled |
+        deadline_expired, or None for an unknown request."""
+        ri = self._req_index.get(id(r))
+        return None if ri is None else self.status[ri]
+
+    def error_of(self, r: Request) -> Optional[RequestError]:
+        ri = self._req_index.get(id(r))
+        return None if ri is None else self.request_errors[ri]
+
+    def step(self, now: Optional[float] = None) -> bool:
+        """One scheduler iteration: expire deadlines (when ``now`` is
+        given), admit from the queue (whole-prompt: prefill at admission),
+        advance every prefilling slot by one chunk, run the batch decode.
+        Returns True if any slot did work."""
+        if now is not None:
+            self.expire_deadlines(now)
         self._fill_slots()
         if not any(r is not None for r in self._slots):
             return False
@@ -764,20 +874,23 @@ class Engine:
 
     def _ctx(self, key: prng.Key, rows: Optional[slice] = None) -> Ctx:
         """The CIM context of a forward keyed by ``key`` (split(key)[0]);
-        on the seed-table path its draws read the staged table. Under a
-        guard, ``rows`` (slot rows of the forward's batch) selects the
-        pinned and disturbed rows."""
+        on the seed-table path its draws read the staged table. ``rows``
+        (slot rows of the forward's batch; None: every slot) selects the
+        staged ladder levels and, under a guard, the pinned and disturbed
+        rows."""
         ctx = Ctx.make(self.cfg, prng.split(key)[0], mode=self.mode,
                        deployed=self.deployed, guard=self.guard,
                        fault=self.fault)
+        rows = slice(None) if rows is None else rows
         if self._width:
             ctx.seeds, ctx.seed_width = self._inputs.seeds, self._width
-            if self._fold:
-                ctx.seed_fold = (0x0FA1, self._inputs.folds)
+            ctx.seed_fold = self._inputs.folds or None
         if self.drift is not None:
             ctx.drift, ctx.drift_state = self.drift, self._dstate()
+        if self.ladder is not None:
+            ctx.degrade_levels = tuple(self.ladder.votes)
+            ctx.degrade_rows = self._inputs.levels[rows]
         if self.guard is not None:
-            rows = slice(None) if rows is None else rows
             ctx.pin_layers = torch.from_numpy(self._pinned[rows]).to(
                 self.device)
             ctx.fault_rows = torch.from_numpy(self._frow_host[rows]).to(
@@ -786,16 +899,15 @@ class Engine:
 
     def _stage(self, key: Optional[prng.Key], **kw) -> None:
         """Stage a forward's host inputs: the seed table of ``key`` (and
-        its brownout folds) on the seed-table path, the drift step, and
-        ``kw`` (active mask, tokens, valid count)."""
+        its folds) on the seed-table path, the drift step, every slot's
+        ladder level, and ``kw`` (active mask, tokens, valid count)."""
         seeds = folds = None
         if self._width and key is not None:
             seeds = prng.seed_table(prng.split(key)[0],
                                     _seed_units(self.cfg), self._width)
-            if self._fold:
-                folds = prng.fold_table(seeds, 0x0FA1)
+            folds = {d: prng.fold_table(seeds, d) for d in self._folds}
         self._inputs.put(seeds=seeds, folds=folds, step=self.drift_step,
-                         **kw)
+                         levels=self._lvl_slot, **kw)
 
     def _free_slot(self, s: int) -> None:
         self._slots[s] = None
@@ -803,6 +915,7 @@ class Engine:
         self._counts[s] = 0
         self._offsets[s] = 0
         self._rk_slot[s] = (0, 0)
+        self._lvl_slot[s] = 0
         self._reset_slot_guard(s)
 
     def _finish_request(self, s: int) -> None:
@@ -825,6 +938,7 @@ class Engine:
                 ri = self._req_index[id(r)]
                 self.status[ri] = "running"
                 self._rk_slot[s] = self._rkeys[ri]
+                self._lvl_slot[s] = self._levels[ri]
                 self._reset_slot_guard(s)
                 self._slots[s] = r
                 if self.chunk_size > 0:
@@ -1138,7 +1252,7 @@ class Engine:
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
             self._decode_forward(ctx, self._tok_in)
-            self._chunk_forward(0, self._ctx(prng.PRNGKey(0)))
+            self._chunk_forward(0, self._ctx(prng.PRNGKey(0), slice(0, 1)))
         torch.cuda.current_stream(self.device).wait_stream(side)
         torch.cuda.synchronize(self.device)
         pool = torch.cuda.graph_pool_handle()
@@ -1148,7 +1262,8 @@ class Engine:
                                              self._tok_in), pool)}
             graphs["chunk"] = [_Graph(
                 lambda s=s: self._chunk_forward(s, self._ctx(
-                    prng.PRNGKey(0))), pool) for s in range(S)]
+                    prng.PRNGKey(0), slice(s, s + 1))), pool)
+                for s in range(S)]
         except Exception as e:
             raise RuntimeError(
                 f"fused_step: capturing the step's CUDA graphs failed "

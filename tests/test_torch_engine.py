@@ -143,7 +143,7 @@ def test_session_api_cancel_and_slot_reuse(setup):
 def test_unported_options_and_bad_requests_raise(setup, monkeypatch):
     cfg_of, _, tp, _ = setup
     cfg = cfg_of(get_config("qwen2-0.5b"), False)
-    for kw in ({"ladder": object()}, {"cim_mode": "qat"}):
+    for kw in ({"replica": "r0"}, {"cim_mode": "qat"}):
         with pytest.raises(NotImplementedError):
             Engine(cfg, tp, device="cpu", **kw)
     # the guard is ported: outside deployed sim mode it raises the

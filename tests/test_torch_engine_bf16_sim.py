@@ -12,11 +12,23 @@ whose helpers this file takes)."""
 
 import numpy as np
 import pytest
+import torch
 
 from repro.configs.registry import get_config as jget
 from repro_torch.configs.registry import get_config
 from test_torch_engine_bf16 import _cfg, _jax_steps, _port_steps
 from test_torch_engine_bf16 import model  # noqa: F401  (the fixture)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Torch on one CPU thread for the module: the suite runs several test
+    processes side by side, and a thread pool each oversubscribes the
+    cores (small eager ops then wait on thread barriers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("path,int8", [

@@ -41,6 +41,17 @@ from repro_torch.serving.engine import Engine, Request, RequestError
 LENS = {"qwen2-0.5b": (17, 5, 11, 1), "mamba2-130m": (11, 1, 17, 6)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Torch on one CPU thread for the module: the suite runs several test
+    processes side by side, and a thread pool each oversubscribes the
+    cores (small eager ops then wait on thread barriers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfg(get, arch, mode="off", dtype="float32", int8=False,
          use_kernel=True):
     base = get(arch)

@@ -157,7 +157,7 @@ def test_fault_values_and_output_epilogue():
     k2 = prng.fold_in(key, 0x0FA1)
     table = torch.tensor([[k2[0], k2[1]]], dtype=torch.int64).to(
         torch.int32)
-    row = prng.SeedRow(table, 0, (0x0FA1, table))
+    row = prng.SeedRow(table, 0, {0x0FA1: table})
     assert prng.fold_seed(row, 0x0FA1)[0].dtype == torch.int64
     np.testing.assert_array_equal(
         prng.normal(prng.fold_seed(row, 0x0FA1), (6, 50)).numpy(),
@@ -293,4 +293,5 @@ def test_engine_runtime_faults_tokens_equal_jax():
                                     .astype(np.int32), max_new_tokens=5)
                                 for n in (7, 11)]))
     assert outs[0] == outs[1]
-    assert e._fold and e._width      # the table path drew the brownout
+    assert 0x0FA1 in e._folds and e._width   # the table path drew the
+                                             # brownout

@@ -37,7 +37,8 @@ and ssm families in off and sim mode, bf16 and f32, both caches and the
 fused layer; a config past the fused layer's reach serves unfused with the
 unfused tokens (C10); the whole-prompt path and ``LoopEngine`` give the
 CPU's tokens; a replay that raises falls back visibly, a capture that
-fails raises.
+fails raises. A laddered engine (levels that change between admissions)
+replays as it runs per call and gives the CPU's tokens.
 """
 
 import dataclasses
@@ -1027,3 +1028,39 @@ def test_drift_engine_replayed_equals_per_call_and_cpu(cuda):
     eng = runs["replayed"][3]
     assert eng.replay_count > 0 and eng.fallbacks == 0
     assert eng.drift_step > 8 and eng.calibrations >= 1
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "mamba2-130m"])
+def test_laddered_engine_replayed_equals_per_call_and_cpu(cuda, arch):
+    """The load ladder under the graphs: requests at levels 2, 0, 1, 2, 1
+    on 2 slots, so a slot's level changes between admissions (the levels
+    staged with the seeds, the ladder's draw keyed by the staged 0xD364
+    fold table): replayed = per call in tokens and launch counts, and the
+    card's tokens = the CPU's; the ladder-free run's tokens differ."""
+    cfg = _reduced(arch)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    levels = (2, 0, 1, 2, 1)
+
+    def reqs():
+        out = _graph_requests(cfg, sampled=None)
+        for r, lvl in zip(out, levels):
+            r.degrade_level = lvl
+        return out
+
+    runs = {}
+    for name, dev, fused, ladder in (
+            ("replayed", cuda, True, True), ("per_call", cuda, False, True),
+            ("cpu", "cpu", None, True), ("no_ladder", cuda, True, False)):
+        eng = Engine(cfg, params, max_slots=2, max_len=96, attn_impl="kernel",
+                     fused_step=fused, device=dev,
+                     ladder=sac.DegradeLadder() if ladder else None)
+        for f in engine.COUNTED:
+            f.launches = 0
+        outs = eng.generate(reqs())
+        runs[name] = (outs, {f.__name__: f.launches for f in engine.COUNTED},
+                      eng)
+    assert runs["replayed"][0] == runs["per_call"][0] == runs["cpu"][0]
+    assert runs["replayed"][1] == runs["per_call"][1]
+    eng = runs["replayed"][2]
+    assert eng.replay_count > 0 and eng.fallbacks == 0
+    assert runs["no_ladder"][0] != runs["replayed"][0]

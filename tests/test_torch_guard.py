@@ -272,7 +272,7 @@ def test_engine_options_raise_as_the_reference(setup):
     with pytest.raises(ValueError, match="LoopEngine"):
         LoopEngine(tc, tp, drift=DriftSpec(walk_gain_std=0.1), device="cpu")
     with pytest.raises(NotImplementedError):
-        Engine(tc, tp, device="cpu", ladder=object())
+        Engine(tc, tp, device="cpu", replica="r0")
     # deploy=False serves sim mode on the float weights, quantized per
     # call: the deployed run's tokens, as in the reference
     kw = dict(max_slots=3, max_len=64, cim_mode="sim", seed=0,

@@ -34,6 +34,17 @@ LENS = {"qwen2-0.5b": (13, 1, 9, 20), "mamba2-130m": (9, 1, 14, 6)}
 NEW = (3, 2, 1, 3)      # the third request asks for one token
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Torch on one CPU thread for the module: the suite runs several test
+    processes side by side, and a thread pool each oversubscribes the
+    cores (small eager ops then wait on thread barriers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfg(get, arch, mode="off", dtype="float32", int8=False):
     base = get(arch)
     return dataclasses.replace(
