@@ -13,8 +13,8 @@ Then the per-layer decode megakernel
 (``fuse_layer=True``) on float32 qwen2-0.5b: the kernel against its plain
 version at full width (with two deliberately wrong plain versions that the
 tolerance must catch), full-width serving with both caches and exact
-launch counts, a profile of one decode step fused and unfused, fused vs
-unfused tokens and logits, and its times. Then the ssm family: the mamba2
+launch counts, a profile of one fused decode step (replayed and per
+call), fused vs unfused tokens and logits, and its times. Then the ssm family: the mamba2
 selective-scan decode kernel against its plain version at full width
 (B 4, 1 and 3, bf16 and f32 windows, bf16 and misaligned conv weights),
 at zamba2-7b's mamba width and at a d_state with no template of its own
@@ -102,8 +102,14 @@ front-end and the load ladder: full-width qwen2-0.5b replayed under
 scripted burst on a fake clock (sheds, deadlines, a client cancel,
 admissions at rungs 1 and 2 and back at 0), the same script per call
 giving every record, rung 0 = no ladder, and the ladder's noise card vs
-CPU (``serve_frontend``). Every phase prints one JSON line; any failure
-exits non-zero. The last line is the device record.
+CPU (``serve_frontend``). The replica router: full-width qwen2-0.5b
+replicas of one seed, replayed, behind ``ReplicaRouter``: the same rid's
+stream on two replicas, a kill mid-decode and mid-chunked-prefill and a
+wedge, each equal to a single engine's streams, the kill in sim mode,
+a guarded drift storm (4 of the 24 layers) that drains only its victim,
+and the front-end over a pool that loses a replica (``serve_router``).
+Every phase prints one JSON line; any failure exits non-zero. The last
+line is the device record.
 """
 
 from __future__ import annotations
@@ -3634,11 +3640,11 @@ def phase_serve_robust(params, unguarded_profile):
     the trips; (d) drift with calibration and runtime faults (no
     brownout: ``_drift_kw``), replayed through the CUDA graphs and per
     call: equal tokens and launches. A profiled decode step's device ms
-    for (a) and (d) replayed (a guarded step's profile takes some 18 s;
-    (b) and (c) run (a)'s kernels, every rung being computed and selected
-    per row), beside ``unguarded_profile``, cell A's profiled per-call
-    step of this run. Returns the launches of the runs and their
-    seconds."""
+    for (d) replayed, beside ``unguarded_profile``, cell A's profiled
+    per-call step of this run; a guarded step is not profiled, for the
+    script's time (its profile took some 18 s; (a)-(c) run the same
+    kernels, every rung being computed and selected per row). Returns the
+    launches of the runs and their seconds."""
     import torch
     from repro_torch.core.faults import FaultSpec
 
@@ -3656,7 +3662,7 @@ def phase_serve_robust(params, unguarded_profile):
         return eng, outs, counts, nums
 
     plain = go("unguarded", False, fused_step=False)
-    a = go("a_guarded_quiet", guard=True)
+    a = go("a_guarded_quiet", False, guard=True)
     if (a[1] != plain[1] or a[0].guard_trip_counts.sum()
             or a[2]["cim_matmul_fused"] != 2 * plain[2]["cim_matmul_fused"]):
         fail(f"serve_robust (a): tokens {a[1]} vs {plain[1]}, trips "
@@ -4003,6 +4009,289 @@ def phase_serve_frontend(params):
          seconds=new_s)
     launches = rep["launches"]
     del runs, rep, pc, eng, fe, plain_eng
+    torch.cuda.empty_cache()
+    return launches, new_s
+
+
+# ------------------------------------------------------- the replica router
+RT_LENS = (300, 60, 137, 211, 64, 95)  # cell A's lengths; r1 is sent 60, 64
+RT_NEW = 10
+RT_TEMPS = (0.0, 0.8)
+RT_WEDGE_LENS = (60, 137, 64, 95)
+RT_STORM_LENS = (60, 64, 60, 64, 60, 64)
+RT_STORM_NEW = 8
+RT_STORM_LAYERS = 4        # a guarded full-width step costs 714 ms of host
+RT_FE_LENS = (60, 64, 95, 137)
+RT_FE_NEW = 8
+
+
+def phase_serve_router(params):
+    """The replica router (``serving/router.py``) over replicas that
+    ``build_pool`` builds with one seed, on qwen2-0.5b at full width and
+    depth as in cell A (bf16, bf16 cache, kernel attention, chunk 32, 2
+    slots a replica, every replica replayed through its CUDA graphs),
+    each scenario on fresh replicas (a killed one stays dead): (a) two
+    replicas give 4 rids (greedy and sampled at 0.8) the same streams;
+    (b) 3 replicas in off mode, no fault (the router timed), then a kill
+    of r1 at router step 4: the streams equal a single engine's, the
+    events hold kill, dead and a migration with tokens delivered, and the
+    dead engine replays nothing after its kill; (c) (a)'s replicas, two
+    300-token prompts, r0 killed at step 2 mid-chunked-prefill; (d) a
+    wedge of r0 at step 3 caught by the watchdog (patience 3); (e) (b)'s
+    kill in sim mode on deployed planes: every request completes with all
+    its tokens (sim streams share one activation scale a batch, so they
+    are not compared); (f) a drift storm on r1 (64 sigmas on every slot,
+    ``cim_mode="sim"``, guard on, per call) at ``RT_STORM_LAYERS`` of the
+    24 layers: drains only r1, never kills it, every request completes;
+    (g) the front-end over 2 replicas, r0 killed at step 5: every record
+    completed with its replica, at least one migration, the single
+    engine's streams. The single engine is built first, with the
+    replicas' 2 slots (cuBLAS may choose a bf16 GEMM by M), and serves
+    every ground truth after the pools were built. Any dead event that a
+    scenario's own ``ReplicaFaultSpec`` did not inject, or a failed
+    request, fails the phase. Prints the router's host ms a tick against
+    the replicas' summed busy ms, the pool's session tok/s against the
+    single engine's, a pool's build seconds, the peak device memory, rows
+    1-3 launches and the phase's seconds. Returns the launches of the
+    router's sessions and the seconds."""
+    import torch
+    from repro_torch.core.faults import ReplicaFaultSpec
+    from repro_torch.kernels.cim_matmul import cim_matmul_fused
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_gqa_attention
+    from repro_torch.serving.engine import Engine, Request
+    from repro_torch.serving.frontend import Frontend
+    from repro_torch.serving.router import (HealthPolicy, ReplicaRouter,
+                                            build_pool)
+
+    t_start = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = (cim_matmul_fused, decode_attention, flash_gqa_attention)
+    launches = {k.__name__: 0 for k in kernels}
+    cfg = full_config(False)
+    kw = dict(max_slots=2, max_len=320, attn_impl="kernel", device="cuda")
+    builds = {}
+    checks = {}
+
+    def reqs(lens, new, temps=(0.0,), tag="q"):
+        rng = np.random.default_rng(7)
+        return [Request(prompt=rng.integers(0, cfg.vocab_size, n),
+                        max_new_tokens=new,
+                        temperature=temps[i % len(temps)], rid=f"{tag}{i}")
+                for i, n in enumerate(lens)]
+
+    def pool(name, n, c=cfg, p=params, **extra):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engines = build_pool(c, p, n, seed=0, **{**kw, **extra})
+        torch.cuda.synchronize()
+        builds[name] = time.perf_counter() - t0
+        return engines
+
+    def counted(fn):
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for k in kernels:
+            launches[k.__name__] += k.launches
+        return out, wall
+
+    def dead_events(router, injected):
+        """Dead events beyond the injected victim's, and failed outputs."""
+        return [e for e in router.events if e["kind"] == "dead"
+                and e["replica"] not in injected]
+
+    def fault_free(name, router, outs, injected=()):
+        extra = dead_events(router, injected)
+        failed = [o for o in outs if not isinstance(o, list)]
+        if extra or failed:
+            fail(f"serve_router ({name}): dead events {extra}, failed "
+                 f"requests {failed}; events {router.events}")
+
+    truth = Engine(cfg, params, cim_mode="off", seed=0, **kw)
+
+    # (a) the determinism premise: two replicas, the same 4 rids
+    p2 = pool("a_2_replicas", 2, cim_mode="off")
+    (d0, d1), _ = counted(lambda: [
+        e.generate(reqs(RT_LENS[:4], RT_NEW, RT_TEMPS, "d")) for e in p2])
+    checks["a_same_streams_across_replicas"] = (
+        d0 == d1 and all(len(o) == RT_NEW for o in d0))
+
+    # (b) 3 replicas: no fault (timed), then r1 killed at step 4
+    p3 = pool("b_3_replicas", 3, cim_mode="off")
+    timed = ReplicaRouter(p3, timing=True)
+    nf, nf_wall = counted(lambda: timed.generate(
+        reqs(RT_LENS, RT_NEW, RT_TEMPS)))
+    fault_free("b no fault", timed, nf)
+    victim, at_kill = p3[1], {}
+    real_kill = victim.kill
+
+    def kill(reason="device lost"):
+        at_kill["replays"] = victim.replay_count
+        real_kill(reason)
+
+    victim.kill = kill
+    rb = ReplicaRouter(p3, replica_fault=ReplicaFaultSpec(
+        mode="kill", at_step=4, victim=1))
+    ob, _ = counted(lambda: rb.generate(reqs(RT_LENS, RT_NEW, RT_TEMPS)))
+    fault_free("b", rb, ob, ("r1",))
+    one, one_wall = counted(lambda: truth.generate(
+        reqs(RT_LENS, RT_NEW, RT_TEMPS)))
+    kinds = [e["kind"] for e in rb.events]
+    checks["b_no_fault_equals_single_engine"] = nf == one
+    checks["b_kill_equals_single_engine"] = ob == one
+    checks["b_kill_dead_migrate_delivered"] = (
+        "kill" in kinds and "dead" in kinds and any(
+            e["kind"] == "migrate" and e["delivered"] > 0
+            for e in rb.events))
+    checks["b_r1_dead"] = rb.replica_states()[1]["state"] == "dead"
+    checks["b_no_replay_after_kill"] = (
+        at_kill.get("replays") is not None
+        and victim.replay_count == at_kill["replays"])
+    checks["b_replayed"] = all(e.replay_count > 0 and not e.fallbacks
+                               for e in p3)
+    b_events = rb.events
+    nf_toks = sum(len(o) for o in nf)
+    timing = {"router_host_ms_per_tick": 1e3 * timed.host_s
+              / timed.step_count,
+              "replicas_busy_ms_per_tick": 1e3 * sum(timed.busy_s)
+              / timed.step_count,
+              "ticks": timed.step_count,
+              "pool_session_tok_per_s": nf_toks / nf_wall,
+              "single_engine_session_tok_per_s": nf_toks / one_wall,
+              "pool_session_s": nf_wall, "single_engine_session_s": one_wall}
+    del timed, rb, victim
+    p3.clear()
+
+    # (c) (a)'s replicas: r0 killed mid-chunked-prefill
+    rc = ReplicaRouter(p2, replica_fault=ReplicaFaultSpec(
+        mode="kill", at_step=2, victim=0))
+    oc, _ = counted(lambda: rc.generate(
+        reqs((300, 300), RT_NEW, (0.0, 0.7), "long")))
+    fault_free("c", rc, oc, ("r0",))
+    mig_c = [e for e in rc.events if e["kind"] == "migrate"]
+    checks["c_equals_single_engine"] = oc == truth.generate(
+        reqs((300, 300), RT_NEW, (0.0, 0.7), "long"))
+    checks["c_migrated_mid_prefill"] = bool(mig_c) and all(
+        e["delivered"] == 0 for e in mig_c)
+    c_events = rc.events
+    del rc
+    p2.clear()
+
+    # (d) r0 wedged at step 3, caught by the watchdog
+    rd = ReplicaRouter(pool("d_2_replicas", 2, cim_mode="off"),
+                       health=HealthPolicy(wedge_patience=3),
+                       replica_fault=ReplicaFaultSpec(
+                           mode="wedge", at_step=3, victim=0))
+    wreqs = reqs(RT_WEDGE_LENS, RT_NEW, RT_TEMPS, "w")
+    od, _ = counted(lambda: rd.generate(wreqs))
+    fault_free("d", rd, od, ("r0",))
+    dead_d = [e for e in rd.events if e["kind"] == "dead"]
+    checks["d_equals_single_engine"] = od == truth.generate(
+        reqs(RT_WEDGE_LENS, RT_NEW, RT_TEMPS, "w"))
+    checks["d_wedged_dead_and_migrated"] = (
+        bool(dead_d) and "wedged" in dead_d[0]["reason"]
+        and any(rd.migrations_of(r) > 0 for r in wreqs))
+    d_events = rd.events
+    del rd
+
+    # (e) (b)'s kill in sim mode on deployed planes, replayed
+    pe = pool("e_3_replicas_sim", 3, cim_mode="sim")
+    re_ = ReplicaRouter(pe, replica_fault=ReplicaFaultSpec(
+        mode="kill", at_step=4, victim=1))
+    oe, _ = counted(lambda: re_.generate(reqs(RT_LENS, RT_NEW)))
+    fault_free("e", re_, oe, ("r1",))
+    checks["e_sim_all_tokens_none_reemitted"] = all(
+        len(o) == RT_NEW for o in oe)
+    checks["e_sim_kill_migrated_delivered"] = (
+        re_.replica_states()[1]["state"] == "dead" and any(
+            e["kind"] == "migrate" and e["delivered"] > 0
+            for e in re_.events))
+    checks["e_sim_replayed"] = all(e.replay_count > 0 and not e.fallbacks
+                                   for i, e in enumerate(pe) if i != 1)
+    e_events = re_.events
+    del re_
+    pe.clear()
+
+    # (f) a drift storm on r1, guarded per call, at RT_STORM_LAYERS layers
+    c4 = dataclasses.replace(cfg, n_layers=RT_STORM_LAYERS)
+    p4 = dict(params, blocks={k: _tree_first(v, RT_STORM_LAYERS)
+                              for k, v in params["blocks"].items()})
+    storm = ReplicaFaultSpec(mode="storm", victim=1,
+                             storm_transient_mag=64.0)
+    pf = pool("f_3_replicas_storm", 3, c4, p4, cim_mode="sim", guard=True,
+              replica_fault=storm)
+    rf = ReplicaRouter(pf, replica_fault=storm)
+    of, _ = counted(lambda: rf.generate(
+        reqs(RT_STORM_LENS, RT_STORM_NEW, tag="s")))
+    fault_free("f", rf, of)
+    drains = [e for e in rf.events if e["kind"] == "drain"]
+    hard = [int(e.guard_hard_counts.sum()) for e in pf]
+    checks["f_storm_drains_r1_only"] = bool(drains) and all(
+        e["replica"] == "r1" for e in drains)
+    checks["f_r1_not_dead"] = rf.replica_states()[1]["state"] != "dead"
+    checks["f_all_complete"] = all(len(o) == RT_STORM_NEW for o in of)
+    checks["f_hard_trips_on_r1_only"] = hard[1] > 0 and hard[0] == hard[2] == 0
+    f_events = rf.events
+    del rf
+    pf.clear()
+
+    # (g) the front-end over 2 replicas, r0 killed at step 5
+    rg = ReplicaRouter(pool("g_2_replicas", 2, cim_mode="off"),
+                       replica_fault=ReplicaFaultSpec(
+                           mode="kill", at_step=5, victim=0))
+    clock = {"t": 0.0}
+    fe = Frontend(rg, queue_limit=16, clock=lambda: clock["t"])
+    rng = np.random.default_rng(8)
+    prompts = [list(rng.integers(0, cfg.vocab_size, n)) for n in RT_FE_LENS]
+
+    def drive():
+        tks = [fe.submit(pr, RT_FE_NEW, rid=f"fe{i}")
+               for i, pr in enumerate(prompts)]
+        while fe.pending():
+            fe.tick(clock["t"])
+            clock["t"] += FE_DT
+            if clock["t"] > 2000 * FE_DT:
+                fail("serve_router (g): the front-end wedged")
+        return tks
+
+    tks, _ = counted(drive)
+    recs = [t.record for t in tks]
+    fault_free("g", rg, [t.tokens for t in tks], ("r0",))
+    g_truth = truth.generate([Request(prompt=np.asarray(pr),
+                                      max_new_tokens=RT_FE_NEW, rid=f"fe{i}")
+                              for i, pr in enumerate(prompts)])
+    checks["g_all_completed_with_replica"] = all(
+        r.outcome == "completed" and r.replica in ("r0", "r1")
+        for r in recs)
+    checks["g_migrations"] = sum(r.migrations for r in recs) >= 1
+    checks["g_equals_single_engine"] = [t.tokens for t in tks] == g_truth
+    g_events = rg.events
+    del rg, fe
+
+    if not all(checks.values()):
+        fail(f"serve_router: {checks}; events (b) {b_events}, (c) "
+             f"{c_events}, (d) {d_events}, (e) {e_events}, (f) {f_events}, "
+             f"(g) {g_events}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    new_s = time.perf_counter() - t_start
+    emit("serve_router", arch=cfg.name, n_layers=cfg.n_layers,
+         dtype=cfg.dtype, slots_per_replica=2, chunk=32,
+         prompt_lens=list(RT_LENS), new_tokens=RT_NEW,
+         storm_reduced={"n_layers": [cfg.n_layers, RT_STORM_LAYERS]},
+         checks=checks, **timing, build_s=builds,
+         events={"b": b_events, "c": c_events, "d": d_events,
+                 "e": e_events, "f": f_events, "g": g_events},
+         guard_hard_per_replica_f=hard,
+         frontend_records_g=[(t.rid, t.record.replica, t.record.migrations)
+                             for t in tks],
+         peak_mem_gib=peak, launches=launches, seconds=new_s)
+    del truth
     torch.cuda.empty_cache()
     return launches, new_s
 
@@ -5025,6 +5314,8 @@ def main() -> int:
          new_phases_limit_s=100)
     runs["frontend"], frontend_s = phase_serve_frontend(params)
     emit("frontend", new_phases_s=frontend_s, new_phases_limit_s=60)
+    runs["router"], router_s = phase_serve_router(params)
+    emit("router", new_phases_s=router_s, new_phases_limit_s=60)
     del params
     params32 = init_params(full_config32(False),
                            torch.Generator(device="cuda").manual_seed(0),
@@ -5039,7 +5330,8 @@ def main() -> int:
         for fused_step in (True, False):
             phase_profile(params32, full_config32(int8), fuse_layer=True,
                           fused_step=fused_step)
-    phase_profile(params32, full_config32(False), fused_step=False)
+    # the unfused float32 step is not profiled, for the script's time
+    # (about 11 s; PERF.md §5 keeps its figure)
     phase_fused_reach(params32)
     phase_fused_tokens(params32, fused[False][1])
     times.update(phase_times_fused(params32))
@@ -5158,10 +5450,11 @@ def main() -> int:
         if name in ("cim_matmul_fused", "decode_attention", "flash_gqa",
                     "ssm_decode_step"):
             n += runs["archs"][fn.__name__]
-        # the robustness and the front-end sessions (bf16 qwen2, bf16
-        # cache) run rows 1-3
+        # the robustness, the front-end and the router's sessions (bf16
+        # qwen2, bf16 cache) run rows 1-3
         if name in ("cim_matmul_fused", "decode_attention", "flash_gqa"):
-            n += runs["robust"][fn.__name__] + runs["frontend"][fn.__name__]
+            n += (runs["robust"][fn.__name__] + runs["frontend"][fn.__name__]
+                  + runs["router"][fn.__name__])
         line.append({"name": name, "route": "cuda", "source": path,
                      "replaces": tpu, "launches": n,
                      "max_abs_err": errs[name if name in errs else ekey],

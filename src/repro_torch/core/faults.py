@@ -1,7 +1,6 @@
 """Deterministic structural-fault injection for the CR-CIM sim.
 
-Twin of ``src/repro/core/faults.py`` (without ``ReplicaFaultSpec``, which
-belongs to the replica router):
+Twin of ``src/repro/core/faults.py``:
 
   * **stuck-at bitcells** (``stuck_bit_plane``): a Bernoulli(rate) subset
     of the deployed plane's two's-complement bits forced to a fair-coin
@@ -15,7 +14,9 @@ belongs to the replica router):
     keyed on the call's key, whose CB majority vote collapses to
     ``brownout_votes``;
   * **transient disturbance** (``transient_mag``), which the guard adds to
-    the rows the engine names (``core.guard``).
+    the rows the engine names (``core.guard``);
+  * **whole-replica failures** (``ReplicaFaultSpec``), which the replica
+    router (``serving/router.py``) injects at its own step counter.
 
 Every realisation is a function of (``FaultSpec.seed``, position) under
 the reference's Threefry draws, so the port reproduces each bit for bit.
@@ -58,6 +59,51 @@ class FaultSpec:
         """True if the output-referred runtime faults are active."""
         return (self.col_gain_std > 0.0 or self.col_offset_std > 0.0
                 or self.adc_stuck_rate > 0.0 or self.brownout_rate > 0.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class ReplicaFaultSpec:
+    """One seeded whole-replica failure scenario, injected by the router
+    at its own step counter so that a failover run replays exactly:
+
+      * ``mode="kill"``: ``Engine.kill()`` at ``at_step``, device loss;
+        later steps and drains raise and undrained tokens are gone;
+      * ``mode="wedge"``: ``Engine.wedge()`` at ``at_step``; steps return
+        and nothing advances, which only the router's no-progress
+        watchdog sees;
+      * ``mode="storm"``: no router action; ``build_pool`` builds the
+        victim with ``storm_fault()`` on every slot, so its guard's hard
+        trips drag its health score down and the router drains it.
+
+    ``victim=None`` derives the victim from ``seed``."""
+
+    seed: int = 0
+    mode: str = "kill"            # kill | wedge | storm
+    at_step: int = 8              # router step at which kill/wedge fires
+    victim: Optional[int] = None  # replica index; None: seeded choice
+    storm_transient_mag: float = 64.0   # the storm's disturbance, sigmas
+
+    def __post_init__(self):
+        if self.mode not in ("kill", "wedge", "storm"):
+            raise ValueError(f"unknown replica fault mode {self.mode!r}")
+
+    def victim_of(self, n_replicas: int) -> int:
+        if self.victim is not None:
+            if not 0 <= self.victim < n_replicas:
+                raise ValueError(
+                    f"victim {self.victim} out of range for {n_replicas}")
+            return self.victim
+        # splitmix-style scramble of the seed
+        z = (self.seed * 0x9E3779B9 + DOMAIN_FAULT) & 0xFFFFFFFF
+        z ^= z >> 16
+        return z % n_replicas
+
+    def storm_fault(self) -> FaultSpec:
+        """The victim's ``FaultSpec``: a persistent
+        ``storm_transient_mag``-sigma disturbance on its faulted rows under
+        the guard, so hard trips land on that replica only."""
+        return FaultSpec(seed=self.seed,
+                         transient_mag=self.storm_transient_mag)
 
 
 def stuck_bit_plane(wq: torch.Tensor, bits: int, rate: float,

@@ -70,6 +70,14 @@ sim mode on the float weights, quantized per call:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
       --cim sim --frontend --ladder --requests 6
+
+``--replicas N`` serves through ``N`` engine replicas of one seed behind
+the health-aware ``ReplicaRouter`` (``serving/router.py``), each with
+``--slots`` slots, on one card (fused engine only); the front-end's
+records then name each request's replica (``rep=``) and its migrations:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+      --replicas 2 --frontend
 """
 
 from __future__ import annotations
@@ -113,6 +121,12 @@ def _build_argparser():
     ap.add_argument("--new-tokens", type=int, default=12)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--slots", type=int, default=2)
+    ap.add_argument(
+        "--replicas", type=int, default=1,
+        help="data-parallel Engine replicas behind the health-aware "
+             "ReplicaRouter (serving/router.py); each replica owns --slots "
+             "slots and the same seed, so failover migration replays "
+             "streams bit-for-bit in off mode")
     ap.add_argument("--cim", default="off", choices=["off", "sim"])
     ap.add_argument("--attn-impl", default="config",
                     choices=["config", "einsum", "kernel"])
@@ -282,7 +296,7 @@ def _report(engine, reqs) -> None:
         print(f"  drift: {engine.drift_step} steps, "
               f"{len(cals)} calibrations, {len(trips_w)} watchdog trips"
               + (", ESCALATED to digital" if engine.drift_degraded
-                 or engine._drift_pin_all else ""))
+                 or getattr(engine, "_drift_pin_all", False) else ""))
         for e in evs[:8]:
             q = e.get("quality")
             print(f"    step {e['step']}: {e['kind']}"
@@ -330,6 +344,8 @@ async def _run_frontend(args, engine, cfg):
               f"ttft={'-' if r.ttft_s is None else f'{r.ttft_s:.3f}s'} "
               f"toks={r.tokens_out} votes={r.votes_used} "
               f"retries={r.retries}"
+              + (f" rep={r.replica}" if r.replica is not None else "")
+              + (f" migrations={r.migrations}" if r.migrations else "")
               + (f" guard={r.guard_trips}/{r.guard_hard}"
                  if r.guard_trips is not None else "")
               + (f"  [{r.reason}]" if r.reason else ""))
@@ -373,7 +389,16 @@ def main(argv=None):
               deploy={"auto": None, "on": True, "off": False}[args.deploy],
               device=device)
     robust = _robust_kw(args)
-    if args.engine == "loop":
+    if args.replicas > 1:
+        if args.engine != "fused":
+            raise SystemExit("--replicas needs the fused engine "
+                             "(--engine fused): the router speaks the "
+                             "incremental session API")
+        from repro_torch.serving.router import ReplicaRouter, build_pool
+        engine = ReplicaRouter(build_pool(
+            cfg, params, args.replicas, chunk_size=args.chunk_size,
+            record_ttft=True, **robust, **kw))
+    elif args.engine == "loop":
         engine = LoopEngine(cfg, params, **kw)
     else:
         engine = Engine(cfg, params, chunk_size=args.chunk_size,
@@ -399,14 +424,21 @@ def main(argv=None):
     print(f"[{device.type}] {args.engine} engine served {len(reqs)} "
           f"requests ({sum(failed)} failed), {total} tokens in {dt:.2f}s "
           f"({total / dt:.1f} tok/s)")
-    ttfts = [t for t in getattr(engine, "ttft_s", []) if t is not None]
+    # a router's TTFTs are its replicas' (a migrated request's twice)
+    engines = getattr(engine, "engines", [engine])
+    ttfts = [t for e in engines for t in getattr(e, "ttft_s", [])
+             if t is not None]
     if ttfts:
         print(f"  TTFT mean {np.mean(ttfts) * 1e3:.0f} ms / max "
-              f"{np.max(ttfts) * 1e3:.0f} ms (chunk={engine.chunk_size})")
+              f"{np.max(ttfts) * 1e3:.0f} ms "
+              f"(chunk={engines[0].chunk_size})")
     _report(engine, reqs)
+    rep_of = getattr(engine, "replica_of", lambda r: None)
     for i, o in enumerate(outs[:4]):
+        rep = rep_of(reqs[i])
         print(f"  req{i}: " + (f"FAILED ({o})" if isinstance(o, RequestError)
-                               else f"{o[:10]}..."))
+                               else f"{o[:10]}...")
+              + (f" rep={rep}" if rep is not None else ""))
     return outs
 
 

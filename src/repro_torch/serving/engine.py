@@ -118,8 +118,13 @@ seed-table path the ladder's draw reads a staged table of the seeds
 folded by ``0xD364``, so a level that changes between admissions
 replays as it runs per call.
 
-Not in this slice (``replica=`` raises ``NotImplementedError``, see
-ROADMAP.md): replica failover (A6.2).
+The replica surface the router drives (``serving/router.py``), as in the
+reference: ``replica=`` labels the engine and is stamped on every
+``RequestError`` it produces; ``kill(reason)`` simulates device loss
+(every later ``step``/``drain_pending`` raises and the undrained tokens
+are dropped), ``wedge()`` a hung launch queue (``step`` returns True and
+advances nothing) until ``unwedge()``; ``replica_of`` names the label.
+``cim_mode="qat"`` is not ported (``NotImplementedError``, ROADMAP.md A8).
 """
 
 from __future__ import annotations
@@ -426,11 +431,19 @@ class Engine:
                  fault: Any = None, fault_slots: Any = None,
                  pin_slots: Any = None, drift: Any = None, calib: Any = None,
                  ladder: Any = None, deploy: Optional[bool] = None,
-                 drain_every: int = DRAIN_EVERY, device="cuda", **unported):
+                 drain_every: int = DRAIN_EVERY, device="cuda",
+                 replica: Optional[str] = None, **unported):
         if unported:
             raise NotImplementedError(
                 f"Engine options {sorted(unported)} are not ported yet; "
                 "ROADMAP.md lists them as later work")
+        # the label stamped on every RequestError this engine produces;
+        # a killed engine has lost its device (step and drain raise), a
+        # wedged one takes steps and advances nothing (the router's
+        # watchdog tells)
+        self.replica = replica
+        self.dead: Optional[str] = None
+        self.wedged = False
         self.device = resolve_device(device)
         cfg, mode = _resolve(cfg, cim_mode, attn_impl)
         self.deployed = _resolve_deploy(deploy, mode)
@@ -704,6 +717,11 @@ class Engine:
         given), admit from the queue (whole-prompt: prefill at admission),
         advance every prefilling slot by one chunk, run the batch decode.
         Returns True if any slot did work."""
+        if self.dead is not None:
+            raise RuntimeError(
+                f"replica {self.replica or '?'} dead: {self.dead}")
+        if self.wedged:
+            return True
         if now is not None:
             self.expire_deadlines(now)
         self._fill_slots()
@@ -729,9 +747,27 @@ class Engine:
             self.drain_pending()
         return True
 
+    def kill(self, reason: str = "device lost") -> None:
+        """Simulate whole-replica device loss: every later ``step`` and
+        ``drain_pending`` raises, and the tokens still on the device are
+        gone. In-flight requests are not failed here: the router migrates
+        them, and their per-rid sampling keys replay the streams."""
+        self.dead = reason
+        self._pend.clear()
+
+    def wedge(self) -> None:
+        """Simulate a wedged launch queue: steps return without work."""
+        self.wedged = True
+
+    def unwedge(self) -> None:
+        self.wedged = False
+
     def drain_pending(self) -> None:
         """Move emitted tokens device -> host into ``out_tokens`` lists
         (one transfer for all pending entries)."""
+        if self.dead is not None:
+            raise RuntimeError(
+                f"replica {self.replica or '?'} dead: {self.dead}")
         if not self._pend:
             return
         flat = torch.cat([t.reshape(-1) for t, _ in self._pend]).tolist()
@@ -832,6 +868,11 @@ class Engine:
         ri = self._req_index.get(id(r))
         return None if ri is None else self.guard_report.get(ri)
 
+    def replica_of(self, r: Request) -> Optional[str]:
+        """The engine's own label (the router names the replica it
+        dispatched to)."""
+        return self.replica
+
     def _note_guard(self, ctx: Ctx, slot_cols) -> List[int]:
         """Fold one forward's (L, B) guard counts into the host state;
         ``slot_cols``: (slot, batch column) pairs. Returns the slots whose
@@ -925,6 +966,8 @@ class Engine:
         self._turnover = True
 
     def _fail_request(self, s: int, err: RequestError) -> None:
+        if err.replica is None:
+            err.replica = self.replica
         ri = self._req_index[id(self._slots[s])]
         self.status[ri] = "failed"
         self.request_errors[ri] = err

@@ -143,9 +143,11 @@ def test_session_api_cancel_and_slot_reuse(setup):
 def test_unported_options_and_bad_requests_raise(setup, monkeypatch):
     cfg_of, _, tp, _ = setup
     cfg = cfg_of(get_config("qwen2-0.5b"), False)
-    for kw in ({"replica": "r0"}, {"cim_mode": "qat"}):
-        with pytest.raises(NotImplementedError):
-            Engine(cfg, tp, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        Engine(cfg, tp, device="cpu", cim_mode="qat")
+    # replica= is ported: the engine keeps its label, as the reference's
+    eng = Engine(cfg, tp, device="cpu", replica="r0")
+    assert eng.replica == "r0" and eng.dead is None and not eng.wedged
     # the guard is ported: outside deployed sim mode it raises the
     # reference's ValueError
     with pytest.raises(ValueError, match="guard requires cim_mode='sim'"):

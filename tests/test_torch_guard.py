@@ -183,8 +183,8 @@ def jax_runs(setup):
 
 def _outcome(out, e):
     return ([o if isinstance(o, list) else
-             (type(o).__name__, o.phase, o.slot, o.layer, o.retryable)
-             for o in out], list(e.status), e.guard_trip_counts.tolist(),
+             (type(o).__name__, o.phase, o.slot, o.layer, o.retryable,
+              o.replica) for o in out], list(e.status), e.guard_trip_counts.tolist(),
             e.guard_hard_counts.tolist(), dict(e.guard_report))
 
 
@@ -197,10 +197,10 @@ SCENARIOS = {
     "pinned_twin": ({"guard": True, "pin_slots": {1}},
                     {"guard": True, "pin_slots": {1}}),
     "fail_after": ({"guard": True, "fault": JFaultSpec(transient_mag=4.0),
-                    "fault_slots": {1},
+                    "fault_slots": {1}, "replica": "r0",
                     "degrade": JDegradePolicy(pin_after=None, fail_after=2)},
                    {"guard": True, "fault": FaultSpec(transient_mag=4.0),
-                    "fault_slots": {1},
+                    "fault_slots": {1}, "replica": "r0",
                     "degrade": DegradePolicy(pin_after=None, fail_after=2)}),
     "segments": ({"guard": jguard.GuardSpec(segments=8),
                   "fault": JFaultSpec(transient_mag=4.0),
@@ -237,6 +237,9 @@ def test_guarded_engine_equals_jax(setup, jax_runs, name, use_kernel):
         assert isinstance(out[1], RequestError)
         assert out[1] is e.request_errors[1] and not out[1].retryable
         assert "hard-fail" in out[1].reason
+        # the engine stamps its replica label on the failure, as the
+        # reference's does
+        assert out[1].replica == "r0" and str(out[1]).startswith("[r0:")
 
 
 def test_engine_options_raise_as_the_reference(setup):
@@ -272,7 +275,9 @@ def test_engine_options_raise_as_the_reference(setup):
     with pytest.raises(ValueError, match="LoopEngine"):
         LoopEngine(tc, tp, drift=DriftSpec(walk_gain_std=0.1), device="cpu")
     with pytest.raises(NotImplementedError):
-        Engine(tc, tp, device="cpu", replica="r0")
+        Engine(tc, tp, device="cpu", cim_mode="qat")
+    assert Engine(tc, tp, device="cpu", replica="r0").replica == JEngine(
+        jc, jp, replica="r0").replica == "r0"
     # deploy=False serves sim mode on the float weights, quantized per
     # call: the deployed run's tokens, as in the reference
     kw = dict(max_slots=3, max_len=64, cim_mode="sim", seed=0,
