@@ -14,7 +14,17 @@ Then the per-layer decode megakernel
 version at full width (with two deliberately wrong plain versions that the
 tolerance must catch), full-width serving with both caches and exact
 launch counts, a profile of one fused decode step (replayed and per
-call), fused vs unfused tokens and logits, and its times. Then the ssm family: the mamba2
+call), fused vs unfused tokens and logits, and its times. Then the same
+kernel past head dim 64: one layer of phi3-mini (head dim 96), zamba2-7b's
+shared block (112), internlm2-1.8b, pixtral-12b and deepseek-67b (128 at
+G 2, 4, 8) at full width against its plain version, each later stage
+also on the kernel's own operands (``fused_wide_check``), one launch's
+time beside its bound and the unfused layer step (``times_fused_wide``),
+full-width internlm2-1.8b served fused replayed and per call and
+phi3-mini and zamba2-7b at cut depth replayed, with exact launch counts
+(``serve_fused_wide``), fused vs unfused tokens of reduced models at the
+new head dims and internlm2's full-width off-mode logits
+(``fused_vs_unfused_wide``). Then the ssm family: the mamba2
 selective-scan decode kernel against its plain version at full width
 (B 4, 1 and 3, bf16 and f32 windows, bf16 and misaligned conv weights),
 at zamba2-7b's mamba width and at a d_state with no template of its own
@@ -27,9 +37,8 @@ deepseek-v2 width (with two deliberately wrong inputs that the tolerance
 must catch) and the CIM kernel at deepseek-v2's shapes, card-vs-CPU greedy
 tokens of the reduced deepseek-v2 in off and sim mode, deepseek-v2-236b at
 every published width and 4 of its 60 layers served with exact launch
-counts and its peak memory, a profile of one decode step and the kernel's
-times (CUDA events) beside one scaled_dot_product_attention call and the
-earlier body's time. The f32-query GQA prefill of the float32 cells is
+counts and its peak memory, and the kernel's times (CUDA events) beside
+one scaled_dot_product_attention call and the earlier body's time. The f32-query GQA prefill of the float32 cells is
 held against its plain version, its block counts against their closed
 form, and timed at their chunk shape beside SDPA in f32 and the earlier
 body's time. Last, the two
@@ -1345,6 +1354,15 @@ class plain_variant:
         fused_step.decode_attention_plain, fused_step._Layer = self.saved
 
 
+def tol_rows(a, b, tol):
+    """Rows of ``a`` off ``b`` by more than ``tol`` of the row's max |b|:
+    (mask, max err over the row max, max abs err)."""
+    err = (a - b).abs()
+    scale = b.abs().amax(-1, keepdim=True)
+    return ((err > tol * scale).any(-1),
+            float((err / scale.clamp(min=1e-30)).max()), float(err.max()))
+
+
 def fused_rows(ko, kc, kp, po, pc, pp, lens):
     """Kernel (ko, kc, kp) against a plain run (po, pc, pp), row by row.
     Returns per-check boolean masks of rows out of tolerance and errors."""
@@ -1354,11 +1372,11 @@ def fused_rows(ko, kc, kp, po, pc, pp, lens):
         err = (a - b).abs()
         return (err > tol * b.abs().amax(-1, keepdim=True)).any(-1), err
 
-    b = ko.shape[0]
-    h = kp["attn"].shape[1] // 64
+    b, hd = ko.shape[0], kc["k"].shape[-1]
+    h = kp["attn"].shape[1] // hd
     bad_x, ex = rows_off(ko[:, 0], po[:, 0], X_TOL)
-    bad_a, ea = rows_off(kp["attn"].view(b, h, 64),
-                         pp["attn"].view(b, h, 64), ATTN_TOL)
+    bad_a, ea = rows_off(kp["attn"].view(b, h, hd),
+                         pp["attn"].view(b, h, hd), ATTN_TOL)
     at = torch.arange(b, device=ko.device)
     pos = torch.as_tensor(lens, device=ko.device).long()
     bad_kv, code_off_by_1, kv_err = [], 0, 0.0
@@ -1396,62 +1414,72 @@ def ulps(a, b):
             - b.float().view(torch.int32).long()).abs()
 
 
-def phase_fused_check(params32):
-    """The fused-layer kernel against its plain version at full width
-    (float32 qwen2-0.5b, sim mode, 4 slots, lens 300/137/95/211 after the
-    write), f32 and int8 caches; the plain version runs on the kernel's
-    seven activation scales. Tolerances: x_out per row 2^-10 of its max;
-    attention output per query-head row 2^-12; written f32 cache rows and
-    int8 scales 1e-6 relative; int8 codes equal or one apart; each scale
-    within 1 ulp of the scale of an f64 mean over the same activations
-    (the plain version's f32 mean is reported beside it: its own
-    summation error reached 4 ulps over the 19456 inputs of ``down``).
-    Reach: each wrong plain variant must fail in every row it touches."""
+def fused_layer_check(cfg, layer, x, cache, key, mode="sim", **tags):
+    """One fused-layer launch against its plain version on the same
+    inputs (``cfg``'s cache type; in sim mode the plain version runs on
+    the kernel's seven activation scales), the rows of ``fused_rows``
+    held to X_TOL, ATTN_TOL and ROW_TOL, int8 codes equal or one apart.
+    Each later stage is also held on the kernel's own operands (the plain
+    version fed the kernel's attention output, x1 and hm): x1, hm and
+    x_out within X_TOL of each row's max. The plain version's own chain
+    may put a quantized input of o, gate/up or down in the next bucket
+    where its float order moved it by an ulp (a row with such a flip;
+    deepseek-67b's 4 x 8192 attention outputs held one), and the
+    quantized layers after it amplify that: its x_out is held only in
+    rows without a flip. In sim mode also: each scale within 1 ulp of the
+    scale of an f64 mean over the kernel's own stage inputs (the plain
+    version's f32 mean is reported beside it: its own summation error
+    reached 4 ulps over the 19456 inputs of qwen2's ``down``), and each
+    wrong plain variant must fail in every row it touches: every row that
+    it moves past the tolerance from the right plain version. Emits a
+    kernel_check line (``tags`` added); returns the worst x_out error."""
     import torch
-    from repro_torch.core import prng, quant
-    from repro_torch.core.deploy import deploy
+    from repro_torch.core import quant
     from repro_torch.kernels.fused_step import (fused_dense_layer,
                                                 fused_dense_layer_plain)
-    from repro_torch.models import transformer as tf
     from repro_torch.models.layers import Ctx
 
-    worst = {}
-    for int8 in (False, True):
-        cfg = full_config32(int8)
-        layer = tf._index(deploy(cfg, params32)["blocks"], 3)
-        x, cache = fused_inputs(cfg, 320, 21 + int8)
-        key = prng.PRNGKey(77)
+    lens = [int(n) for n in cache["len"].tolist()]
+    sim = mode == "sim"
 
-        def clone():
-            return {k: v.clone() for k, v in cache.items()}
+    def clone():
+        return {k: v.clone() for k, v in cache.items()}
 
-        kc, kp = clone(), {}
-        ko, _ = fused_dense_layer(Ctx.make(cfg, key, mode="sim"), layer, x,
-                                  kc, probe=kp)
-        torch.cuda.synchronize()
+    kc, kp = clone(), {}
+    ko, _ = fused_dense_layer(Ctx.make(cfg, key, mode=mode), layer, x, kc,
+                              probe=kp)
+    torch.cuda.synchronize()
+    grid = fused_dense_layer.grid
 
-        def plain(scales):
-            pc, pp = clone(), {}
-            po, _ = fused_dense_layer_plain(Ctx.make(cfg, key, mode="sim"),
-                                            layer, x, pc, scales=scales,
-                                            probe=pp)
-            return po, pc, pp
+    def plain(scales, feed=None):
+        pc, pp = clone(), {}
+        po, _ = fused_dense_layer_plain(Ctx.make(cfg, key, mode=mode),
+                                        layer, x, pc, scales=scales,
+                                        probe=pp, feed=feed)
+        return po, pc, pp
 
-        po, pc, pp = plain(kp["scales"])
-        res = fused_rows(ko, kc, kp, po, pc, pp, FUSED_OLD_LENS)
+    scales = kp["scales"] if sim else None
+    po, pc, pp = plain(scales)
+    res = fused_rows(ko, kc, kp, po, pc, pp, lens)
+    so, _, sp = plain(scales, feed=kp)
+    stage = {n: tol_rows(a, r, X_TOL) for n, (a, r) in (
+        ("x1", (kp["x1"], sp["x1"])), ("hm", (kp["hm"], sp["hm"])),
+        ("x_out", (ko[:, 0], so[:, 0])))}
+    ctx = Ctx.make(cfg, key, mode="sim")
+    flipped = torch.zeros(ko.shape[0], dtype=torch.bool, device=ko.device)
+    # the kernel's scales against the f64 mean of its own stage inputs
+    # (rounded once to f32, then the kernel's f32 steps), and against the
+    # plain version's own f32-mean scales, whose summation error alone
+    # reaches a few ulps at B * d_ff elements; flips: quantized
+    # activations that the kernel's scales put in another bucket than the
+    # plain version's own (q/k/v and gate/up share one scale)
+    su, su_own, flips = [], [], 0
+    if sim:
         _, _, own = plain(None)
-        # the kernel's scales against the f64 mean of the same activations
-        # (rounded once to f32, then the kernel's f32 steps), and against
-        # the plain version's own f32-mean scales, whose summation error
-        # alone reaches a few ulps at B * d_ff elements; flips: quantized
-        # activations that the kernel's scales put in another bucket than
-        # the plain version's own (q/k/v and gate/up share one scale)
-        su, su_own, flips = [], [], 0
-        ctx = Ctx.make(cfg, key, mode="sim")
         for i, role in ((0, "attn_qkv"), (3, "attn_out"), (4, "mlp_in"),
                         (6, "mlp_out")):
             qm = quant.qmax(ctx.spec_for(role).in_bits)
-            m = torch.mean(pp["acts"][i].double() ** 2).float()
+            m = torch.mean(sp["acts"][i].double() ** 2).float()
             exact = cfg.cim.act_clip_sigmas * (torch.sqrt(m) + 1e-8) / qm
             su.append(int(ulps(kp["scales"][i], exact)))
             su_own.append(int(ulps(kp["scales"][i], own["scales"][i])))
@@ -1459,41 +1487,77 @@ def phase_fused_check(params32):
             a = torch.clamp(torch.round(act / own["scales"][i]), -qm, qm)
             b = torch.clamp(torch.round(act / kp["scales"][i]), -qm, qm)
             flips += int((a != b).sum())
-        bad = {k: float(res[k].float().mean()) for k in ("x", "attn", "kv")}
-        if (any(bad.values()) or max(su) > 1 or not res["lens_equal"]
-                or not res["untouched_equal"]
-                or not bool(torch.isfinite(ko).all())):
-            fail(f"fused_dense_layer int8={int8}: rows out of tolerance "
-                 f"{bad}, scale ulps {su}, lens equal "
-                 f"{res['lens_equal']}, untouched {res['untouched_equal']}, "
-                 f"x err {res['x_err']}, attn err {res['attn_err']}, kv err "
-                 f"{res['kv_err']}")
-        reach = {}
-        for kind in ("no_current", "kv_seeds_swapped"):
-            with plain_variant(kind):
-                vo, vc, vp = plain(kp["scales"])
-            r = fused_rows(ko, kc, kp, vo, vc, vp, FUSED_OLD_LENS)
-            touched = r["attn"] if kind == "no_current" else r["kv"]
-            reach[kind] = {"rows_failing": float(touched.float().mean()),
-                           "x_rows_failing": float(r["x"].float().mean())}
-            if float(touched.float().mean()) < 1.0:
-                fail(f"fused_dense_layer tolerance too loose: the "
-                     f"{kind} variant fails only {reach[kind]} of its rows")
-        worst[int8] = res["x_err"]
-        emit("kernel_check", kernel="fused_dense_layer", int8_cache=int8,
-             lens=[n + 1 for n in FUSED_OLD_LENS], grid=fused_dense_layer.grid,
-             max_abs_err=res["x_err"],
-             max_err_over_row_max=res["x_err_over_row_max"],
-             attn_max_abs_err=res["attn_err"], kv_row_max_err=res["kv_err"],
-             int8_codes_off_by_one=res["int8_codes_off_by_one"],
-             scale_ulps_vs_f64_mean=su,
-             scale_ulps_vs_plain_f32_mean=su_own,
-             scales=kp["scales"].tolist(),
-             quantized_activations_flipped=flips,
-             tol={"x_out": "2^-10*max|row|", "attn": "2^-12*max|row|",
-                  "kv_rows": "1e-6 relative; int8 codes +-1",
-                  "scales": "1 ulp of the f64 mean's scale"},
-             reach=reach)
+            if i:           # the kernel's stage input against the chain's
+                a = torch.clamp(torch.round(sp["acts"][i] / kp["scales"][i]),
+                                -qm, qm)
+                b = torch.clamp(torch.round(pp["acts"][i] / kp["scales"][i]),
+                                -qm, qm)
+                flipped |= (a != b).any(-1)
+    bad = {k: float(res[k].float().mean()) for k in ("attn", "kv")}
+    bad["x"] = float((res["x"] & ~flipped).float().mean())
+    bad.update({f"stage_{n}": float(v[0].float().mean())
+                for n, v in stage.items()})
+    what = f"fused_dense_layer {tags} {mode} int8={cfg.kv_cache_int8}"
+    if (any(bad.values()) or max(su, default=0) > 1 or not res["lens_equal"]
+            or not res["untouched_equal"]
+            or not bool(torch.isfinite(ko).all())):
+        fail(f"{what}: rows out of tolerance {bad}, scale ulps {su}, lens "
+             f"equal {res['lens_equal']}, untouched "
+             f"{res['untouched_equal']}, x err {res['x_err']}, attn err "
+             f"{res['attn_err']}, kv err {res['kv_err']}, flipped rows "
+             f"{flipped.tolist()}")
+    reach = {}
+    for kind in ("no_current", "kv_seeds_swapped") if sim else ():
+        with plain_variant(kind):
+            vo, vc, vp = plain(scales)
+        r = fused_rows(ko, kc, kp, vo, vc, vp, lens)
+        # the rows the variant moves past the tolerance from the right
+        # plain version: each must fail against the kernel
+        t = fused_rows(po, pc, pp, vo, vc, vp, lens)
+        field = "attn" if kind == "no_current" else "kv"
+        caught, touched = r[field], t[field]
+        reach[kind] = {"rows_touched": float(touched.float().mean()),
+                       "rows_failing": float(caught.float().mean()),
+                       "x_rows_failing": float(r["x"].float().mean())}
+        if not bool(touched.any()) or bool((touched & ~caught).any()):
+            fail(f"{what}: tolerance too loose: the {kind} variant "
+                 f"{reach[kind]}")
+    emit("kernel_check", kernel="fused_dense_layer", **tags, mode=mode,
+         head_dim=cfg.hd, heads=[cfg.n_heads, cfg.n_kv_heads],
+         int8_cache=cfg.kv_cache_int8, lens=[n + 1 for n in lens],
+         grid=grid, max_abs_err=res["x_err"],
+         max_err_over_row_max=res["x_err_over_row_max"],
+         rows_with_a_flip=int(flipped.sum()),
+         stage_err_over_row_max={n: v[1] for n, v in stage.items()},
+         attn_max_abs_err=res["attn_err"], kv_row_max_err=res["kv_err"],
+         int8_codes_off_by_one=res["int8_codes_off_by_one"],
+         scale_ulps_vs_f64_mean=su, scale_ulps_vs_plain_f32_mean=su_own,
+         scales=kp["scales"].tolist(),
+         quantized_activations_flipped=flips,
+         tol={"x_out": "2^-10*max|row|", "attn": "2^-12*max|row|",
+              "kv_rows": "1e-6 relative; int8 codes +-1",
+              "stages": "2^-10*max|row| on the kernel's operands",
+              "scales": "1 ulp of the f64 mean's scale"},
+         reach=reach)
+    return max(res["x_err"] if not bool(flipped.any()) else 0.0,
+               max(v[2] for v in stage.values()))
+
+
+def phase_fused_check(params32):
+    """The fused-layer kernel against its plain version at full width
+    (float32 qwen2-0.5b, sim mode, 4 slots, lens 300/137/95/211 after the
+    write), f32 and int8 caches (``fused_layer_check``)."""
+    from repro_torch.core import prng
+    from repro_torch.core.deploy import deploy
+    from repro_torch.models import transformer as tf
+
+    worst = {}
+    for int8 in (False, True):
+        cfg = full_config32(int8)
+        layer = tf._index(deploy(cfg, params32)["blocks"], 3)
+        x, cache = fused_inputs(cfg, 320, 21 + int8)
+        worst[int8] = fused_layer_check(cfg, layer, x, cache,
+                                        prng.PRNGKey(77))
     return worst
 
 
@@ -1729,6 +1793,299 @@ def phase_times_fused(params32):
         emit("time", kernel=name, **res[name], bytes=nbytes,
              int8_ops=int8_ops, f32_ops=f32_ops)
     return res
+
+
+# ------------------------------------------------------------ phase 6b
+# the fused decode layer past head dim 64: one layer of each arch the
+# reference fuses (``_use_fused_layer``) at its published width, float32,
+# sim mode on deployed planes: phi3-mini (hd 96, G 1), zamba2-7b's shared
+# block (hd 112, G 1), internlm2-1.8b, pixtral-12b and deepseek-67b (hd 128
+# at G 2, 4 and 8)
+WIDE_FUSED = ("phi3-mini-3.8b", "zamba2-7b", "internlm2-1.8b", "pixtral-12b",
+              "deepseek-67b")
+# the kernels line's entry of each new head dim: the arch that serves it
+WIDE_ROW = {96: "phi3-mini-3.8b", 112: "zamba2-7b", 128: "internlm2-1.8b"}
+# serve_fused_wide's replayed-only runs, depth cut for the script's time:
+# phi3-mini 4 of 32 layers, zamba2-7b 2 super-blocks (6 of 81 layers)
+WIDE_SERVED_LAYERS = {"phi3-mini-3.8b": 4, "zamba2-7b": 6}
+
+
+def wide_config(arch, int8=False, mode="sim", **over):
+    """``arch`` at its published width in float32 on the CIM kernel path
+    and kernel attention; ``over`` replaces fields (n_layers)."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(arch)
+    return dataclasses.replace(
+        cfg, dtype="float32", kv_cache_int8=int8, attn_impl="kernel", **over,
+        cim=dataclasses.replace(cfg.cim, mode=mode, use_kernel=True))
+
+
+def wide_layer(arch):
+    """One deployed layer of ``arch`` at its published width, weights from
+    seed 0: layer 0 of a one-layer model (zamba2: the shared block of a
+    one-super-block model). The deployed tree keeps the f32 ``w`` leaves,
+    so off mode runs on it too."""
+    import torch
+    from repro_torch.core.deploy import deploy, init_params
+    from repro_torch.models import transformer as tf
+    cfg = wide_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=cfg.attn_period or 1)
+    params = deploy(cfg, init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"))
+    if cfg.family == "hybrid":
+        return params["shared_attn"]
+    return tf._index(params["blocks"], 0)
+
+
+def fused_layer_work(cfg, layer, lens=FUSED_OLD_LENS):
+    """Bytes and operations one fused launch must spend at ``lens`` (old
+    lengths; f32 cache), by ``phase_times_fused``'s count: the seven int8
+    planes, their scales, the q/k/v biases where the layer has them, the
+    gains, x in and out, the live keys and values, lens in and out;
+    2 B operations per plane byte (int8) and 4 hd per live (query head,
+    key) pair (f32)."""
+    b, d, h, kv, hd = (len(lens), cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.hd)
+    live = sum(n + 1 for n in lens)
+    planes = sum(v.numel() for grp in ("attn", "mlp")
+                 for leaf in layer[grp].values()
+                 for k_, v in leaf.items() if k_.startswith("wq"))
+    bias = 4 * (h * hd + 2 * kv * hd) if "b" in layer["attn"]["q"] else 0
+    nbytes = (planes + 7 * 4 + bias + 2 * d * 4 + 2 * b * d * 4
+              + 2 * live * kv * hd * 4 + 2 * b * 4)
+    return nbytes, 2 * b * planes, 4 * live * h * hd
+
+
+def fused_wide_time(arch, cfg, layer):
+    """times_fused_wide at one shape: one fused launch's device ms (B = 4,
+    lens 300/137/95/211 after the write, f32 cache, sim) by CUDA events
+    around replays of a CUDA graph of it (the profiler saw none of these
+    single launches in the full script's run), its plain version's and
+    the unfused float32 layer's decode step on the same inputs
+    (``transformer._dense_block``: rows 1 and 2 and eager ops) by the
+    profiler, and the bound by ``phase_times_fused``'s formula."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.kernels.fused_step import (fused_dense_layer,
+                                                fused_dense_layer_plain,
+                                                fused_layer_plan)
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import Ctx
+
+    key = prng.PRNGKey(9)
+    b = len(FUSED_OLD_LENS)
+    pos = torch.tensor(FUSED_OLD_LENS, device="cuda")[:, None]
+
+    def run(fn):
+        # fresh inputs for each measurement: every call advances lens by
+        # one, at most 11 times per measurement
+        x, c = fused_inputs(cfg, 320, 50)
+        return lambda: fn(x, c)
+
+    k_ms = graph_ms(run(lambda x, c: fused_dense_layer(
+        Ctx.make(cfg, key, mode="sim"), layer, x, c)), 10)
+    grid = fused_dense_layer.grid
+    p_ms = device_ms(run(lambda x, c: fused_dense_layer_plain(
+        Ctx.make(cfg, key, mode="sim"), layer, x, c)), 2)
+    u_ms = device_ms(run(lambda x, c: tf._dense_block(
+        Ctx.make(cfg, key, mode="sim", deployed=True), layer, x, pos, c)),
+        10)
+    nbytes, int8_ops, f32_ops = fused_layer_work(cfg, layer)
+    t_ops = int8_ops / INT8_OPS + f32_ops / FP32_OPS
+    bound = 1e3 * max(nbytes / HBM_BPS, t_ops)
+    plan = fused_layer_plan(b, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                            cfg.d_ff, 320, cfg.hd)
+    res = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+               bound_by="bytes" if nbytes / HBM_BPS >= t_ops
+               else "operations", library_ms=None, unfused_step_ms=u_ms,
+               unit=f"one launch: {arch}'s layer, B={b}, f32 cache, lens "
+                    + str([n + 1 for n in FUSED_OLD_LENS]),
+               grid=grid, splits={k_: [s_["units"] * s_["planes"],
+                                       s_["n_split"], s_["klen"]]
+                                  for k_, s_ in plan["stages"].items()})
+    emit("times_fused_wide", arch=arch, head_dim=cfg.hd,
+         group=cfg.n_heads // cfg.n_kv_heads, **res, bytes=nbytes,
+         int8_ops=int8_ops, f32_ops=f32_ops)
+    return res
+
+
+def phase_fused_wide():
+    """fused_wide_check: the kernel against its plain version at the five
+    full-width shapes of ``WIDE_FUSED`` (``fused_layer_check``: sim mode,
+    f32 and int8 caches, the wrong variants' reach; one off-mode case at
+    each head dim), then times_fused_wide at each shape
+    (``fused_wide_time``). Returns the worst x_out error and the times by
+    arch, and the phase's seconds."""
+    import gc
+    import torch
+    from repro_torch.core import prng
+
+    t0 = time.perf_counter()
+    errs, times, off_done = {}, {}, set()
+    for arch in WIDE_FUSED:
+        layer = wide_layer(arch)
+        cfg = wide_config(arch)
+        worst = 0.0
+        for int8 in (False, True):
+            c = wide_config(arch, int8)
+            x, cache = fused_inputs(c, 320, 31 + int8)
+            worst = max(worst, fused_layer_check(c, layer, x, cache,
+                                                 prng.PRNGKey(78),
+                                                 arch=arch))
+        if cfg.hd not in off_done:
+            off_done.add(cfg.hd)
+            x, cache = fused_inputs(cfg, 320, 33)
+            worst = max(worst, fused_layer_check(
+                wide_config(arch, mode="off"), layer, x, cache,
+                prng.PRNGKey(78), mode="off", arch=arch))
+        errs[arch] = worst
+        times[arch] = fused_wide_time(arch, cfg, layer)
+        del layer
+        gc.collect()
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    emit("fused_wide_check", archs=list(WIDE_FUSED),
+         head_dims=sorted(off_done), max_abs_err=errs, seconds=seconds)
+    return errs, times, seconds
+
+
+def phase_serve_fused_wide():
+    """serve_fused_wide, the slice's path: full-width float32
+    internlm2-1.8b (24 layers, hd 128, G 2) with fuse_layer=True, sim on
+    deployed planes, through the engine replayed and per call
+    (``graph_vs_eager``: equal tokens and launches): every decode step is
+    one fused launch a layer, prefill chunks stay on rows 1 and 3. Then
+    phi3-mini (hd 96, 4 of 32 layers) and zamba2-7b (hd 112, 2
+    super-blocks) at full width, replayed only. Launch counts must hold
+    exactly. Returns the fused launches by head dim, internlm2's
+    parameters and the phase's seconds."""
+    import gc
+    import torch
+    from repro_torch.core.deploy import init_params
+    from repro_torch.kernels.cim_matmul import cim_matmul_fused
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_gqa_attention
+    from repro_torch.kernels.fused_step import fused_dense_layer
+    from repro_torch.kernels.ssm_scan import ssm_decode_step
+    from repro_torch.models import transformer as tf
+
+    t0 = time.perf_counter()
+    kernels = (cim_matmul_fused, decode_attention, flash_gqa_attention,
+               fused_dense_layer, ssm_decode_step)
+    launches, params_g = {}, None
+    for arch in ("internlm2-1.8b",) + tuple(WIDE_SERVED_LAYERS):
+        cfg = wide_config(arch, **({"n_layers": WIDE_SERVED_LAYERS[arch]}
+                                   if arch in WIDE_SERVED_LAYERS else {}))
+        params = init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        if arch == "internlm2-1.8b":
+            eng, reqs, outs, counts, wall = graph_vs_eager(
+                "internlm2-fused", cfg, params, kernels, fuse_layer=True)
+            params_g = params
+        else:
+            eng, reqs, outs, counts, wall = run_session(
+                cfg, params, kernels, True, fuse_layer=True)
+            if (not eng.fused_ok or eng.fallbacks
+                    or not all(e["graph"] for e in eng.step_log)):
+                fail(f"serve_fused_wide {arch}: left the graphs "
+                     f"({eng.fallbacks} fallbacks)")
+        bad = [o for o in outs if not isinstance(o, list) or len(o) != 16
+               or not all(0 <= t < cfg.vocab_size for t in o)]
+        if bad:
+            fail(f"serve_fused_wide {arch}: failed, short or out-of-range "
+                 f"requests: {bad}")
+        n_chunks = sum(e["chunks"] for e in eng.step_log)
+        n_decode = sum(e["decode"] for e in eng.step_log)
+        if cfg.family == "hybrid":
+            n_super, n_mamba = tf.hybrid_dims(cfg)
+            n_attn, n_ssm = n_super, n_super * n_mamba
+        else:
+            n_attn, n_ssm = cfg.n_layers, 0
+        # a decode step: one fused launch an attention layer (its seven
+        # projections inside), the mamba layers' in/out projections on
+        # row 1; a chunk: seven row-1 calls an attention layer and two a
+        # mamba layer, one flash call an attention layer
+        expect = {"fused_dense_layer": n_attn * n_decode,
+                  "decode_attention": 0,
+                  "cim_matmul_fused": (7 * n_attn + 2 * n_ssm) * n_chunks
+                  + 2 * n_ssm * n_decode,
+                  "flash_gqa_attention": n_attn * n_chunks,
+                  "ssm_decode_step": n_ssm * n_decode}
+        if counts != expect or n_decode == 0:
+            fail(f"serve_fused_wide {arch}: launches {counts} != expected "
+                 f"{expect}")
+        launches[cfg.hd] = counts["fused_dense_layer"]
+        emit("serve_fused_wide", arch=arch, n_layers=cfg.n_layers,
+             head_dim=cfg.hd, group=cfg.n_heads // cfg.n_kv_heads,
+             dtype=cfg.dtype, replayed_and_per_call=arch == "internlm2-1.8b",
+             requests=len(reqs), prompt_lens=list(SESSION_LENS),
+             new_tokens=16, slots=4, chunks=n_chunks, decode_steps=n_decode,
+             launches=counts, expected=expect,
+             **session_numbers(eng, outs, wall))
+        del eng, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches, params_g, time.perf_counter() - t0
+
+
+def phase_fused_tokens_wide(params_g):
+    """Fused against unfused at the new head dims, as
+    ``phase_fused_tokens``: greedy tokens of reduced float32 sim models on
+    the card equal at hd 96 (phi3-mini, G 1), hd 112 (zamba2-7b's hybrid,
+    G 1) and hd 128 (internlm2, G 2; deepseek-67b with 8 heads on one KV
+    head, G 8), the fused engine launching the kernel and the unfused one
+    not; at full width in off mode the first decode step's logits of
+    internlm2-1.8b within 2^-10 of each row's max |logit| of the unfused
+    step's. Returns the phase's seconds."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.deploy import init_params
+    from repro_torch.kernels.fused_step import fused_dense_layer
+    from repro_torch.serving.engine import Engine, Request
+
+    t0 = time.perf_counter()
+    cases = {"hd96 G1 phi3-mini": ("phi3-mini-3.8b", {"head_dim": 96}),
+             "hd112 G1 zamba2-7b": ("zamba2-7b", {"head_dim": 112}),
+             "hd128 G2 internlm2": ("internlm2-1.8b", {"head_dim": 128}),
+             "hd128 G8 deepseek-67b": ("deepseek-67b", {
+                 "head_dim": 128, "n_heads": 8, "n_kv_heads": 1})}
+    reduced = {}
+    for name, (arch, over) in cases.items():
+        base = dataclasses.replace(get_config(arch).reduced(), **over)
+        cfg = dataclasses.replace(base, cim=dataclasses.replace(
+            base.cim, mode="sim", use_kernel=True))
+        params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        rng = np.random.default_rng(3)
+        prompts = [rng.integers(0, cfg.vocab_size, n) for n in (40, 90, 57)]
+        outs, fused = [], []
+        for fuse in (True, False):
+            eng = Engine(cfg, params, max_slots=2, max_len=128,
+                         attn_impl="kernel", fuse_layer=fuse, device="cuda")
+            fused_dense_layer.launches = 0
+            outs.append(eng.generate([Request(prompt=p, max_new_tokens=8)
+                                      for p in prompts]))
+            fused.append(fused_dense_layer.launches)
+        if outs[0] != outs[1] or not fused[0] or fused[1]:
+            fail(f"fused tokens {name}: {outs[0]} != unfused {outs[1]} or "
+                 f"fused launches {fused}")
+        reduced[name] = {"tokens_equal": True, "fused_launches": fused[0],
+                         "tokens": outs[0]}
+    cfg = wide_config("internlm2-1.8b")
+    rng = np.random.default_rng(5)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n),
+                    max_new_tokens=16, rid=f"r{i}")
+            for i, n in enumerate(SESSION_LENS)]
+    off = first_step_logits(cfg, params_g, "off", reqs)
+    off_rel = rel_rows(off["fused"], off["unfused"])
+    if (not bool(torch.isfinite(off["fused"]).all())
+            or max(off_rel) > 2 ** -10):
+        fail(f"internlm2-1.8b off-mode first-step logits fused vs unfused: "
+             f"max err / row max {off_rel}")
+    seconds = time.perf_counter() - t0
+    emit("fused_vs_unfused_wide", reduced=reduced,
+         internlm2_off_first_step_logits_err_over_row_max=off_rel,
+         off_tol="2^-10*max|row|", seconds=seconds)
+    return seconds
 
 
 # the two kernels' times before their split-key designs (CUDA events, the
@@ -5298,9 +5655,11 @@ def main() -> int:
                (params["embed"]["e"], params["blocks"]["mlp"]["down"]["w"])):
         fail("non-finite parameters")
     runs = {int8: phase_serve(params, int8)[0] for int8 in (False, True)}
+    # cell B's per-call step is not profiled, for the script's time (about
+    # 12 s; PERF.md §5 keeps its figure)
     profiles = {(int8, fused_step): phase_profile(
         params, full_config(int8), fused_step=fused_step)
-        for int8 in (False, True) for fused_step in (True, False)}
+        for int8, fused_step in ((False, True), (False, False), (True, True))}
     times = phase_times(params, cfg)
     phase_behavioural_sim(params)
     phase_fuse_fallback()
@@ -5326,16 +5685,28 @@ def main() -> int:
              for int8 in (False, True)}
     for int8 in (False, True):
         runs[("fused", int8)] = fused[int8][0]
+    # replayed only: neither the per-call fused step (cells C and D, about
+    # 9 s) nor the unfused float32 step (about 11 s) is profiled, for the
+    # script's time (PERF.md §5 keeps their figures)
     for int8 in (False, True):
-        for fused_step in (True, False):
-            phase_profile(params32, full_config32(int8), fuse_layer=True,
-                          fused_step=fused_step)
-    # the unfused float32 step is not profiled, for the script's time
-    # (about 11 s; PERF.md §5 keeps its figure)
+        phase_profile(params32, full_config32(int8), fuse_layer=True,
+                      fused_step=True)
     phase_fused_reach(params32)
     phase_fused_tokens(params32, fused[False][1])
     times.update(phase_times_fused(params32))
     del params32
+    torch.cuda.empty_cache()
+    # the fused layer at head dims 96, 112 and 128 (B1)
+    wide_errs, wide_times, wide_s = phase_fused_wide()
+    wide_launches, params_g, served_s = phase_serve_fused_wide()
+    wide_s += served_s + phase_fused_tokens_wide(params_g)
+    del params_g
+    torch.cuda.empty_cache()
+    emit("fused_wide", new_phases_s=wide_s, new_phases_limit_s=60)
+    for hd, arch in WIDE_ROW.items():
+        name = f"fused_dense_layer[hd{hd}]"
+        times[name], errs[name] = wide_times[arch], wide_errs[arch]
+        runs[("fused_wide", hd)] = {"fused_dense_layer": wide_launches[hd]}
     gqa_f32_times, gqa_f32_errs = phase_times_gqa_f32()
     times.update(gqa_f32_times)
     errs.update(gqa_f32_errs)
@@ -5358,7 +5729,8 @@ def main() -> int:
                              torch.Generator(device="cuda").manual_seed(0),
                              "cuda")
     runs["mla"] = phase_serve_mla(params_mla)
-    phase_profile(params_mla, mla_config())
+    # cell F's per-call step is not profiled, for the script's time (about
+    # 39 s; PERF.md §5 keeps its figure)
     del params_mla
     torch.cuda.empty_cache()
     times.update(phase_times_mla())
@@ -5410,6 +5782,10 @@ def main() -> int:
                "src/repro_torch/csrc/fused_layer.cu",
                "src/repro/kernels/fused_step.py:327",
                fused_dense_layer, ("fused", True)),
+           **{f"fused_dense_layer[hd{hd}]": (
+               f"src/repro_torch/csrc/fused_layer_hd{hd}.cu",
+               "src/repro/kernels/fused_step.py:327", fused_dense_layer,
+               ("fused_wide", hd)) for hd in WIDE_ROW},
            "ssm_decode_step": ("src/repro_torch/csrc/ssm_scan.cu",
                                "src/repro/kernels/ssm_scan.py:140",
                                ssm_decode_step, "ssm"),
@@ -5436,7 +5812,8 @@ def main() -> int:
         # phases cim_ste and flash_mha_check for the int8 CIM and MHA
         # kernels; the float32 cells C and D for the fused layer and the
         # f32-query GQA prefill, whose error phase_times_gqa_f32 keys by
-        # name)
+        # name; serve_fused_wide's replayed runs for the fused layer at
+        # head dims 96, 112 and 128)
         n = (runs[False][fn.__name__] + runs[True][fn.__name__]
              + runs["ssm"][fn.__name__] + runs["mla"][fn.__name__]
              + runs["vit"][fn.__name__]
@@ -5444,7 +5821,8 @@ def main() -> int:
              runs["ste"][name] if ekey == "cim_matmul_int8" else
              runs["mha"][name] if ekey in ("mha", "mha[f32]") else
              runs[ekey][fn.__name__] if ekey in ("ssm", "mla")
-             or ekey[0] == "fused" else runs[ekey[1]][fn.__name__])
+             or ekey[0] in ("fused", "fused_wide")
+             else runs[ekey[1]][fn.__name__])
         # the registry archs' runs G-M (bf16 caches) run rows 1-3 too,
         # zamba2-7b's (L) row 8
         if name in ("cim_matmul_fused", "decode_attention", "flash_gqa",

@@ -91,8 +91,11 @@ __device__ __forceinline__ uint32_t word(const V& v, int i) {
 // k1 - k0 % 4 == 0. red: M * NSPAN values (SIM) or GV_WARPS * MB * NSPAN
 // (f32: one slot a warp, summed in warp order). stage() runs once the
 // first batch's loads are issued and before the barrier that publishes
-// its shared-memory writes (the staged activation).
-template <bool SIM, int MB, int VB, int NSPAN, class Stage>
+// its shared-memory writes (the staged activation). NCOL < NSPAN: only
+// columns [n0, n0 + NCOL) are read (a unit narrower than the power-of-two
+// span, such as one head of 96 or 112 columns: the lanes past it load
+// nothing and their sums stay 0).
+template <bool SIM, int MB, int VB, int NSPAN, int NCOL = NSPAN, class Stage>
 __device__ __forceinline__ void gemv_partial(const void* wv, int N, int k0,
                                              int k1, int n0, int M,
                                              const void* xsv, int xpitch,
@@ -111,7 +114,8 @@ __device__ __forceinline__ void gemv_partial(const void* wv, int N, int k0,
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int c = t % L, tr = t / L;
   const int col = n0 + c * CPT;
-  const bool col_ok = col < N;
+  static_assert(NCOL <= NSPAN && NCOL % CPT == 0, "whole lanes of the span");
+  const bool col_ok = col < N && (NCOL == NSPAN || c * CPT < NCOL);
   const int nq = (k1 - k0) >> 2;
   const char* wb = static_cast<const char*>(wv);
 

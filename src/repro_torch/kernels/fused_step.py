@@ -5,10 +5,11 @@ kernel ``_kernel``, ``pl.pallas_call`` at :327); the kernel is
 ``csrc/fused_layer.cu``, whose note gives its bound on the H100 (the seven
 int8 weight planes) and its design (one cooperative launch, five stages
 between grid-wide barriers; every projection on the split-K GEMV of
-``csrc/cim_gemv.cuh``, split as ``fused_layer_plan`` says, attention split
-over key ranges, each merged in the stage by the last block to arrive;
-every block computing the batch-global activation scales itself in one
-fixed order).
+``csrc/cim_gemv.cuh``, split as ``fused_layer_plan`` says, a q/k/v unit one
+head; attention split over key ranges, each merged in the stage by the
+last block to arrive; every block computing the batch-global activation
+scales itself in one fixed order). Its body (``csrc/fused_layer.cuh``) is
+compiled for each head dim of ``HEAD_DIMS`` in a file of its own.
 
 ``fused_dense_layer(ctx, p, x, cache)`` has the reference's contract: x
 (B, 1, d) float32, the layer's cache view ``{k, v[, ks, vs], len}``;
@@ -22,8 +23,9 @@ unfused layer's order (q, k, v, o, gate, up, down).
 
 CPU tensors take ``fused_dense_layer_plain``, which follows the reference
 kernel stage by stage with the port's own pieces (``rmsnorm``,
-``apply_rope``, ``_kv_quant``, ``cim_matmul_fused_plain``,
-``decode_attention_plain``); CUDA tensors launch the kernel or raise.
+``apply_rope`` at the kernel's own frequencies, ``rope_freqs``,
+``_kv_quant``, ``cim_matmul_fused_plain``, ``decode_attention_plain``);
+CUDA tensors launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -50,9 +52,9 @@ _ROLES = ("attn_qkv", "attn_qkv", "attn_qkv", "attn_out",
 _LEAVES = (("attn", "q"), ("attn", "k"), ("attn", "v"), ("attn", "o"),
            ("mlp", "gate"), ("mlp", "up"), ("mlp", "down"))
 ROWS_MAX = 8       # batch rows the kernel holds
-HEAD_DIM = 64
+HEAD_DIMS = (64, 96, 112, 128)   # one q/k/v unit a head; each compiled apart
 GROUP_MAX = 8      # query heads per KV head
-COLS = 64          # output columns of a projection unit (one head)
+COLS = 64          # output columns of an o, gate/up or down unit
 ATTN_TILE = 32     # keys of an attention tile
 
 
@@ -60,7 +62,7 @@ _P = ctypes.c_void_p
 
 
 class _Params(ctypes.Structure):
-    """Mirror of ``Params`` in ``csrc/fused_layer.cu``."""
+    """Mirror of ``fl::Params`` in ``csrc/fused_layer.cuh``."""
 
     _fields_ = [
         ("x", _P), ("g1", _P), ("g2", _P), ("w", _P * 7), ("ws", _P * 7),
@@ -73,39 +75,44 @@ class _Params(ctypes.Structure):
         ("klen", ctypes.c_int * 4),
         ("B", ctypes.c_int), ("d", ctypes.c_int), ("H", ctypes.c_int),
         ("KV", ctypes.c_int), ("F", ctypes.c_int), ("T", ctypes.c_int),
-        ("eps", ctypes.c_float), ("clip_k", ctypes.c_float),
-        ("attn_scale", ctypes.c_float), ("sim", ctypes.c_int),
-        ("int8", ctypes.c_int), ("grid", ctypes.c_int),
+        ("hd", ctypes.c_int), ("eps", ctypes.c_float),
+        ("clip_k", ctypes.c_float), ("attn_scale", ctypes.c_float),
+        ("sim", ctypes.c_int), ("int8", ctypes.c_int), ("grid", ctypes.c_int),
     ]
 
 
 def fused_layer_plan(b: int, d: int, h: int, kv: int, f: int, t: int,
-                     hd: int = HEAD_DIM) -> dict:
+                     hd: int = 64) -> dict:
     """How the kernel cuts its work: per projection stage ("qkv", "o",
-    "gate_up", "down") its units of ``COLS`` columns, planes a unit, K and
-    split length ``klen`` (the longest balanced split, a multiple of 16,
-    whose units x planes x splits reach ``SM_COUNT`` items, as
-    ``cim_fused_plan`` splits the decode GEMV), splits and tiles; the
+    "gate_up", "down") its units of ``cols`` columns (one head of ``hd``
+    in "qkv", ``COLS`` elsewhere), planes a unit, K and split length
+    ``klen`` (the longest balanced split, a multiple of 16, whose units x
+    planes x splits reach ``SM_COUNT`` items, as ``cim_fused_plan`` splits
+    the decode GEMV), splits and tiles; ``qkv_units``, the kernel's q/k/v
+    unit u as (plane, first column): heads of q, then of k, then of v; the
     attention's key tiles a cache row (``ATTN_TILE`` keys, split over the
     grid by the kernel); ``counters`` (arrival counters of all stages) and
-    the split scratch in 4-byte words, ``part`` and ``noise`` (the largest
-    stage's)."""
+    the split scratch in 4-byte words, ``part`` and ``noise``: the largest
+    stage's items (tiles for the noise) at a slot of ``b`` rows of the
+    wider unit."""
     stages = {}
-    for name, units, planes, k in (("qkv", h + 2 * kv, 1, d),
-                                   ("o", d // COLS, 1, h * hd),
-                                   ("gate_up", f // COLS, 2, d),
-                                   ("down", d // COLS, 1, f)):
+    for name, units, planes, k, cols in (("qkv", h + 2 * kv, 1, d, hd),
+                                         ("o", d // COLS, 1, h * hd, COLS),
+                                         ("gate_up", f // COLS, 2, d, COLS),
+                                         ("down", d // COLS, 1, f, COLS)):
         for klen in split_lengths(k, 16):
             n_split = split_geometry(k, klen)[1]
             if units * planes * n_split >= SM_COUNT:
                 break
         tiles = split_geometry(k, klen)[2]
         stages[name] = {"units": units, "planes": planes, "k": k,
-                        "klen": klen, "n_split": n_split, "tiles": tiles,
-                        "items": units * planes * n_split}
-    slot = b * COLS
+                        "cols": cols, "klen": klen, "n_split": n_split,
+                        "tiles": tiles, "items": units * planes * n_split}
+    slot = b * max(hd, COLS)
     n_t = -(-t // ATTN_TILE)
     return {"stages": stages, "attn_tiles": n_t,
+            "qkv_units": ([(0, i * hd) for i in range(h)]
+                          + [(p, i * hd) for p in (1, 2) for i in range(kv)]),
             "counters": h + 2 * kv + b * kv + 2 * (d // COLS) + f // COLS,
             "part": max(s["items"] for s in stages.values()) * slot,
             "noise": max(s["units"] * s["planes"] * s["tiles"]
@@ -120,9 +127,22 @@ def _sigma(spec: CIMSpec, k: int) -> float:
 _FREQS: Dict[tuple, torch.Tensor] = {}
 
 
+def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
+    """The reference kernel's rope frequencies (``fused_step.py:143-145``,
+    ``1 / theta ** (2i / hd)`` over an iota): XLA compiles them to
+    ``theta ** -(i * f32(2 / hd))``, the power rounded once to f32 (taken
+    here in f64). At head dims whose 2 / hd is a power of two these are
+    ``layers.rope_freqs``; at 80, 96 and 112 the exponent's rounding
+    differs, as between the reference's fused and unfused layers."""
+    step = torch.tensor(2.0 / hd, dtype=torch.float32).item()
+    neg_ex = torch.arange(0, -(hd // 2), -1, dtype=torch.float32,
+                          device=device) * step
+    base = torch.tensor(theta, dtype=torch.float32).item()
+    return torch.pow(base, neg_ex.double()).float()
+
+
 def _rope_freqs(hd: int, theta: float, device) -> torch.Tensor:
-    """``layers.rope_freqs`` on the device, made once per (hd, theta)."""
-    from repro_torch.models.layers import rope_freqs
+    """``rope_freqs`` on the device, made once per (hd, theta)."""
     key = (hd, float(theta), str(device))
     if key not in _FREQS:
         _FREQS[key] = rope_freqs(hd, theta, device)
@@ -181,15 +201,21 @@ class _Layer:
 
 def fused_dense_layer_plain(ctx, p, x: torch.Tensor, cache,
                             scales: Optional[torch.Tensor] = None,
-                            probe: Optional[dict] = None
+                            probe: Optional[dict] = None,
+                            feed: Optional[dict] = None
                             ) -> Tuple[torch.Tensor, dict]:
     """Plain PyTorch version of the layer, stage by stage as the reference
     kernel runs it; returns ``(x_out, cache)``. ``scales`` (7,) replaces
     the activation scales it would compute (the card check feeds the
     kernel's, so that an ulp of the batch mean cannot flip a quantized
-    activation). A ``probe`` dict receives the scales used (zeros in off
-    mode), the attention output (B, H * hd) and the seven projection
-    inputs (``acts``)."""
+    activation). ``feed`` (a kernel's probe) replaces the inputs of the
+    later stages by the kernel's own: its attention output feeds o, its
+    ``x1`` the MLP and the last residual, its ``hm`` down, so that each
+    stage is held on its own operands (an ulp of an earlier stage cannot
+    flip a later quantized activation). A ``probe`` dict receives the
+    scales used (zeros in off mode), the attention output (B, H * hd), the
+    first residual ``x1`` (B, d), ``hm`` = silu(g) * u (B, d_ff) and the
+    seven projection inputs (``acts``)."""
     from repro_torch.models.attention import _kv_quant, row_update
     from repro_torch.models.layers import _act_scale, apply_rope, rmsnorm
 
@@ -215,8 +241,9 @@ def fused_dense_layer_plain(ctx, p, x: torch.Tensor, cache,
     q = lay.proj(0, h1, xs).reshape(b, 1, h, hd)
     k = lay.proj(1, h1, xs).reshape(b, 1, kv, hd)
     v = lay.proj(2, h1, xs).reshape(b, 1, kv, hd)
-    q = apply_rope(q, start[:, None], cfg.rope_theta)
-    k = apply_rope(k, start[:, None], cfg.rope_theta)
+    freqs = _rope_freqs(hd, cfg.rope_theta, x.device)
+    q = apply_rope(q, start[:, None], cfg.rope_theta, freqs)
+    k = apply_rope(k, start[:, None], cfg.rope_theta, freqs)
     if "ks" in cache:
         (kq, ks), (vq, vs) = _kv_quant(k), _kv_quant(v)
         for name, val in (("k", kq), ("v", vq), ("ks", ks), ("vs", vs)):
@@ -229,19 +256,22 @@ def fused_dense_layer_plain(ctx, p, x: torch.Tensor, cache,
     attn = decode_attention_plain(q[:, 0], cache["k"], cache["v"], start + 1,
                                   cache.get("ks"), cache.get("vs"))
     attn = attn.reshape(b, h * hd)
-    x1 = xf + lay.proj(3, attn, xs_of(3, attn))
-    h2 = rmsnorm(p["n2"], x1, cfg.norm_eps)
+    a_in = attn if feed is None else feed["attn"]
+    x1 = xf + lay.proj(3, a_in, xs_of(3, a_in))
+    x1_in = x1 if feed is None else feed["x1"]
+    h2 = rmsnorm(p["n2"], x1_in, cfg.norm_eps)
     xs = xs_of(4, h2)
     used[5] = used[4]
     g = lay.proj(4, h2, xs)
     u = lay.proj(5, h2, xs)
     hm = torch.nn.functional.silu(g) * u
-    out = x1 + lay.proj(6, hm, xs_of(6, hm))
+    hm_in = hm if feed is None else feed["hm"]
+    out = x1_in + lay.proj(6, hm_in, xs_of(6, hm_in))
     if probe is not None:
         probe["scales"] = torch.stack([s.reshape(()).to(torch.float32)
                                        for s in used])
-        probe["attn"] = attn
-        probe["acts"] = [h1, h1, h1, attn, h2, h2, hm]
+        probe["attn"], probe["x1"], probe["hm"] = attn, x1, hm
+        probe["acts"] = [h1, h1, h1, a_in, h2, h2, hm_in]
     return out[:, None].to(x.dtype), cache
 
 
@@ -252,12 +282,12 @@ def layer_specs(ctx) -> list:
 
 def kernel_takes(cfg, b: int, specs=()) -> bool:
     """Whether the kernel takes a layer of ``cfg`` at batch ``b``: B <=
-    ``ROWS_MAX``, head dim ``HEAD_DIM``, H / KV <= ``GROUP_MAX``, d_model
-    and d_ff multiples of ``COLS``, and every projection's ``in_bits`` <= 8
-    (``specs``: the seven projections' CIM specs, None in off mode). The
-    plain version takes any shape."""
+    ``ROWS_MAX``, a head dim of ``HEAD_DIMS`` (64, 96, 112 or 128), H / KV
+    <= ``GROUP_MAX``, d_model and d_ff multiples of ``COLS``, and every
+    projection's ``in_bits`` <= 8 (``specs``: the seven projections' CIM
+    specs, None in off mode). The plain version takes any shape."""
     h, kv = cfg.n_heads, cfg.n_kv_heads
-    return (b <= ROWS_MAX and cfg.hd == HEAD_DIM and h % kv == 0
+    return (b <= ROWS_MAX and cfg.hd in HEAD_DIMS and h % kv == 0
             and h // kv <= GROUP_MAX and cfg.d_model % COLS == 0
             and cfg.d_ff % COLS == 0
             and all(sp is None or sp.in_bits <= 8 for sp in specs))
@@ -270,10 +300,10 @@ def _check(ctx, p, x, cache) -> None:
     if s != 1 or x.dtype != torch.float32:
         raise ValueError(f"fused_dense_layer: decode-only float32 x "
                          f"(B, 1, d), got {tuple(x.shape)} {x.dtype}")
-    if b > ROWS_MAX or hd != HEAD_DIM or h % kv or h // kv > GROUP_MAX:
+    if b > ROWS_MAX or hd not in HEAD_DIMS or h % kv or h // kv > GROUP_MAX:
         raise ValueError(f"fused_dense_layer: kernel takes B <= {ROWS_MAX}, "
-                         f"head_dim {HEAD_DIM}, H / KV <= {GROUP_MAX}; got "
-                         f"B={b}, head_dim={hd}, H={h}, KV={kv}")
+                         f"head_dim in {HEAD_DIMS}, H / KV <= {GROUP_MAX}; "
+                         f"got B={b}, head_dim={hd}, H={h}, KV={kv}")
     if d % COLS or cfg.d_ff % COLS:
         raise ValueError(f"fused_dense_layer: d_model and d_ff must be "
                          f"multiples of {COLS}")
@@ -380,7 +410,7 @@ def _launch(ctx, p, x, cache, probe: Optional[dict]) -> torch.Tensor:
     prm.counters = arrival_counters(x.device, plan["counters"]).data_ptr()
     for i, name in enumerate(("qkv", "o", "gate_up", "down")):
         prm.klen[i] = plan["stages"][name]["klen"]
-    prm.B, prm.d, prm.H, prm.KV, prm.F, prm.T = b, d, h, kv, f, t
+    prm.B, prm.d, prm.H, prm.KV, prm.F, prm.T, prm.hd = b, d, h, kv, f, t, hd
     prm.eps = cfg.norm_eps
     prm.clip_k = cfg.cim.act_clip_sigmas
     prm.attn_scale = 1.0 / math.sqrt(hd)
@@ -393,6 +423,7 @@ def _launch(ctx, p, x, cache, probe: Optional[dict]) -> torch.Tensor:
     if probe is not None:
         probe["scales"] = parts[5][:7]
         probe["attn"] = parts[1].view(b, h * hd)
+        probe["x1"], probe["hm"] = parts[2].view(b, d), parts[3].view(b, f)
     return parts[4].view(b, 1, d)
 
 
@@ -400,7 +431,8 @@ def fused_dense_layer(ctx, p, x: torch.Tensor, cache,
                       probe: Optional[dict] = None):
     """One dense layer's decode step (see module doc): ``(x_out, cache)``.
     A ``probe`` dict receives the (7,) activation scales the projections
-    used and the attention output (B, H * hd)."""
+    used, the attention output (B, H * hd), the first residual ``x1`` (B,
+    d) and ``hm`` (B, d_ff)."""
     if x.device.type == "cpu":
         return fused_dense_layer_plain(ctx, p, x, cache, probe=probe)
     if x.device.type != "cuda":

@@ -297,16 +297,22 @@ def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 # ------------------------------------------------------------------ RoPE
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    ex = torch.arange(0, head_dim, 2, dtype=torch.float32,
-                      device=device) / head_dim
-    return 1.0 / torch.pow(theta, ex)       # theta rounds to f32, as in JAX
+    """``1 / theta ** (2i / head_dim)`` as the reference's compiled model
+    gives it: XLA folds the constant to ``theta ** -(2i / head_dim)``, the
+    power rounded once to f32 (taken here in f64). Theta and the exponent
+    in f32, as in JAX."""
+    neg_ex = torch.arange(0, -head_dim, -2, dtype=torch.float32,
+                          device=device) / head_dim
+    base = torch.tensor(theta, dtype=torch.float32).item()
+    return torch.pow(base, neg_ex.double()).float()
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x: (B, S, H, D); positions: (B, S)."""
-    d = x.shape[-1]
-    freqs = rope_freqs(d, theta, x.device)
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               freqs: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S); ``freqs`` (D/2,) replaces
+    ``rope_freqs(D, theta)``."""
+    if freqs is None:
+        freqs = rope_freqs(x.shape[-1], theta, x.device)
     ang = positions[..., None].to(torch.float32) * freqs      # (B, S, D/2)
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)

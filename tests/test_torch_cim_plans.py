@@ -20,6 +20,9 @@ emulation follows each: XLA on the CPU contracts the Pallas kernel's
 rounds the product and the sum apart (``__fmul_rn``, ``__fadd_rn``).
 """
 
+import dataclasses
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,14 +30,17 @@ import torch
 
 from repro.core import prng as jprng
 from repro.kernels.cim_matmul import cim_matmul_fused_pallas
+from repro_torch.configs.registry import get_config
 from repro_torch.core import cim, prng, quant, sac
 from repro_torch.core.cim import MACRO_ROWS
 from repro_torch.kernels._attn import SM_COUNT
+from repro_torch.kernels import fused_step
 from repro_torch.kernels.cim_matmul import (GEMV_ROWS, INT8_STAGE_K,
                                             cim_fused_plan,
                                             cim_matmul_fused_plain,
                                             split_geometry, split_range)
-from repro_torch.kernels.fused_step import COLS, fused_layer_plan
+from repro_torch.kernels.fused_step import (COLS, fused_layer_plan,
+                                            kernel_takes)
 
 # (K, N) of the CIM linears each served model runs (chip_smoke.py's cells):
 # qwen2-0.5b q, k/v, gate/up, down (o is q's shape); mamba2-130m in_proj
@@ -127,6 +133,63 @@ def test_fused_layer_plan_splits(b, dims):
             assert s["items"] >= SM_COUNT
     assert p["counters"] == sum(s["units"] for s in st.values()) + b * kv
     assert p["attn_tiles"] == -(-t // 32)
+
+
+# the fused layer's full-width shapes past head dim 64: phi3-mini (hd 96),
+# zamba2-7b's shared block (hd 112), internlm2-1.8b, pixtral-12b and
+# deepseek-67b (hd 128 at G 2, 4 and 8)
+WIDE_ARCHS = ("phi3-mini-3.8b", "zamba2-7b", "internlm2-1.8b", "pixtral-12b",
+              "deepseek-67b")
+
+
+@pytest.mark.parametrize("arch", WIDE_ARCHS)
+def test_fused_layer_plan_wide_heads(arch):
+    """A q/k/v unit is one head of hd columns: the units cover every
+    column of q, k and v once, at the card's fill; the split scratch holds
+    every stage's items at its own unit width."""
+    cfg = get_config(arch)
+    b, t, hd = 4, 320, cfg.hd
+    d, h, kv, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+    assert hd in (96, 112, 128) and kernel_takes(cfg, b)
+    p = fused_layer_plan(b, d, h, kv, f, t, hd)
+    st = p["stages"]
+    assert st["qkv"]["cols"] == hd and len(p["qkv_units"]) == h + 2 * kv
+    assert st["qkv"]["units"] == h + 2 * kv
+    for plane, n in ((0, h * hd), (1, kv * hd), (2, kv * hd)):
+        hits = np.zeros(n, dtype=np.int64)
+        for pl, n0 in p["qkv_units"]:
+            if pl == plane:
+                assert 0 <= n0 and n0 + hd <= n
+                hits[n0:n0 + hd] += 1
+        assert (hits == 1).all(), (plane, hits.min(), hits.max())
+    for s_ in st.values():
+        assert s_["n_split"] == _covers_once(s_["k"], s_["klen"])
+        assert s_["items"] >= SM_COUNT
+        assert p["part"] >= s_["items"] * b * s_["cols"]
+        assert p["noise"] >= s_["units"] * s_["planes"] * s_["tiles"] * b \
+            * s_["cols"]
+    assert st["o"]["k"] == h * hd
+    assert p["counters"] == sum(s_["units"] for s_ in st.values()) + b * kv
+
+
+def test_kernel_takes_head_dims_rows_and_groups():
+    """The kernel's reach: head dims 64, 96, 112 and 128, B <= 8, H / KV
+    <= 8; the wrapper's check names the reach when it refuses."""
+    cfg = get_config("internlm2-1.8b")
+    for hd in (64, 96, 112, 128):
+        assert kernel_takes(dataclasses.replace(cfg, head_dim=hd), 8)
+    for hd in (32, 80):
+        assert not kernel_takes(dataclasses.replace(cfg, head_dim=hd), 4)
+    assert not kernel_takes(cfg, 9)
+    assert not kernel_takes(
+        dataclasses.replace(cfg, n_heads=16, n_kv_heads=1), 4)    # G 16
+    assert kernel_takes(dataclasses.replace(cfg, n_heads=16, n_kv_heads=2), 4)
+    bad = dataclasses.replace(cfg, head_dim=80, d_model=256, n_heads=4,
+                              n_kv_heads=2)
+    cache = {"k": torch.zeros((4, 8, 2, 80))}
+    with pytest.raises(ValueError, match=r"head_dim in \(64, 96, 112, 128\)"):
+        fused_step._check(types.SimpleNamespace(cfg=bad), None,
+                          torch.zeros((4, 1, 256)), cache)
 
 
 def _emulate(x, wq, xs, out_scale, sigma, noise_of, plan, in_bits, fma):

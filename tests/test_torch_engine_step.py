@@ -199,7 +199,8 @@ def test_kernel_takes_the_fused_kernels_reach():
     assert kernel_takes(cfg, 8, [spec] * 7)
     assert kernel_takes(cfg, 1)
     assert not kernel_takes(cfg, 9)
-    assert not kernel_takes(dataclasses.replace(cfg, head_dim=128), 4)
+    assert kernel_takes(dataclasses.replace(cfg, head_dim=128), 4)
+    assert not kernel_takes(dataclasses.replace(cfg, head_dim=80), 4)
     assert not kernel_takes(dataclasses.replace(cfg, n_heads=32,
                                                 n_kv_heads=2), 4)
     assert not kernel_takes(cfg, 4, [spec] * 6

@@ -264,10 +264,11 @@ OLD_LENS = (0, 5, 60, 100)
 LENS_BY_ROWS = {1: (60,), 4: OLD_LENS, 8: OLD_LENS + (127, 31, 32, 33)}
 
 
-def _fused_case(dev, mode, int8, lens=OLD_LENS):
+def _fused_case(dev, mode, int8, lens=OLD_LENS, hd=64, kv=2):
     base = get_config("qwen2-0.5b").reduced()
-    cfg = dataclasses.replace(base, kv_cache_int8=int8, cim=dataclasses.replace(
-        base.cim, mode=mode, use_kernel=True))
+    cfg = dataclasses.replace(base, kv_cache_int8=int8, head_dim=hd,
+                              n_kv_heads=kv, cim=dataclasses.replace(
+                                  base.cim, mode=mode, use_kernel=True))
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(2), dev)
     if mode == "sim":
         params = deploy(cfg, params)
@@ -307,17 +308,13 @@ def _written(cache, name, lens=OLD_LENS):
     return cache[name][at, pos].float()
 
 
-@pytest.mark.parametrize("rows", [1, 4, 8])
-@pytest.mark.parametrize("mode", ["off", "sim"])
-@pytest.mark.parametrize("int8", [False, True])
-def test_fused_layer_kernel_matches_plain(cuda, mode, int8, rows):
-    lens = LENS_BY_ROWS[rows]
-    (ko, kc, kp), plain = _fused_case(cuda, mode, int8, lens)
+def _fused_rows_hold(case, int8, lens, hd):
+    (ko, kc, kp), plain = case
     po, pc, pp = plain()
     assert not _rows_off(ko[:, 0], po[:, 0], 2 ** -10).any()
     b = ko.shape[0]
-    assert not _rows_off(kp["attn"].view(b, -1, 64),
-                         pp["attn"].view(b, -1, 64), 2 ** -12).any()
+    assert not _rows_off(kp["attn"].view(b, -1, hd),
+                         pp["attn"].view(b, -1, hd), 2 ** -12).any()
     assert torch.equal(kc["len"], pc["len"])
     for name in ("k", "v"):
         a, r = _written(kc, name, lens), _written(pc, name, lens)
@@ -327,6 +324,24 @@ def test_fused_layer_kernel_matches_plain(cuda, mode, int8, rows):
                                  _written(pc, name + "s", lens), 1e-6).any()
         else:
             assert not _rows_off(a, r, 1e-6).any()
+
+
+@pytest.mark.parametrize("rows", [1, 4, 8])
+@pytest.mark.parametrize("mode", ["off", "sim"])
+@pytest.mark.parametrize("int8", [False, True])
+def test_fused_layer_kernel_matches_plain(cuda, mode, int8, rows):
+    lens = LENS_BY_ROWS[rows]
+    _fused_rows_hold(_fused_case(cuda, mode, int8, lens), int8, lens, 64)
+
+
+@pytest.mark.parametrize("hd,kv", [(96, 4), (112, 4), (128, 2)])
+@pytest.mark.parametrize("int8", [False, True])
+def test_fused_layer_kernel_matches_plain_wide_heads(cuda, int8, hd, kv):
+    """Head dims 96 and 112 (G 1: a q/k/v unit on the 128-column span,
+    its lanes past the head idle; the attention tiles loaded in bounded
+    rounds) and 128 (G 2), sim mode, four rows."""
+    case = _fused_case(cuda, "sim", int8, OLD_LENS, hd=hd, kv=kv)
+    _fused_rows_hold(case, int8, OLD_LENS, hd)
 
 
 @pytest.mark.parametrize("rows", [1, 4, 8])
