@@ -36,7 +36,7 @@ attention: the latent-cache decode kernel against its plain version at
 deepseek-v2 width (with two deliberately wrong inputs that the tolerance
 must catch) and the CIM kernel at deepseek-v2's shapes, card-vs-CPU greedy
 tokens of the reduced deepseek-v2 in off and sim mode, deepseek-v2-236b at
-every published width and 4 of its 60 layers served with exact launch
+every published width and 2 of its 60 layers served with exact launch
 counts and its peak memory, and the kernel's times (CUDA events) beside
 one scaled_dot_product_attention call and the earlier body's time. The f32-query GQA prefill of the float32 cells is
 held against its plain version, its block counts against their closed
@@ -57,7 +57,7 @@ dtype combination, at decode lengths on the split edges and flash starts past
 the cache's end, and timed beside scaled_dot_product_attention and their
 earlier times. The behavioural sim path (cim.use_kernel=False, what the
 serving CLI's --cim sim runs): reduced-model tokens card vs CPU, and
-qwen2-0.5b at full width (4 of its 24 layers) served with no CIM kernel
+qwen2-0.5b at full width (2 of its 24 layers) served with no CIM kernel
 launch. And
 Engine(fuse_layer=True) on a bf16 model serves unfused.
 
@@ -117,8 +117,20 @@ stream on two replicas, a kill mid-decode and mid-chunked-prefill and a
 wedge, each equal to a single engine's streams, the kill in sim mode,
 a guarded drift storm (4 of the 24 layers) that drains only its victim,
 and the front-end over a pool that loses a replica (``serve_router``).
-Every phase prints one JSON line; any failure exits non-zero. The last
-line is the device record.
+QAT serving: the reduced qwen2's first 4 tokens card = CPU in
+``cim_mode="qat"``, full-width qwen2-0.5b served in qat per call with
+its step's host and device ms and peak memory, ``fused_step=True``
+raising (``serve_qat``). The four examples of the port through their
+``main`` at cut sizes (``example_*``: the quickstart's metrics in the
+paper's bands, the serving example replayed through rows 1-3). And
+distribution (A7.1) on two spawned ranks of the one card over gloo:
+the int8-compressed all-reduce bit-equal to its formula in one process,
+a 2-stage pipeline through row 5 equal to the sequential stack in
+outputs and gradients, and full-width qwen2-0.5b deployed on a (data 1,
+model 2) mesh with every local shard bit-equal to its slice of the
+whole plane and row 1 on the q and gate shards equal to the column
+slices (``distributed``). Every phase prints one JSON line; any failure
+exits non-zero. The last line is the device record.
 """
 
 from __future__ import annotations
@@ -771,7 +783,8 @@ def phase_profile(params, cfg=None, fuse_layer=False, path=None,
     busy share (union of kernel intervals over the host wall clock),
     device time by kernel and the host's dispatches (the runtime calls of
     ``HOST_DISPATCHES`` the profiler saw), from torch.profiler over three
-    steps. ``path`` names the sim path in the emitted line; ``fused_step``
+    replayed steps or one per-call step (some 4000 launches and their host
+    ops, whose read-back costs seconds a step). ``path`` names the sim path in the emitted line; ``fused_step``
     as the engine takes it (None: replayed where the family allows).
     Replayed, the wrappers' counts are the launches the decode graph
     recorded at capture: the profiler's kernel events of each replayed
@@ -797,6 +810,7 @@ def phase_profile(params, cfg=None, fuse_layer=False, path=None,
     torch.cuda.synchronize()
     plain_wall = (time.perf_counter() - t0) / 3
     replayed = eng._graphs is not None
+    reps = 3 if replayed else 1
     # the profiler loses kernels of its first milliseconds (three
     # fused-layer steps showed 15 + 24 + 24 launches, and 68 of 72 after
     # one step of warm-up; PERF.md §6, PR 21): a 50 ms spin and one step
@@ -813,10 +827,10 @@ def phase_profile(params, cfg=None, fuse_layer=False, path=None,
         replays = eng.replay_count
         with record_function("measured"):
             t0 = time.perf_counter()
-            for _ in range(3):
+            for _ in range(reps):
                 eng.step()
             torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) / 3
+            wall = (time.perf_counter() - t0) / reps
     cuda = torch.autograd.DeviceType.CUDA
     marks = {e.device_type == cuda: e.time_range for e in prof.events()
              if e.name == "measured"}
@@ -825,27 +839,27 @@ def phase_profile(params, cfg=None, fuse_layer=False, path=None,
         and e.time_range.end <= marks[True].end
         if e.device_type == cuda else
         e.time_range.start >= marks[False].start)]
-    counted = {f.__name__: (f.launches - before[f.__name__]) / 3
+    counted = {f.__name__: (f.launches - before[f.__name__]) / reps
                for f in COUNTED if f.launches != before[f.__name__]}
-    seen = kernels_seen(events, counted, 3)
+    seen = kernels_seen(events, counted, reps)
     if replayed:
         recorded = {f.__name__: n
                     for f, n in eng._graphs["decode"].launches.items()}
-        if (eng.replay_count - replays != 3 or counted != recorded
+        if (eng.replay_count - replays != reps or counted != recorded
                 or seen != recorded):
             fail(f"profile {cfg.name} fuse_layer={fuse_layer}: a replayed "
                  f"step ran {seen} kernels by the profiler, counted "
                  f"{counted}, the decode graph recorded {recorded} "
-                 f"({eng.replay_count - replays} replays in 3 steps)")
+                 f"({eng.replay_count - replays} replays in {reps} steps)")
     by_name, n_kernels, n_dispatch = {}, 0, 0
     for e in events:
         if e.device_type == torch.autograd.DeviceType.CUDA:
             n_kernels += 1
             by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.time_range.elapsed_us() / 3e3)
+                               + e.time_range.elapsed_us() / (1e3 * reps))
         elif e.name in HOST_DISPATCHES:
             n_dispatch += 1
-    busy = busy_ms(events, 3) if n_kernels else None
+    busy = busy_ms(events, reps) if n_kernels else None
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     emit("profile_decode_step", arch=cfg.name, n_layers=cfg.n_layers,
          slots=4, dtype=cfg.dtype, **({} if path is None else {"path": path}),
@@ -857,10 +871,11 @@ def phase_profile(params, cfg=None, fuse_layer=False, path=None,
          device_busy_ms=busy,
          device_busy_share_of_step=None if busy is None
          else busy / (1e3 * plain_wall),
-         device_launches=n_kernels // 3, host_dispatches=n_dispatch / 3,
+         device_launches=n_kernels // reps,
+         host_dispatches=n_dispatch / reps,
          top_device_ms=[[n[:80], ms] for n, ms in top])
     return {"step_ms": 1e3 * plain_wall, "device_busy_ms": busy,
-            "launches": n_kernels // 3}
+            "launches": n_kernels // reps}
 
 
 # ------------------------------------------------- C10, whole prompt, loop
@@ -1131,7 +1146,9 @@ def phase_times(params, cfg):
         ops1 = sum(2 * x.shape[0] * wq.shape[0] * wq.shape[1]
                    for x, wq, *_ in calls)
         k_ms = device_ms(run_k, 10)
-        p_ms = device_ms(run_p, 2)
+        # one repetition of the plain version: some 30000 eager launches,
+        # whose profiler read-back costs seconds
+        p_ms = device_ms(run_p, 1)
         bound1 = 1e3 * max(bytes1 / HBM_BPS, ops1 / INT8_OPS)
         lib_ms = library = None
         if m > 16:
@@ -1773,7 +1790,7 @@ def phase_times_fused(params32):
         # attention stage's walk over the cache
         k1_ms = device_ms(run(fused_dense_layer, (0,) * b), 10)
         plan = fused_layer_plan(b, d, h, kv, f, 320)
-        p_ms = device_ms(run(fused_dense_layer_plain), 2)
+        p_ms = device_ms(run(fused_dense_layer_plain), 1)   # as phase_times
         bound = 1e3 * max(nbytes / HBM_BPS, t_ops)
         name = "fused_dense_layer" + ("[int8]" if int8 else "")
         res[name] = dict(ms=k_ms, wall_ms=wall_ms(run(fused_dense_layer), 10),
@@ -2517,19 +2534,22 @@ def phase_times_ssm():
 
 
 # ------------------------------------------------------------ phase 8
-# the moe family with MLA attention: deepseek-v2-236b at full width, four of
-# its 60 layers (the depth one card holds), every decode step of every layer
-# through the latent-cache kernel mla_decode_attention
+# the moe family with MLA attention: deepseek-v2-236b at full width, every
+# decode step of every layer through the latent-cache kernel
+# mla_decode_attention; the kernel's times over four layers' caches, the
+# served cell F at two of its 60 layers (four, the depth one card holds,
+# until the session's 55 s were cut for the script's time)
 MLA_TOL = {"float32": 1e-5, "bfloat16": 2 ** -7}   # times the row's max
 MLA_LENS = (301, 138, 96, 212)         # the session's lengths + the token
 MLA_LAYERS = 4
+MLA_SERVED_LAYERS = 2
 
 
 def mla_config(mode="sim", reduced=False):
     from repro_torch.configs.registry import get_config
     cfg = get_config("deepseek-v2-236b")
     cfg = (cfg.reduced() if reduced
-           else dataclasses.replace(cfg, n_layers=MLA_LAYERS))
+           else dataclasses.replace(cfg, n_layers=MLA_SERVED_LAYERS))
     return dataclasses.replace(cfg, cim=dataclasses.replace(
         cfg.cim, mode=mode, use_kernel=True))
 
@@ -2669,7 +2689,7 @@ def phase_mla_parity():
 
 
 def phase_serve_mla(params):
-    """Cell F: deepseek-v2-236b at full width, 4 of 60 layers, bf16, sim
+    """Cell F: deepseek-v2-236b at full width, 2 of 60 layers, bf16, sim
     mode, the session of cells A-E. Launch counts must hold exactly:
     mla_decode_attention 4 per decode step; cim_matmul_fused 9 per layer per
     chunk (dq, uq, dkv, uk, uv, o, shared gate/up/down) and 7 per layer per
@@ -2732,7 +2752,7 @@ def phase_serve_mla(params):
     toks = sum(len(o) for o in outs)
     ttft = [t for t in eng.ttft_s if t is not None]
     emit("serve_mla_full_width", arch=cfg.name, n_layers=L,
-         reduced={"n_layers": "60 -> 4"}, dtype=cfg.dtype,
+         reduced={"n_layers": f"60 -> {L}"}, dtype=cfg.dtype,
          requests=len(reqs), prompt_lens=list(lens), new_tokens=16, slots=4,
          tokens=toks, wall_s=wall, session_tok_per_s=toks / wall,
          chunks=n_chunks, decode_steps=n_decode,
@@ -5628,6 +5648,503 @@ def phase_times_wide_heads():
     return res, d112_s
 
 
+# ------------------------------------------- qat serving, examples, A7.1
+QAT_HORIZON = 4            # qat tokens held card = CPU (a noisy mode, C4)
+QAT_LENS = (32, 29, 17, 9)  # one prefill chunk each: qat runs per call
+QAT_NEW = 4
+
+
+def phase_serve_qat(params):
+    """``cim_mode="qat"`` in the engine (fake-quant of every CIM linear
+    plus readout noise under the layer's host key, on the float weights,
+    served per call): (a) the reduced qwen2's first 4 greedy tokens card =
+    CPU; (b) qwen2-0.5b at full width and depth (bf16, kernel attention)
+    serves 4 requests x 4 tokens, its launch counts zeroed just before and
+    read just after (the CIM kernel 0), host ms and device ms of a pure
+    decode step (profiler) and the peak memory; (c) ``fused_step=True``
+    raises. Returns (attention launches of (b), seconds). For the
+    script's time each prompt is one prefill chunk: a qat forward is
+    some 40000 eager launches (about 0.8 s of host at full width)."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.deploy import init_params
+    from repro_torch.kernels.cim_matmul import cim_matmul_fused
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_gqa_attention
+    from repro_torch.serving.engine import Engine, Request
+
+    t_start = time.perf_counter()
+    base = get_config("qwen2-0.5b").reduced()
+    rcfg = dataclasses.replace(base, cim=dataclasses.replace(
+        base.cim, mode="qat"))
+    rparams = init_params(rcfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, rcfg.vocab_size, n) for n in (40, 90, 57)]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        eng = Engine(rcfg, rparams, max_slots=2, max_len=128,
+                     attn_impl="kernel", device=dev)
+        if eng.deployed or eng.fused_step:
+            fail(f"qat engine on {dev}: deployed {eng.deployed}, "
+                 f"fused_step {eng.fused_step}")
+        outs[dev] = [o[:QAT_HORIZON] for o in eng.generate(
+            [Request(prompt=p, max_new_tokens=QAT_HORIZON, rid=f"q{i}")
+             for i, p in enumerate(prompts)])]
+    if outs["cuda"] != outs["cpu"]:
+        fail(f"qat: reduced-model tokens differ: cuda {outs['cuda']} vs "
+             f"cpu {outs['cpu']}")
+    parity_s = time.perf_counter() - t_start
+    try:
+        Engine(rcfg, rparams, fused_step=True, device="cuda")
+        fail("qat: fused_step=True did not raise")
+    except NotImplementedError as e:
+        if "qat" not in str(e):
+            fail(f"qat: fused_step=True raised {e!r}")
+
+    cfg = dataclasses.replace(full_config(False), cim=dataclasses.replace(
+        full_config(False).cim, mode="qat"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(cfg, params, max_slots=4, max_len=320, attn_impl="kernel",
+                 record_ttft=True, record_steps=True, device="cuda")
+    rng = np.random.default_rng(5)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n),
+                    max_new_tokens=QAT_NEW, rid=f"r{i}")
+            for i, n in enumerate(QAT_LENS)]
+    kernels = (cim_matmul_fused, decode_attention, flash_gqa_attention)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k.__name__: k.launches for k in kernels}
+    n_chunks = sum(e["chunks"] for e in eng.step_log)
+    n_decode = sum(e["decode"] for e in eng.step_log)
+    L = cfg.n_layers
+    bad = [o for o in got if not isinstance(o, list) or len(o) != QAT_NEW
+           or not all(0 <= t < cfg.vocab_size for t in o)]
+    if (bad or counts["cim_matmul_fused"] != 0
+            or counts["decode_attention"] != L * n_decode
+            or counts["flash_gqa_attention"] != L * n_chunks
+            or eng.replay_count):
+        fail(f"qat full width: bad requests {bad}, launches {counts} "
+             f"({n_chunks} chunks, {n_decode} decode steps), "
+             f"{eng.replay_count} replays")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    # pure decode steps: 4 fresh requests of one chunk each, the chunks
+    # and the first decode in one step (2 tokens), then 2 steps on the
+    # host clock and 2 under the profiler (one warm-up; a step is some
+    # 40000 kernel events to read back): 6 tokens each
+    t0 = time.perf_counter()
+    for i in range(4):
+        eng.submit(Request(prompt=rng.integers(0, cfg.vocab_size, 24),
+                           max_new_tokens=6, rid=f"d{i}"))
+    eng.step()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(2):
+        eng.step()
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t1) / 2
+    dev_ms = device_ms(eng.step, 1)
+    eng.drain_pending()
+    if eng.has_work():
+        fail("qat: the timed requests did not finish in 5 steps")
+    timing_s = time.perf_counter() - t0
+    seconds = time.perf_counter() - t_start
+    emit("serve_qat", arch=cfg.name, dtype=cfg.dtype, n_layers=L,
+         d_model=cfg.d_model, reduced_tokens_equal=True,
+         reduced_horizon=QAT_HORIZON, fused_step_raises=True,
+         requests=len(reqs), prompt_lens=list(QAT_LENS), new_tokens=QAT_NEW,
+         slots=4, wall_s=wall, chunks=n_chunks, decode_steps=n_decode,
+         launches=counts, pure_decode_step_host_ms=host_ms,
+         pure_decode_step_device_ms=dev_ms, peak_mem_gib=peak_gib,
+         parity_s=parity_s, timing_s=timing_s, seconds=seconds)
+    return counts, seconds
+
+
+def _example(name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"torch_{name}", os.path.join(ROOT, "examples", f"torch_{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_examples():
+    """The four examples of the port through their ``main`` on the card,
+    at cut sizes (steps, requests), one line each: the quickstart's
+    metrics in the paper's bands; the serving example on the CIM kernel
+    and the attention kernels, replayed (rows 1-3), its launch counts
+    zeroed just before its ``main`` and read just after; the ViT and LM
+    trainers for a few steps. Returns (CIM kernel launches, seconds)."""
+    import shutil
+    import torch
+    from repro_torch.kernels.cim_matmul import cim_matmul_fused
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_gqa_attention
+
+    t_start = time.perf_counter()
+    t0 = time.perf_counter()
+    q = _example("quickstart").main(["--device", "cuda"])
+    bands = {"sqnr_db": (45.3, 2.0), "csnr_db": (31.3, 2.0),
+             "peak_tops_w": (818.0, 1.0), "sac_gain": (2.1, 0.05)}
+    off = {k: q[k] for k, (c, tol) in bands.items()
+           if not abs(q[k] - c) < tol}
+    if off:
+        fail(f"example quickstart: {off} outside the bands {bands}")
+    emit("example_quickstart", **q, bands=bands,
+         seconds=time.perf_counter() - t0)
+
+    kernels = (cim_matmul_fused, decode_attention, flash_gqa_attention)
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    sv = _example("serve_lm_cim").main(
+        ["--device", "cuda", "--requests", "4", "--new-tokens", "8",
+         "--use-kernel", "--attn-impl", "kernel"])
+    torch.cuda.synchronize()
+    counts = {k.__name__: k.launches for k in kernels}
+    eng = sv["engine"]
+    if (any(len(o) != 8 for o in sv["outs"]) or not eng.fused_step
+            or eng.replay_count == 0 or eng.fallbacks
+            or min(counts.values()) == 0):
+        fail(f"example serve_lm_cim: outputs {sv['outs']}, fused_step "
+             f"{eng.fused_step}, {eng.replay_count} replays, launches "
+             f"{counts}")
+    emit("example_serve_lm_cim", requests=4, new_tokens=8,
+         tok_s=sv["tok_s"], replay_count=eng.replay_count,
+         launches=counts, sac_saving=sv["e_base"] / sv["e_sac"],
+         seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    vit = _example("train_vit_cim").main(
+        ["--device", "cuda", "--steps", "10", "--batch", "32",
+         "--eval-batches", "2"])
+    if not np.isfinite(vit["loss"]):
+        fail(f"example train_vit_cim: loss {vit['loss']}")
+    emit("example_train_vit_cim", steps=10, batch=32, **vit,
+         seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_lm_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    lm = _example("train_lm_100m").main(
+        ["--device", "cuda", "--steps", "6", "--batch", "8", "--seq", "128",
+         "--qat", "--ckpt-dir", ckpt])
+    shutil.rmtree(ckpt, ignore_errors=True)
+    loss = float(lm["metrics"]["loss"])
+    if lm["last_step"] != 6 or not np.isfinite(loss):
+        fail(f"example train_lm_100m: {lm['last_step']} steps, loss {loss}")
+    emit("example_train_lm_100m", steps=6, batch=8, seq=128, dim=256,
+         layers=8, loss=loss, seconds=time.perf_counter() - t0)
+    return counts["cim_matmul_fused"], time.perf_counter() - t_start
+
+
+DIST_WORLD = 2
+DIST_TIMEOUT_S = 240
+PIPE_TOL = 1e-6            # pipeline vs sequential, relative (norms)
+
+
+def _dist_compress(rank, world):
+    """compressed_dp_grads over the ranks against the same formula
+    reckoned in this process from every rank's shard gradient."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.distributed.compression import (compressed_dp_grads,
+                                                     quantize_int8)
+    g = torch.Generator(device="cuda").manual_seed(40)
+    d = 896
+    params = {"w": torch.randn((d, d), generator=g, device="cuda") * d ** -.5,
+              "b": torch.randn((d,), generator=g, device="cuda")}
+    batch = {"x": torch.randn((16, d), generator=g, device="cuda")}
+
+    def grad_fn(p, b):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+        h = torch.tanh(b["x"] @ leaves["w"] + leaves["b"])
+        gs = torch.autograd.grad((h ** 2).sum(), [leaves["b"], leaves["w"]])
+        return {"b": gs[0], "w": gs[1]}
+
+    key = prng.PRNGKey(17)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = compressed_dp_grads(grad_fn, params, batch, key=key)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    n = batch["x"].shape[0] // world
+    per = [grad_fn(params, {"x": batch["x"][r * n:(r + 1) * n]})
+           for r in range(world)]
+    # against the plain mean: the stochastic rounding's error, at most a
+    # variance of scale^2 / 4 an element and rank, so the mean's error
+    # norm is at most scale * sqrt(numel / (4 n)) in expectation; held
+    # to twice that
+    out = {"ms": ms, "equal": True, "rel_vs_mean": 0.0,
+           "err_over_sr_bound": 0.0}
+    for i, k in enumerate(sorted(per[0])):
+        m = torch.stack([torch.maximum(p[k].abs().max(),
+                                       torch.tensor(1e-12, device="cuda"))
+                         for p in per]).max()
+        scale = m / 127.0
+        tot = sum(quantize_int8(p[k], prng.fold_in(prng.fold_in(key, i), r),
+                                scale).to(torch.int32)
+                  for r, p in enumerate(per))
+        want = tot.to(torch.float32) * scale / world
+        mean = sum(p[k] for p in per) / world
+        out["equal"] &= bool(torch.equal(got[k], want))
+        err = float(torch.linalg.norm(got[k] - mean))
+        sr = float(scale) * (mean.numel() / (4 * world)) ** 0.5
+        out["rel_vs_mean"] = max(out["rel_vs_mean"],
+                                 err / float(torch.linalg.norm(mean)))
+        out["err_over_sr_bound"] = max(out["err_over_sr_bound"], err / sr)
+    return out
+
+
+def _dist_pipeline(rank, world):
+    """A 2-stage pipeline of residual blocks through row 5 (the
+    straight-through ``ops.cim_matmul``, noise on) against the sequential
+    stack of the same stages on the same microbatches in this process:
+    outputs, this rank's stage gradient and (rank 0) the input's."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.core.sac import paper_sac
+    from repro_torch.distributed import pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cim_matmul import cim_matmul_int8
+    spec = paper_sac().mlp
+    key = prng.PRNGKey(23)
+    g = torch.Generator(device="cuda").manual_seed(41)
+    d, b, n_micro = 896, 16, 4
+    ws0 = torch.randn((world, d, d), generator=g, device="cuda") * d ** -0.5
+    x0 = torch.randn((b, d), generator=g, device="cuda")
+
+    def stage_fn(p, xb):
+        return xb + ops.cim_matmul(xb, p["w"], spec,
+                                   prng.fold_in(key, int(p["s"])))
+
+    ws, x = ws0.clone().requires_grad_(True), x0.clone().requires_grad_(True)
+    cim_matmul_int8.launches = 0
+    staged = pipeline.HOST_STAGED
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = pipeline.pipeline_apply(stage_fn, {"w": ws, "s": torch.arange(world)},
+                                x, n_micro=n_micro)
+    (y ** 2).sum().backward()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    launches = cim_matmul_int8.launches
+    staged = pipeline.HOST_STAGED - staged
+    ws2, x2 = ws0.clone().requires_grad_(True), x0.clone().requires_grad_(True)
+    outs = []
+    for m in x2.reshape(n_micro, b // n_micro, d):
+        h = m
+        for s in range(world):
+            h = stage_fn({"w": ws2[s], "s": torch.tensor(s)}, h)
+        outs.append(h)
+    y2 = torch.cat(outs)
+    (y2 ** 2).sum().backward()
+
+    def rel(a, c):
+        return float(torch.linalg.norm(a - c) / torch.linalg.norm(c))
+
+    out = {"ms": ms, "launches": launches, "host_staged": staged,
+           "y_rel": rel(y.detach(), y2.detach()),
+           "gw_rel": rel(ws.grad[rank], ws2.grad[rank]),
+           "y_finite": bool(torch.isfinite(y).all())}
+    if rank == 0:
+        out["gx_rel"] = rel(x.grad, x2.grad)
+    return out
+
+
+def _dist_deploy(rank, world):
+    """``deploy(rules=)`` of full-width qwen2-0.5b on a (data 1, model
+    world) mesh: every plane's local shard bit-equal to its slice of the
+    unsharded plane; row 1 (noise 0) on layer 0's q and gate shards equal
+    to the column slice of the whole plane's output."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.core.deploy import (deploy, init_params,
+                                         plane_logical_axes)
+    from repro_torch.core.sac import get_policy
+    from repro_torch.distributed.sharding import default_rules, local_slice
+    from repro_torch.kernels.cim_matmul import cim_matmul_fused
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.model import param_specs
+    cfg = full_config(False)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    mesh = make_debug_mesh(1, world)
+    rules = default_rules(mesh)
+    t0 = time.perf_counter()
+    plain = deploy(cfg, params)
+    shard = deploy(cfg, params, rules=rules)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    axes = param_specs(cfg)[1]
+    coords = {"data": 0, "model": rank}
+    out = {"planes": 0, "tp_sharded": 0, "mismatch": 0, "local_bytes": 0,
+           "bytes": 0, "deploy_ms": ms}
+
+    def walk(a, b, ax):
+        for k in a:
+            if isinstance(a[k], dict):
+                walk(a[k], b[k], ax.get(k, {}))
+            elif k.startswith(("wq", "ws")):
+                out["planes"] += 1
+                if not isinstance(b[k], DTensor):
+                    out["mismatch"] += 1
+                    continue
+                names = plane_logical_axes(ax["w"], k[:2])
+                spec = rules.param_spec(names, tuple(a[k].shape))
+                out["tp_sharded"] += "model" in spec
+                loc = b[k].to_local()
+                out["local_bytes"] += loc.numel() * loc.element_size()
+                out["bytes"] += a[k].numel() * a[k].element_size()
+                if not torch.equal(loc, a[k][local_slice(
+                        spec, a[k].shape, mesh, coords)]):
+                    out["mismatch"] += 1
+
+    walk(plain, shard, axes)
+    pol = get_policy(cfg.cim.policy)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for block, name, spec in (("attn", "q", pol.attn),
+                              ("mlp", "gate", pol.mlp)):
+        bits = spec.w_bits
+        whole = plain["blocks"][block][name][f"wq{bits}"][0]
+        part = shard["blocks"][block][name][f"wq{bits}"].to_local()[0]
+        x = torch.randn((8, cfg.d_model), generator=g, device="cuda")
+        qp = torch.tensor([0.02, 1e-3], device="cuda")
+        y = cim_matmul_fused(x, part.contiguous(), qp, (1, 2), 0.0,
+                             spec.in_bits)
+        y_all = cim_matmul_fused(x, whole.contiguous(), qp, (1, 2), 0.0,
+                                 spec.in_bits)
+        n = part.shape[-1]
+        out[f"row1_{name}_cols"] = n
+        out[f"row1_{name}_equal"] = bool(torch.equal(
+            y, y_all[:, rank * n:(rank + 1) * n]))
+    return out
+
+
+def _dist_rank(rank, world, run_dir):
+    """One rank of the distributed phase (a spawned process): a gloo group
+    over a file store in ``run_dir``, CUDA tensors on the one card; its
+    results to ``run_dir/rank<r>.json``."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{os.path.join(run_dir, 'store')}",
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    try:
+        out = {"rank": rank, "world": dist.get_world_size(),
+               "up_s": time.perf_counter() - T0}
+        for name, fn in (("compress", _dist_compress),
+                         ("pipeline", _dist_pipeline),
+                         ("deploy", _dist_deploy)):
+            t0 = time.perf_counter()
+            out[name] = fn(rank, world)
+            out[name]["s"] = time.perf_counter() - t0
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(run_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase_distributed():
+    """A7.1 on the card: two ranks spawned on the one H100 over a gloo
+    process group with CUDA tensors (NCCL refuses two ranks on one
+    device; gloo's point-to-point send and receive take no CUDA tensor, so
+    the pipeline stages those hand-offs through host memory and counts
+    them). This shows the code runs on the card; it measures no
+    scale-out. The kernels are built by this process first, so the ranks
+    load the library and never build. Fails unless both ranks come up and
+    every check holds. Returns the seconds."""
+    import shutil
+    import torch.multiprocessing as mp
+    from repro_torch.kernels import _build
+    _build.library()
+    t0 = time.perf_counter()
+    run_dir = os.path.join(ROOT, "build", "chip_smoke_dist")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    ctx = mp.start_processes(_dist_rank, args=(DIST_WORLD, run_dir),
+                             nprocs=DIST_WORLD, join=False,
+                             start_method="spawn")
+    deadline = time.perf_counter() + 2 * DIST_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() > deadline:
+                raise TimeoutError(f"ranks still running after "
+                                   f"{2 * DIST_TIMEOUT_S} s")
+    except Exception as e:      # a rank raised, died or hung
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+        fail(f"distributed: a rank failed: {e}")
+    res = []
+    for r in range(DIST_WORLD):
+        path = os.path.join(run_dir, f"rank{r}.json")
+        if not os.path.exists(path):
+            fail(f"distributed: rank {r} of {DIST_WORLD} wrote no result")
+        with open(path) as f:
+            res.append(json.load(f))
+    shutil.rmtree(run_dir, ignore_errors=True)
+    problems = []
+    for r in res:
+        c, p, d = r["compress"], r["pipeline"], r["deploy"]
+        if r["world"] != DIST_WORLD:
+            problems.append(f"rank {r['rank']} saw world {r['world']}")
+        if not c["equal"] or c["err_over_sr_bound"] > 2.0:
+            problems.append(f"rank {r['rank']} compression {c}")
+        if (not p["y_finite"] or p["y_rel"] > PIPE_TOL
+                or p["gw_rel"] > PIPE_TOL or p.get("gx_rel", 0) > PIPE_TOL
+                or p["launches"] != 4 or p["host_staged"] == 0):
+            problems.append(f"rank {r['rank']} pipeline {p}")
+        if (d["mismatch"] or d["tp_sharded"] == 0
+                or not d["row1_q_equal"] or not d["row1_gate_equal"]):
+            problems.append(f"rank {r['rank']} deploy {d}")
+    if problems:
+        fail("distributed: " + "; ".join(problems))
+    seconds = time.perf_counter() - t0
+    emit("distributed", ranks=DIST_WORLD, backend="gloo", device="cuda:0",
+         scale_out_measured=False,
+         compress={"bit_equal_one_process": True,
+                   "rel_vs_plain_mean": max(r["compress"]["rel_vs_mean"]
+                                            for r in res),
+                   "err_over_sr_bound": max(
+                       r["compress"]["err_over_sr_bound"] for r in res),
+                   "ms": [r["compress"]["ms"] for r in res]},
+         pipeline={"stages": DIST_WORLD, "n_micro": 4,
+                   "y_rel": max(r["pipeline"]["y_rel"] for r in res),
+                   "grad_w_rel": max(r["pipeline"]["gw_rel"] for r in res),
+                   "grad_x_rel": res[0]["pipeline"]["gx_rel"],
+                   "tol": PIPE_TOL,
+                   "cim_matmul_int8_launches": [r["pipeline"]["launches"]
+                                                for r in res],
+                   "host_staged": [r["pipeline"]["host_staged"] for r in res],
+                   "ms": [r["pipeline"]["ms"] for r in res]},
+         deploy={"arch": "qwen2-0.5b", "mesh": {"data": 1, "model": 2},
+                 "planes": res[0]["deploy"]["planes"],
+                 "tp_sharded": res[0]["deploy"]["tp_sharded"],
+                 "local_bytes": [r["deploy"]["local_bytes"] for r in res],
+                 "bytes": res[0]["deploy"]["bytes"],
+                 "row1_q_cols": res[0]["deploy"]["row1_q_cols"],
+                 "row1_gate_cols": res[0]["deploy"]["row1_gate_cols"],
+                 "shards_bit_equal": True, "row1_shards_equal": True,
+                 "deploy_ms": [r["deploy"]["deploy_ms"] for r in res]},
+         rank_up_s=[r["up_s"] for r in res],
+         part_s={k: [r[k]["s"] for r in res]
+                 for k in ("compress", "pipeline", "deploy")},
+         seconds=seconds)
+    return seconds
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5675,6 +6192,7 @@ def main() -> int:
     emit("frontend", new_phases_s=frontend_s, new_phases_limit_s=60)
     runs["router"], router_s = phase_serve_router(params)
     emit("router", new_phases_s=router_s, new_phases_limit_s=60)
+    runs["qat"], qat_s = phase_serve_qat(params)
     del params
     params32 = init_params(full_config32(False),
                            torch.Generator(device="cuda").manual_seed(0),
@@ -5752,6 +6270,12 @@ def main() -> int:
     new_s += served_s + phase_times_wide_heads()[1]
     emit("archs", seconds=time.perf_counter() - t_archs,
          new_phases_s=new_s, new_phases_limit_s=110)
+    torch.cuda.empty_cache()
+    runs["examples"], examples_s = phase_examples()
+    dist_s = phase_distributed()
+    emit("qat_examples_distributed", new_phases_s=qat_s + examples_s + dist_s,
+         new_phases_limit_s=90, serve_qat_s=qat_s, examples_s=examples_s,
+         distributed_s=dist_s)
     src = {"cim_matmul_fused": ("src/repro_torch/csrc/cim_matmul.cu",
                                 "src/repro/kernels/cim_matmul.py:340",
                                 cim_matmul_fused, "cim_matmul_fused"),
@@ -5833,6 +6357,12 @@ def main() -> int:
         if name in ("cim_matmul_fused", "decode_attention", "flash_gqa"):
             n += (runs["robust"][fn.__name__] + runs["frontend"][fn.__name__]
                   + runs["router"][fn.__name__])
+        # the qat session (bf16 qwen2, bf16 cache) runs rows 2 and 3, the
+        # serving example (replayed) row 1 among others
+        if name in ("decode_attention", "flash_gqa"):
+            n += runs["qat"][fn.__name__]
+        if name == "cim_matmul_fused":
+            n += runs["examples"]
         line.append({"name": name, "route": "cuda", "source": path,
                      "replaces": tpu, "launches": n,
                      "max_abs_err": errs[name if name in errs else ekey],

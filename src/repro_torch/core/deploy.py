@@ -11,8 +11,16 @@ per layer slice, the per-tensor scale ``models.moe._expert_dense`` uses.
 clean plane (``checksum_plane``: one int32 column, or G per-segment
 columns) and then masks each dense plane with stuck-at bitcells
 (``core.faults.stuck_bit_plane``, one key per plane in walk order); expert
-banks get neither, as in the reference. Tensor-parallel placement is not
-ported (ROADMAP A7).
+banks get neither, as in the reference.
+
+Tensor-parallel placement (``deploy(rules=, param_axes=)``): every plane
+is built as in the single-device path, bit for bit (the quantization
+happens once, globally), then placed: over a live ``DeviceMesh`` each
+plane becomes a DTensor whose placements ``rules.param_spec`` resolves
+from the plane's logical axes (``plane_logical_axes``, derived from its
+base weight's). ``plan_deploy_sharding`` runs the same resolution over
+``models.model.param_specs`` shapes only, on a devices-free
+``VirtualMesh``, and returns the reference's report key for key.
 
 Also the parameter bridge of the port:
 
@@ -51,6 +59,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import prng, quant
 from repro_torch.core.faults import FaultSpec, stuck_bit_plane
 from repro_torch.core.sac import Policy, get_policy
+from repro_torch.distributed.sharding import (ShardingRules, VirtualMesh,
+                                              mesh_axis_sizes, placements,
+                                              tp_axis)
 
 _KEY_ROLE = {
     "q": "attn_qkv", "k": "attn_qkv", "v": "attn_qkv", "o": "attn_out",
@@ -165,16 +176,44 @@ def quantize_bank(bank: torch.Tensor, bits: int):
     return wq.reshape(bank.shape), ws.reshape(lead)
 
 
+def plane_logical_axes(names, plane: str,
+                       segmented: bool = False) -> Optional[tuple]:
+    """Logical-axis names of a deployed plane, derived from its base
+    weight's: ``wq``/``_q`` keep the weight's own; ``ws`` drops the
+    trailing 2 (dense) and ``_s`` the trailing 3 (expert bank); ``wc``
+    drops the output-column axis (a segmented checksum keeps a trailing
+    unsharded segment dim)."""
+    if names is None:
+        return None
+    names = tuple(names)
+    if plane in ("wq", "_q"):
+        return names
+    if plane == "ws":
+        return names[:-2]
+    if plane == "_s":
+        return names[:-3]
+    if plane == "wc":
+        return names[:-1] + ((None,) if segmented else ())
+    raise ValueError(plane)
+
+
 def deploy(cfg: ModelConfig, params: Any,
            policy: Optional[Policy] = None,
-           fault: Optional[FaultSpec] = None, guard: Any = False) -> Any:
+           fault: Optional[FaultSpec] = None, guard: Any = False,
+           rules: Optional[ShardingRules] = None,
+           param_axes: Any = None) -> Any:
     """A new params tree with the pre-quantized planes attached (the f32
     ``w`` stays, as in the reference). ``guard`` (True or a spec with
     ``segments``) adds the checksum ``wc<bits>`` of the clean plane;
     ``fault`` with ``stuck_rate > 0`` then masks each dense plane under
     ``fold_in(PRNGKey(fault.seed), i)``, ``i`` the plane's index in the
     walk, which visits every dict's keys in sorted order (the order of
-    the reference's stacked-layer trees)."""
+    the reference's stacked-layer trees).
+
+    ``rules`` over a live ``DeviceMesh`` places every plane as a DTensor
+    (each rank keeps its shard of the plane it built whole);
+    ``param_axes`` is the logical-axes tree of ``params``
+    (``models.model.param_specs(cfg)[1]``), derived when omitted."""
     if policy is None:
         policy = get_policy(cfg.cim.policy)
     if policy is None:
@@ -184,10 +223,26 @@ def deploy(cfg: ModelConfig, params: Any,
     fault_key = (prng.PRNGKey(fault.seed)
                  if fault is not None and fault.stuck_rate > 0.0 else None)
     plane_idx = [0]
+    if rules is not None and param_axes is None:
+        from repro_torch.models.model import param_specs  # models -> core
+        param_axes = param_specs(cfg)[1]
+    live = rules is not None and not isinstance(rules.mesh, VirtualMesh)
 
-    def walk(node, name, parent):
+    def place(x, base_names, plane):
+        if not live:
+            return x
+        names = plane_logical_axes(base_names, plane, segmented=segments > 1)
+        if names is None:
+            return x
+        from torch.distributed.tensor import distribute_tensor
+        spec = rules.param_spec(names, tuple(x.shape))
+        return distribute_tensor(x, rules.mesh, placements(spec, rules.mesh),
+                                 src_data_rank=None)
+
+    def walk(node, axes, name, parent):
         if not isinstance(node, dict):
             return node
+        axes = axes if isinstance(axes, dict) else {}
         if "w" in node and not isinstance(node["w"], dict):
             role = _role_for(name, parent)
             spec = policy.spec_for_role(role) if role is not None else None
@@ -202,8 +257,10 @@ def deploy(cfg: ModelConfig, params: Any,
                 wq = stuck_plane(wq, bits, fault,
                                  prng.fold_in(fault_key, plane_idx[0]))
                 plane_idx[0] += 1
-            return dict(node, **{f"wq{bits}": wq}, **extra)
-        done = {k: walk(node[k], k, name) for k in sorted(node)}
+            wn = axes.get("w")
+            extra = {k: place(v, wn, k[:2]) for k, v in extra.items()}
+            return dict(node, **{f"wq{bits}": place(wq, wn, "wq")}, **extra)
+        done = {k: walk(node[k], axes.get(k), k, name) for k in sorted(node)}
         out = {k: done[k] for k in node}
         spec = (policy.spec_for_role("moe_expert")
                 if any(b in node for b in _EXPERT_BANKS) else None)
@@ -211,11 +268,119 @@ def deploy(cfg: ModelConfig, params: Any,
             for b in _EXPERT_BANKS:
                 if b in node:
                     wq, ws = quantize_bank(node[b], spec.w_bits)
-                    out[f"{b}_q{spec.w_bits}"] = wq
-                    out[f"{b}_s{spec.w_bits}"] = ws
+                    out[f"{b}_q{spec.w_bits}"] = place(wq, axes.get(b), "_q")
+                    out[f"{b}_s{spec.w_bits}"] = place(ws, axes.get(b), "_s")
         return out
 
-    return walk(params, None, None)
+    return walk(params, param_axes, None, None)
+
+
+def plan_deploy_sharding(cfg: ModelConfig, rules: ShardingRules,
+                         policy: Optional[Policy] = None,
+                         guard: Any = False) -> dict:
+    """The tensor-parallel sharding of a config's deployed planes, from
+    ``param_specs`` shapes only (``rules.mesh`` may be a ``VirtualMesh``):
+    the same role resolution and ``plane_logical_axes`` derivation as
+    ``deploy(rules=)``. Per-plane entries (path, plane key, shape, axes,
+    spec, whether the model axis splits it, shard degree, bytes in all
+    and per device) and the aggregate the reference reports: every
+    CIM-routed plane resolved, and some split over the model axis."""
+    from repro_torch.models.model import param_specs   # models -> core
+    if policy is None:
+        policy = get_policy(cfg.cim.policy)
+    if policy is None:
+        raise ValueError(
+            f"config {cfg.name} has no SAC policy: nothing to deploy")
+    segments = guard_segments_of(guard)
+    pspecs, paxes = param_specs(cfg)
+    tp = tp_axis(rules.mesh)
+    mesh_sizes = mesh_axis_sizes(rules.mesh)
+    entries = []
+
+    def record(path, plane_key, base_names, plane, shape, itemsize):
+        names = plane_logical_axes(base_names, plane, segmented=segments > 1)
+        spec = rules.param_spec(names, shape) if names is not None else None
+        used = []
+        for a in (spec or ()):
+            if a is not None:
+                used.extend([a] if isinstance(a, str) else list(a))
+        degree = 1
+        for a in used:
+            degree *= mesh_sizes[a]
+        total = itemsize * int(np.prod(shape, dtype=np.int64))
+        entries.append({
+            "path": path, "plane": plane_key,
+            "shape": list(shape),
+            "logical_axes": list(names) if names is not None else None,
+            "spec": [list(a) if isinstance(a, tuple) else a
+                     for a in (spec or ())],
+            "tp_sharded": tp is not None and tp in used,
+            "shard_degree": degree,
+            "bytes": total,
+            "bytes_per_device": total // degree,
+        })
+
+    def walk(node, axes, name, parent, path):
+        if not isinstance(node, dict):
+            return
+        axes = axes if isinstance(axes, dict) else {}
+        if "w" in node and not isinstance(node["w"], dict):
+            role = _role_for(name, parent)
+            spec = policy.spec_for_role(role) if role is not None else None
+            if spec is None:
+                return
+            shape, bits = tuple(node["w"].shape), spec.w_bits
+            wn = axes.get("w")
+            record(path, f"wq{bits}", wn, "wq", shape,
+                   quant.storage_dtype(bits).itemsize)
+            record(path, f"ws{bits}", wn, "ws", shape[:-2],
+                   dtype_of(cfg).itemsize)
+            if guard:
+                wc = (shape[:-1] + (pick_segments(shape[-1], segments),)
+                      if segments > 1 else shape[:-1])
+                record(path, f"wc{bits}", wn, "wc", wc, 4)
+            return
+        for k in sorted(node):      # the reference's (flattened) order
+            walk(node[k], axes.get(k), k, name, f"{path}/{k}" if path else k)
+        if any(b in node for b in _EXPERT_BANKS):
+            espec = policy.spec_for_role("moe_expert")
+            if espec is not None:
+                for b in _EXPERT_BANKS:
+                    if b in node:
+                        bshape = tuple(node[b].shape)
+                        p = f"{path}/{b}" if path else b
+                        record(p, f"{b}_q{espec.w_bits}", axes.get(b), "_q",
+                               bshape,
+                               quant.storage_dtype(espec.w_bits).itemsize)
+                        record(p, f"{b}_s{espec.w_bits}", axes.get(b), "_s",
+                               bshape[:-3], 4)
+
+    walk(pspecs, paxes, None, None, "")
+    weight_planes = [e for e in entries if e["plane"].startswith("wq")
+                     or "_q" in e["plane"]]
+    total = sum(e["bytes"] for e in weight_planes)
+    sharded = [e for e in weight_planes if e["shard_degree"] > 1]
+    tp_planes = [e for e in weight_planes if e["tp_sharded"]]
+    per_dev = sum(e["bytes_per_device"] for e in weight_planes)
+    ok = (len(weight_planes) > 0
+          and all(e["logical_axes"] is not None for e in entries)
+          and (tp is None or len(tp_planes) > 0))
+    n = len(weight_planes)
+    return {
+        "config": cfg.name,
+        "mesh": mesh_sizes,
+        "tp_axis": tp,
+        "segments": segments,
+        "planes": len(entries),
+        "weight_planes": n,
+        "tp_sharded_planes": len(tp_planes),
+        "sharded_frac": len(sharded) / n if n else 0.0,
+        "tp_sharded_frac": len(tp_planes) / n if n else 0.0,
+        "int8_bytes_total": total,
+        "int8_bytes_per_device": per_dev,
+        "ok": bool(ok),
+        "entries": entries,
+    }
 
 
 _PLANE_KEY = re.compile(r"(^wq|_q)\d+$")
@@ -397,6 +562,88 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     else:
         raise ValueError(f"unknown family {cfg.family!r}")
     return top(blocks=blocks)
+
+
+def init_axes(cfg: ModelConfig) -> Any:
+    """The logical-axes tree of ``init_params(cfg)``: a tuple of axis
+    names (or None) for every leaf, the tree the reference's initialisers
+    return beside the parameters, with one leading 'layers' name per
+    stacking (two on the hybrid family's mamba blocks)."""
+    E = "embed"
+
+    def stack(tree, n=1):
+        if isinstance(tree, dict):
+            return {k: stack(v, n) for k, v in tree.items()}
+        return ("layers",) * n + tuple(tree)
+
+    def dense(din, dout, bias=False):
+        a = {"w": (din, dout)}
+        if bias:
+            a["b"] = (dout,)
+        return a
+
+    def ln():
+        return {"g": (E,), "b": (E,)}
+
+    def gqa(bias):
+        return {"q": dense(E, "heads", bias), "k": dense(E, "kv_heads", bias),
+                "v": dense(E, "kv_heads", bias), "o": dense("heads", E)}
+
+    def swiglu():
+        return {"gate": dense(E, "mlp"), "up": dense(E, "mlp"),
+                "down": dense("mlp", E)}
+
+    def gelu():
+        return {"up": dense(E, "mlp", True), "down": dense("mlp", E, True)}
+
+    mamba = {"mamba": {"in_proj": dense(E, "mlp"), "out_proj": dense("mlp", E),
+                       "conv_w": ("conv", "mlp"), "conv_b": ("mlp",),
+                       "A_log": ("heads",), "D": ("heads",),
+                       "dt_bias": ("heads",), "norm_g": ("mlp",)},
+             "n": {"g": (E,)}}
+    dense_block = {"attn": gqa(cfg.qkv_bias), "mlp": swiglu(),
+                   "n1": {"g": (E,)}, "n2": {"g": (E,)}}
+    if cfg.family == "vit":
+        return {"patch": dense("patch", E, True), "cls": (None, None, E),
+                "pos": (None, None, E),
+                "blocks": stack({"attn": gqa(cfg.qkv_bias), "mlp": gelu(),
+                                 "n1": ln(), "n2": ln()}),
+                "head_norm": ln(), "head": dense(E, "classes", True)}
+    top = {}
+    if cfg.vocab_size:
+        top["embed"] = {"e": ("vocab", E)}
+    top["final_norm"] = {"g": (E,)}
+    if cfg.family in ("dense", "vlm"):
+        top["blocks"] = stack(dense_block)
+    elif cfg.family == "ssm":
+        top["blocks"] = stack(mamba)
+    elif cfg.family == "moe":
+        attn = (gqa(cfg.qkv_bias) if cfg.mla is None else
+                {"dq": dense(E, "state"), "uq": dense("state", "heads"),
+                 "dkv": dense(E, "state"), "uk": dense("state", "heads"),
+                 "uv": dense("state", "heads"), "o": dense("heads", E)})
+        moe = {"router": dense(E, None),
+               "w_gate": ("experts", E, "mlp"), "w_up": ("experts", E, "mlp"),
+               "w_down": ("experts", "mlp", E)}
+        if cfg.moe.n_shared:
+            moe["shared"] = swiglu()
+        top["blocks"] = stack({"attn": attn, "moe": moe, "n1": {"g": (E,)},
+                               "n2": {"g": (E,)}})
+    elif cfg.family == "hybrid":
+        top["mamba_blocks"] = stack(mamba, 2)
+        top["shared_attn"] = dense_block
+    elif cfg.family == "encdec":
+        cross = {"q": dense(E, "heads"), "k": dense(E, "kv_heads"),
+                 "v": dense(E, "kv_heads"), "o": dense("heads", E)}
+        top["enc_blocks"] = stack({"attn": gqa(cfg.qkv_bias), "mlp": gelu(),
+                                   "n1": ln(), "n2": ln()})
+        top["dec_blocks"] = stack({"attn": gqa(cfg.qkv_bias), "cross": cross,
+                                   "mlp": gelu(), "n1": ln(), "n2": ln(),
+                                   "n3": ln()})
+        top["enc_norm"] = ln()
+    else:
+        raise ValueError(f"unknown family {cfg.family!r}")
+    return top
 
 
 def _init_vit(cfg: ModelConfig, normal, full) -> Any:

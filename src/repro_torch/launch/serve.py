@@ -127,7 +127,10 @@ def _build_argparser():
              "ReplicaRouter (serving/router.py); each replica owns --slots "
              "slots and the same seed, so failover migration replays "
              "streams bit-for-bit in off mode")
-    ap.add_argument("--cim", default="off", choices=["off", "sim"])
+    ap.add_argument("--cim", default="off", choices=["off", "qat", "sim"],
+                    help="qat: the training forward (fake-quant plus "
+                         "readout noise), served per call on the float "
+                         "weights")
     ap.add_argument("--attn-impl", default="config",
                     choices=["config", "einsum", "kernel"])
     ap.add_argument("--chunk-size", type=int, default=32,

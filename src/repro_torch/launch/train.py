@@ -11,7 +11,9 @@ then cosine decay), checkpointing every ``--ckpt-every`` steps into
 every CIM-routed linear as noise-aware straight-through fake-quant.
 Parameters are random, drawn from the key ``PRNGKey(0)``'s words. The
 entry point runs on the card; ``--device cpu`` runs on the CPU.
-``--compress-grads`` (int8 gradient compression) is ROADMAP A7 and raises.
+``--compress-grads`` passes the gradients through the int8 stochastic-
+rounding transfer function of the data-parallel all-reduce
+(``distributed.compression.simulate_compression``).
 """
 
 from __future__ import annotations

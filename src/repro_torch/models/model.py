@@ -9,7 +9,9 @@ training objective (``lm_loss``; ``vit_loss`` on ``batch["images"]``,
 ``forward`` and ``loss`` read the stub frame embeddings
 ``batch["frames"]`` (B, n_frames, d_model) beside ``batch["tokens"]``
 (on an uncached or prefill forward; a decode step reads the cached
-cross K/V).
+cross K/V). ``param_specs(cfg)`` is the shape tree (meta tensors, nothing
+allocated) and the logical-axes tree of a config's parameters, the
+sharding rules' input.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from typing import Any, Callable, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.deploy import init_params
+from repro_torch.core.deploy import init_axes, init_params
 from repro_torch.models import transformer as tf
 from repro_torch.models import vit
 from repro_torch.models.layers import Ctx
@@ -55,3 +57,11 @@ def build(cfg: ModelConfig) -> ModelAPI:
         forward=lambda params, batch, key=None, caches=None: tf.forward(
             params, batch, cfg, Ctx.make(cfg, key), caches),
     )
+
+
+def param_specs(cfg: ModelConfig) -> Tuple[Any, Any]:
+    """(meta-tensor tree, logical-axes tree) without allocation. The axes
+    come from the reduced config, as the reference's do: a family's tree
+    has the same paths at every width."""
+    shapes = init_params(cfg, torch.Generator().manual_seed(0), "meta")
+    return shapes, init_axes(cfg.reduced())

@@ -102,7 +102,8 @@ the seed table, so faults and drift replay as they run per call.
 
 ``deploy`` is the reference's: None deploys the planes in sim mode,
 False serves sim mode on the float weights, quantized per call (the
-behavioural path: no CIM kernel, no CUDA graphs).
+behavioural path: no CIM kernel, no CUDA graphs), or on the planes of a
+tree the caller deployed, which serves as the engine's own deploy would.
 
 The front-end's surface (``serving/frontend.py``), as in the reference:
 ``Request.deadline`` (the caller's clock) and ``step(now)``, which expires
@@ -124,7 +125,12 @@ reference: ``replica=`` labels the engine and is stamped on every
 (every later ``step``/``drain_pending`` raises and the undrained tokens
 are dropped), ``wedge()`` a hung launch queue (``step`` returns True and
 advances nothing) until ``unwedge()``; ``replica_of`` names the label.
-``cim_mode="qat"`` is not ported (``NotImplementedError``, ROADMAP.md A8).
+``cim_mode="qat"`` serves the forward the trainer runs: every CIM linear
+through ``core.cim.cim_dense(mode="qat")`` (straight-through fake-quant
+plus readout noise drawn under the layer's host key), on the float
+weights (``deploy=None`` resolves to False; ``deploy=True`` raises the
+reference's ``ValueError``). Its noise is eager ops keyed by host
+integers, so it serves per call and ``fused_step=True`` raises.
 """
 
 from __future__ import annotations
@@ -143,6 +149,7 @@ from repro_torch.core import prng
 from repro_torch.core.calibrate import (CalibPolicy, DriftController,
                                         max_plane_width)
 from repro_torch.core.deploy import deploy as deploy_params
+from repro_torch.core.deploy import plane_summary
 from repro_torch.core.drift import DriftState
 from repro_torch.core.faults import BROWNOUT_FOLD
 from repro_torch.core.guard import GuardSpec
@@ -173,9 +180,10 @@ COUNTED = (cim_matmul_fused, cim_matmul_int8, decode_attention,
            flash_gqa_attention, flash_attention, fused_dense_layer,
            mla_decode_attention, ssm_decode_step)
 _UNGRAPHED = ("fused_step=True needs a forward that a CUDA graph can "
-              "capture: the moe family and the behavioural sim path "
-              "(cim.use_kernel=False) draw their noise through eager ops "
-              "keyed by host integers, which a replay would freeze; "
+              "capture: the moe family, the behavioural sim path "
+              "(cim.use_kernel=False), sim mode with deploy=False on float "
+              "weights and cim_mode='qat' draw their noise through eager "
+              "ops keyed by host integers, which a replay would freeze; "
               "ROADMAP.md queues them behind a device-keyed Threefry-normal "
               "kernel")
 
@@ -317,6 +325,14 @@ def _ladder_draws(cfg: ModelConfig, mode: str, ladder) -> bool:
     return any(spec is not None and spec.cb and v is not None
                and v < spec.adc.mv_votes
                for spec in (pol.attn, pol.mlp) for v in ladder.votes)
+
+
+def _serves_planes(deployed: bool, mode: str, params: Any) -> bool:
+    """Whether sim mode serves deployed planes: the engine deploys them,
+    or the caller deployed the tree (``deploy=False`` over its planes),
+    which serves as the engine's own deploy would."""
+    return deployed or (mode == "sim" and isinstance(params, dict)
+                        and plane_summary(params)["planes"] > 0)
 
 
 def _resolve_deploy(deploy: Optional[bool], mode: str) -> bool:
@@ -468,8 +484,9 @@ class Engine:
                     "ladder requires fuse_layer=False: the per-layer "
                     "megakernel bypasses layers.dense, where the per-row "
                     "degraded-vote noise is applied")
+        planes = _serves_planes(self.deployed, mode, params)
         graphable = cfg.family in SEEDS_PER_LAYER and (
-            mode == "off" or cfg.cim.use_kernel and self.deployed)
+            mode == "off" or cfg.cim.use_kernel and planes)
         if fused_step is None:
             fused_step = (chunk_size > 0 and graphable
                           and self.guard is None)
@@ -494,7 +511,7 @@ class Engine:
                            if self.chunk_size else max_len)
         self.key = prng.PRNGKey(seed)
         self._sample_base = prng.fold_in(prng.PRNGKey(seed), 0x5A17)
-        self._width = _seed_width(cfg, mode, self.deployed, self.guard)
+        self._width = _seed_width(cfg, mode, planes, self.guard)
         # a brownout draws under fold_in(key, 0x0FA1), the ladder under
         # fold_in(key, 0xD364): on the seed-table path each a staged table
         folds = ()
@@ -1348,7 +1365,8 @@ class LoopEngine:
         self.max_len = max_len
         self.key = prng.PRNGKey(seed)
         self.deployed = _resolve_deploy(deploy, self.mode)
-        self._width = _seed_width(self.cfg, self.mode, self.deployed)
+        self._width = _seed_width(self.cfg, self.mode, _serves_planes(
+            self.deployed, self.mode, params))
         self._inputs = _Inputs(self.device,
                                _seed_units(self.cfg) * self._width, 0, 0)
         params = _to_device(params, self.device)
@@ -1456,7 +1474,7 @@ class LoopEngine:
 def _resolve(cfg: ModelConfig, cim_mode: Optional[str],
              attn_impl: Optional[str]) -> Tuple[ModelConfig, str]:
     """The config with an ``attn_impl`` override applied, and the CIM
-    mode; raises on what the port does not serve."""
+    mode; raises on what the engines do not serve."""
     tf.check_family(cfg)
     if cfg.family == "encdec":
         raise ValueError("encdec serving needs per-request encoder frames; "
@@ -1467,9 +1485,9 @@ def _resolve(cfg: ModelConfig, cim_mode: Optional[str],
                              f"got {attn_impl!r}")
         cfg = dataclasses.replace(cfg, attn_impl=attn_impl)
     mode = cim_mode if cim_mode is not None else cfg.cim.mode
-    if mode not in ("off", "sim"):
-        raise NotImplementedError(f"cim mode {mode!r} is not ported yet "
-                                  "(ROADMAP.md)")
+    if mode not in ("off", "qat", "sim"):
+        raise ValueError(f"cim_mode must be 'off', 'qat' or 'sim', "
+                         f"got {mode!r}")
     return cfg, mode
 
 

@@ -7,7 +7,9 @@ autograd, accumulated in f32 over ``microbatches`` slices of the batch
 (microbatch ``i`` keyed ``fold_in(key, i)``), then one AdamW step.
 ``Trainer`` drives it: checkpoint and auto-resume from the latest step,
 a checkpoint on SIGTERM (preemption), and a step-deadline watchdog that
-logs stragglers. Int8 gradient compression is ROADMAP A7.
+logs stragglers. ``compress_grads`` applies the int8 transfer function of
+``distributed.compression.simulate_compression`` to the step's gradients
+under ``fold_in(key, 0x5EED)``, as the reference's one-device step does.
 """
 
 from __future__ import annotations
@@ -23,12 +25,10 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import prng
+from repro_torch.distributed.compression import simulate_compression
 from repro_torch.models.model import build
 from repro_torch.training import optimizer as opt_mod
 from repro_torch.training.checkpoint import CheckpointManager
-
-_COMPRESS = ("int8 gradient compression (distributed/compression.py) is not "
-             "ported yet; ROADMAP.md item A7")
 
 
 def _leaves_with_grad(params: Any) -> Any:
@@ -40,8 +40,6 @@ def make_train_step(cfg: ModelConfig, opt_cfg: opt_mod.OptConfig,
     """Returns ``train_step(params, opt_state, batch, key) -> (params,
     opt_state, metrics)``; ``batch`` is a dict of tensors with the batch on
     the leading axis, ``key`` a Threefry key."""
-    if compress_grads:
-        raise NotImplementedError(_COMPRESS)
     api = build(cfg)
 
     def grads_of(params, batch, key):
@@ -70,6 +68,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: opt_mod.OptConfig,
             inv = 1.0 / microbatches
             loss = loss * inv
             grads = opt_mod.tree_map(lambda g: g * inv, grads)
+        if compress_grads:
+            grads = simulate_compression(grads, prng.fold_in(key, 0x5EED))
         params, opt_state, info = opt_mod.apply_updates(params, grads,
                                                         opt_state, opt_cfg)
         return params, opt_state, {"loss": loss, **info}

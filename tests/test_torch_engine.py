@@ -143,8 +143,12 @@ def test_session_api_cancel_and_slot_reuse(setup):
 def test_unported_options_and_bad_requests_raise(setup, monkeypatch):
     cfg_of, _, tp, _ = setup
     cfg = cfg_of(get_config("qwen2-0.5b"), False)
+    # cim_mode="qat" is ported: it serves per call on the float weights;
+    # an option the reference does not have still raises
+    qat = Engine(cfg, tp, device="cpu", cim_mode="qat")
+    assert qat.mode == "qat" and not qat.deployed and not qat.fused_step
     with pytest.raises(NotImplementedError):
-        Engine(cfg, tp, device="cpu", cim_mode="qat")
+        Engine(cfg, tp, device="cpu", mesh=None)
     # replica= is ported: the engine keeps its label, as the reference's
     eng = Engine(cfg, tp, device="cpu", replica="r0")
     assert eng.replica == "r0" and eng.dead is None and not eng.wedged
@@ -208,6 +212,12 @@ def _imports(path: pathlib.Path):
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    # the distribution package and the port's examples are scanned too
+    dist = sorted((ROOT / "src" / "repro_torch" / "distributed").glob("*.py"))
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert len(dist) >= 4 and len(examples) == 4
+    assert set(dist) <= set(files)
+    files += examples
     assert len(files) > 20
     for f in files:
         for mod in _imports(f):

@@ -740,13 +740,13 @@ def test_cancel_outcome_and_lifecycle_equal_jax(jparams, setup):
 
 
 def test_engine_options_raise_as_reference(setup):
-    """``cim_mode="qat"`` is not ported yet (NotImplementedError) and
+    """``cim_mode="qat"`` serves per call on the float weights and
     ``replica=`` labels the engine, as the reference's; ``ladder`` with
     ``guard`` or ``fuse_layer`` raises the reference's ValueError; a
     laddered engine clamps a request's level to its rungs."""
     cfg, params = setup
-    with pytest.raises(NotImplementedError):
-        _engine(cfg, params, cim_mode="qat")
+    qat = _engine(cfg, params, cim_mode="qat")
+    assert qat.mode == "qat" and not qat.deployed and not qat.fused_step
     assert _engine(cfg, params, replica="r0").replica_of(
         Request(prompt=np.arange(3))) == "r0"
     jcfg = _tiny(jget)

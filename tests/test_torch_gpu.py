@@ -1079,3 +1079,63 @@ def test_laddered_engine_replayed_equals_per_call_and_cpu(cuda, arch):
     eng = runs["replayed"][2]
     assert eng.replay_count > 0 and eng.fallbacks == 0
     assert runs["no_ladder"][0] != runs["replayed"][0]
+
+
+def test_qat_engine_card_equals_cpu(cuda):
+    """``cim_mode="qat"`` (fake-quant plus readout noise under the layer's
+    host key, served per call): the reduced qwen2's first 4 greedy tokens
+    card = CPU on ``chip_smoke.py``'s ``serve_qat`` requests, on the
+    undeployed weights; ``fused_step=True`` raises. qat's float matmuls
+    and its batch activation scale sum in another order on the card, so
+    an activation exactly on a rounding tie can round the other way (a
+    1-token prompt at chunk 16 put one at x / scale = -2.5 on the CPU;
+    ROADMAP C2)."""
+    cfg = _reduced("qwen2-0.5b", mode="qat")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (40, 90, 57)]
+    outs = {}
+    for dev in (cuda, "cpu"):
+        eng = Engine(cfg, params, max_slots=2, max_len=128,
+                     attn_impl="kernel", device=dev)
+        assert not eng.deployed and not eng.fused_step
+        outs[str(dev)] = [o[:4] for o in eng.generate(
+            [Request(prompt=p, max_new_tokens=4, rid=f"q{i}")
+             for i, p in enumerate(prompts)])]
+    assert outs["cuda"] == outs["cpu"]
+    with pytest.raises(NotImplementedError, match="qat"):
+        Engine(cfg, params, fused_step=True, device=cuda)
+
+
+def test_sharded_row1_shard_equals_column_slice(cuda):
+    """Row 1 (``cim_matmul_fused``, readout noise 0) on each model-axis
+    shard of a deployed q and gate plane, resolved by the default rules on
+    a (data 1, model 2) mesh, equals the matching column slice of the
+    whole plane's output exactly, and its plain version."""
+    from repro_torch.distributed.sharding import (VirtualMesh, default_rules,
+                                                  local_slice)
+    from repro_torch.models.model import param_specs
+    cfg = _reduced("qwen2-0.5b")
+    plain = deploy(cfg, init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0), cuda))
+    vm = VirtualMesh.make(data=1, model=2)
+    rules, axes = default_rules(vm), param_specs(cfg)[1]
+    pol = sac.paper_sac()
+    g = torch.Generator(device=cuda).manual_seed(7)
+    for block, name, spec in (("attn", "q", pol.attn),
+                              ("mlp", "gate", pol.mlp)):
+        wq = plain["blocks"][block][name][f"wq{spec.w_bits}"]
+        pspec = rules.param_spec(axes["blocks"][block][name]["w"],
+                                 tuple(wq.shape))
+        assert pspec[-1] == "model"
+        x = torch.randn((8, cfg.d_model), generator=g, device=cuda)
+        qp = torch.tensor([0.02, 1e-3], device=cuda)
+        full = cim_matmul_fused(x, wq[0], qp, (1, 2), 0.0, spec.in_bits)
+        n = wq.shape[-1] // 2
+        for r in range(2):
+            shard = wq[local_slice(pspec, wq.shape, vm,
+                                   {"data": 0, "model": r})][0].contiguous()
+            y = cim_matmul_fused(x, shard, qp, (1, 2), 0.0, spec.in_bits)
+            assert torch.equal(y, full[:, r * n:(r + 1) * n])
+            assert torch.equal(y, cim_matmul_fused_plain(
+                x, shard, qp, (1, 2), 0.0, spec.in_bits))

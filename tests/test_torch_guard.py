@@ -274,8 +274,9 @@ def test_engine_options_raise_as_the_reference(setup):
                device="cpu", guard=True)
     with pytest.raises(ValueError, match="LoopEngine"):
         LoopEngine(tc, tp, drift=DriftSpec(walk_gain_std=0.1), device="cpu")
-    with pytest.raises(NotImplementedError):
-        Engine(tc, tp, device="cpu", cim_mode="qat")
+    # qat (ported) has no deployed planes, so a guard raises there too
+    with pytest.raises(ValueError, match="guard requires cim_mode='sim'"):
+        Engine(tc, tp, device="cpu", cim_mode="qat", guard=True)
     assert Engine(tc, tp, device="cpu", replica="r0").replica == JEngine(
         jc, jp, replica="r0").replica == "r0"
     # deploy=False serves sim mode on the float weights, quantized per

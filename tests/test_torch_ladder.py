@@ -218,6 +218,23 @@ def _tiny(get):
         cim=dataclasses.replace(cfg.cim, use_kernel=True))
 
 
+def _close_host_buffer_race(eng):
+    """The JAX engine hands its per-slot numpy buffers (levels, sampling
+    keys) to computations that CPU dispatch may run later, and writes them
+    in place when a slot is freed or admitted (ROADMAP C8): a laddered
+    decode can then read a freed slot's level as 0. Wait for the engine's
+    last dispatched step before each such write, as a synchronous
+    dispatch would; the reference's code is not changed."""
+    for name in ("_free_slot", "_admit"):
+        real = getattr(eng, name)
+
+        def synced(*a, _real=real, **k):
+            jax.block_until_ready((eng.last_tok, eng.caches))
+            return _real(*a, **k)
+
+        setattr(eng, name, synced)
+
+
 def test_laddered_sim_session_equal_jax():
     """A laddered engine (sim, the CIM kernel path: the ladder's draw reads
     the staged ``0xD364`` fold table) serving requests at levels 0, 1, 2
@@ -238,8 +255,10 @@ def test_laddered_sim_session_equal_jax():
                 for i, (p, lv) in enumerate(zip(prompts, lvls))]
 
     kw = dict(max_slots=2, max_len=32, cim_mode="sim", chunk_size=8)
-    ref = JEngine(jcfg, jp, fused_step=False,
-                  ladder=jsac.DegradeLadder(), **kw).generate(reqs(JRequest))
+    jeng = JEngine(jcfg, jp, fused_step=False, ladder=jsac.DegradeLadder(),
+                   **kw)
+    _close_host_buffer_race(jeng)
+    ref = jeng.generate(reqs(JRequest))
     eng = Engine(cfg, params, device="cpu", ladder=sac.DegradeLadder(), **kw)
     got = eng.generate(reqs(Request))
     assert layers.DEGRADE_FOLD in eng._folds and eng._width

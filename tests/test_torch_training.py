@@ -177,12 +177,13 @@ def test_checkpoint_keep_k_and_restore(tmp_path):
 
 
 def test_straggler_log_and_unported_compression(tmp_path):
+    """Slow steps are logged; int8 gradient compression, ported since,
+    builds a step (its numbers: test_torch_compression.py)."""
     out = _trainer(tmp_path, "s", 2, step_deadline_s=1e-9).run(
         prng.PRNGKey(0), resume=False)
     assert [s for s, _ in out["slow_steps"]] == [0, 1]
-    with pytest.raises(NotImplementedError, match="A7"):
-        make_train_step(_tiny(get_config("qwen2-0.5b")), opt.OptConfig(),
-                        compress_grads=True)
+    assert callable(make_train_step(_tiny(get_config("qwen2-0.5b")),
+                                    opt.OptConfig(), compress_grads=True))
 
 
 def test_train_cli_on_the_cpu(tmp_path, capsys):
@@ -193,6 +194,9 @@ def test_train_cli_on_the_cpu(tmp_path, capsys):
     assert np.isfinite(float(out["metrics"]["loss"]))
     assert CheckpointManager(str(tmp_path)).all_steps() == [2]
     assert "done: steps=2" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="A7"):
-        train_cli.main(["--reduced", "--steps", "1", "--device", "cpu",
-                        "--compress-grads", "--ckpt-dir", str(tmp_path)])
+    out = train_cli.main(["--reduced", "--steps", "1", "--batch", "2",
+                          "--seq", "16", "--device", "cpu",
+                          "--compress-grads",
+                          "--ckpt-dir", str(tmp_path / "c")])
+    assert out["last_step"] == 1
+    assert np.isfinite(float(out["metrics"]["loss"]))
