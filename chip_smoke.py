@@ -36,7 +36,7 @@ attention: the latent-cache decode kernel against its plain version at
 deepseek-v2 width (with two deliberately wrong inputs that the tolerance
 must catch) and the CIM kernel at deepseek-v2's shapes, card-vs-CPU greedy
 tokens of the reduced deepseek-v2 in off and sim mode, deepseek-v2-236b at
-every published width and 2 of its 60 layers served with exact launch
+every published width and 1 of its 60 layers served with exact launch
 counts and its peak memory, and the kernel's times (CUDA events) beside
 one scaled_dot_product_attention call and the earlier body's time. The f32-query GQA prefill of the float32 cells is
 held against its plain version, its block counts against their closed
@@ -87,7 +87,7 @@ internlm2-1.8b (head dim 128), pixtral-12b with a patch prefix,
 zamba2-7b (hybrid; replayed and per call, which must agree in tokens and
 launch counts) and whisper-medium (encdec, on stub frames)
 (``arch_parity``); internlm2-1.8b, phi3-mini-3.8b, deepseek-67b (32 of
-its 95 layers), pixtral-12b, olmoe-1b-7b (4 of its 16 layers) and
+its 95 layers), pixtral-12b, olmoe-1b-7b (2 of its 16 layers) and
 zamba2-7b (all 81) served at full width with exact launch counts, every
 kernel call of a prefill chunk and of a decode step (the selective scan
 too) held against its plain version on its own operands, the step's
@@ -129,8 +129,17 @@ a 2-stage pipeline through row 5 equal to the sequential stack in
 outputs and gradients, and full-width qwen2-0.5b deployed on a (data 1,
 model 2) mesh with every local shard bit-equal to its slice of the
 whole plane and row 1 on the q and gate shards equal to the column
-slices (``distributed``). Every phase prints one JSON line; any failure
-exits non-zero. The last line is the device record.
+slices (``distributed``). Then the models' sharded forward (A7.2): row
+1's row-parallel pair (``cim_tile_partials``, ``cim_tile_merge``) at
+qwen2's o and down shards against its plain version and bit-equal to the
+whole plane's launch, timed beside it (``tile_kernels``); full-width
+qwen2-0.5b tensor-parallel on the same pair of ranks, (data 1, model 2),
+against its one-rank forward (tokens, logits, row 1's shards bit-equal
+with the noise on), and full-width olmoe-1b-7b (2 of 16 layers)
+expert-parallel on four spawned ranks, (data 2, model 2), against the
+grouped one-rank forward (``tensor_parallel``). Every phase prints one
+JSON line; any failure exits non-zero. The last line is the device
+record.
 """
 
 from __future__ import annotations
@@ -337,9 +346,10 @@ def cim_case(g, m, wq, spec):
                               spec.in_bits)
 
 
-def cim_operands_check(x, wq, qp, seed, sigma, in_bits):
+def cim_operands_check(x, wq, qp, seed, sigma, in_bits, row0=0, col0=0):
     """The CIM kernel against its plain version on the card, on the given
-    operands: sigma = 0 gives the integer part, which must match exactly
+    operands (``row0``/``col0``: a shard's noise offsets): sigma = 0 gives
+    the integer part, which must match exactly
     (both quantize x by the same IEEE division and rint; every tile sum is
     an integer below 2^24 and so is the f32 total); with the noise of
     ``seed``, Box-Muller's logf/cosf differ from the CPU's by ulps:
@@ -355,8 +365,8 @@ def cim_operands_check(x, wq, qp, seed, sigma, in_bits):
     if not torch.equal(ex, ep):
         fail(f"cim_matmul_fused integer part differs at M={m} K={k} N={n} "
              f"bits={in_bits} x {x.dtype}: {(ex - ep).abs().max().item()}")
-    yk = cim_matmul_fused(x, wq, qp, seed, sigma, in_bits)
-    yp = cim_matmul_fused_plain(x, wq, qp, seed, sigma, in_bits)
+    yk = cim_matmul_fused(x, wq, qp, seed, sigma, in_bits, row0, col0)
+    yp = cim_matmul_fused_plain(x, wq, qp, seed, sigma, in_bits, row0, col0)
     err = (yk - yp).abs().max().item()
     tol = (1e-6 * -(-k // 1024) * yp.abs().max().item()
            + 1e-5 * sigma * abs(qp[1].item()))
@@ -2537,12 +2547,13 @@ def phase_times_ssm():
 # the moe family with MLA attention: deepseek-v2-236b at full width, every
 # decode step of every layer through the latent-cache kernel
 # mla_decode_attention; the kernel's times over four layers' caches, the
-# served cell F at two of its 60 layers (four, the depth one card holds,
-# until the session's 55 s were cut for the script's time)
+# served cell F at one of its 60 layers (four, the depth one card holds,
+# until the session's 55 s were cut to two, then one, for the script's
+# time)
 MLA_TOL = {"float32": 1e-5, "bfloat16": 2 ** -7}   # times the row's max
 MLA_LENS = (301, 138, 96, 212)         # the session's lengths + the token
 MLA_LAYERS = 4
-MLA_SERVED_LAYERS = 2
+MLA_SERVED_LAYERS = 1
 
 
 def mla_config(mode="sim", reduced=False):
@@ -2689,7 +2700,7 @@ def phase_mla_parity():
 
 
 def phase_serve_mla(params):
-    """Cell F: deepseek-v2-236b at full width, 2 of 60 layers, bf16, sim
+    """Cell F: deepseek-v2-236b at full width, 1 of 60 layers, bf16, sim
     mode, the session of cells A-E. Launch counts must hold exactly:
     mla_decode_attention 4 per decode step; cim_matmul_fused 9 per layer per
     chunk (dq, uq, dkv, uk, uv, o, shared gate/up/down) and 7 per layer per
@@ -2699,6 +2710,8 @@ def phase_serve_mla(params):
     from repro_torch.core import prng
     from repro_torch.kernels.cim_matmul import cim_matmul_fused
     from repro_torch.kernels.cim_matmul import cim_matmul_int8
+    from repro_torch.kernels.cim_matmul import (cim_tile_merge,
+                                                cim_tile_partials)
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_gqa_attention)
@@ -3550,9 +3563,10 @@ def _vit_row1_parity(cfg, params, name):
 
     calls, real = [], kops.cim_matmul_fused
 
-    def record(x2, wq, qp, seed, sigma, in_bits):
+    def record(x2, wq, qp, seed, sigma, in_bits, **offsets):
+        # the ViT's products are whole: their noise offsets are zero
         calls.append((x2.clone(), wq, qp.clone(), seed, sigma, in_bits))
-        return real(x2, wq, qp, seed, sigma, in_bits)
+        return real(x2, wq, qp, seed, sigma, in_bits, **offsets)
     kops.cim_matmul_fused = record
     try:
         card = forward(dep, x)
@@ -4678,12 +4692,12 @@ def phase_serve_router(params):
 # hybrid, served at full width through the engine (whisper-medium, which
 # the token-only engine does not serve, is decoded by cached forwards in
 # ``serve_whisper``); two depth cuts: deepseek-67b's 95 layers (126 GB of
-# bf16 weights) to 32, and olmoe-1b-7b's 16 to 4 for the script's time
-# (its eager expert banks took 97 s at 16 layers; 4 run the same kernels
-# and the same banks)
+# bf16 weights) to 32, and olmoe-1b-7b's 16 to 2 for the script's time
+# (its eager expert banks took 97 s at 16 layers; 2 run the same kernels
+# and the same banks; phase tensor_parallel serves it at 2 layers too)
 ARCHS = ("internlm2-1.8b", "phi3-mini-3.8b", "deepseek-67b", "pixtral-12b",
          "olmoe-1b-7b", "zamba2-7b")
-ARCH_LAYERS = {"deepseek-67b": 32, "olmoe-1b-7b": 4}
+ARCH_LAYERS = {"deepseek-67b": 32, "olmoe-1b-7b": 2}
 ARCH_PEAK_GIB = 72.0       # deepseek-67b at 32 layers must stay under it
 # off-mode logits, kernels against plain versions on the card, per row:
 # max |error| over the row's largest |logit|. Sound runs read at most
@@ -5958,11 +5972,12 @@ def _dist_pipeline(rank, world):
     return out
 
 
-def _dist_deploy(rank, world):
+def _dist_deploy(rank, world, keep):
     """``deploy(rules=)`` of full-width qwen2-0.5b on a (data 1, model
     world) mesh: every plane's local shard bit-equal to its slice of the
     unsharded plane; row 1 (noise 0) on layer 0's q and gate shards equal
-    to the column slice of the whole plane's output."""
+    to the column slice of the whole plane's output. Both trees and the
+    rules stay in ``keep`` for ``_dist_tp``."""
     import torch
     from torch.distributed.tensor import DTensor
     from repro_torch.core.deploy import (deploy, init_params,
@@ -6024,6 +6039,146 @@ def _dist_deploy(rank, world):
         out[f"row1_{name}_cols"] = n
         out[f"row1_{name}_equal"] = bool(torch.equal(
             y, y_all[:, rank * n:(rank + 1) * n]))
+    keep.update(rules=rules, plain=plain, shard=shard)
+    return out
+
+
+TP_NEW = 4             # greedy decode steps of the tensor-parallel session
+TP_PROMPT = (4, 32)    # its prefill: rows x tokens
+TP_TOL = 1e-5          # TP logits vs one rank: times a row's max |logit|
+TP_ROWS = (4, 128)     # row 1's shard checks: a decode step's, a chunk's M
+TP_KERNELS = ("cim_matmul_fused", "cim_tile_partials", "cim_tile_merge",
+              "decode_attention", "flash_gqa_attention")
+
+
+def _launches():
+    from repro_torch.kernels import cim_matmul as cm
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_gqa_attention
+    return (cm.cim_matmul_fused, cm.cim_tile_partials, cm.cim_tile_merge,
+            decode_attention, flash_gqa_attention)
+
+
+def _greedy(cfg, params, rules, batch, key, steps, b, timed):
+    """Prefill ``batch`` then ``steps`` greedy tokens through ``forward``
+    with caches under ``rules``: the last position's global logits of
+    every forward (f32), the tokens, host ms of each decode step."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.distributed.sharding import use_rules
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model import build
+    from repro_torch.models.parallel import gather_logits
+    api = build(cfg)
+    logits, tokens, ms = [], [], []
+    with use_rules(rules):
+        caches = tf.init_caches(cfg, b, batch.shape[1] + steps + 1, "cuda")
+        for i in range(steps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, _ = api.forward(params, {"tokens": batch},
+                                 prng.fold_in(key, i), caches)
+            full = gather_logits(cfg, out, b)[:, -1].float()
+            torch.cuda.synchronize()
+            if i and timed:
+                ms.append(1e3 * (time.perf_counter() - t0))
+            nxt = full.argmax(-1)
+            logits.append(full)
+            tokens.append(nxt.tolist())
+            batch = nxt[:, None]
+    return logits, tokens, ms
+
+
+def _dist_tp(rank, world, keep):
+    """(a) of phase ``tensor_parallel``: full-width bf16 qwen2-0.5b in sim
+    on the CIM kernel and the attention kernels, tensor-parallel on a
+    (data 1, model 2) mesh (7 of 14 query heads over 1 of 2 KV heads a
+    rank, d_ff 2432 a rank), a 4 x 32 prefill and 4 greedy decode steps;
+    rank 0 also runs the one-rank forward of the same planes. Then row 1
+    on layer 0's shards with the noise on: q and gate column shards
+    against the whole plane's slice, o and down row shards (partials, an
+    int32 all-reduce, the merge) against the whole launch."""
+    import torch
+    from repro_torch.core import prng, quant
+    from repro_torch.core.sac import get_policy
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed import pipeline
+    from repro_torch.kernels import ops
+    cfg = dataclasses.replace(full_config(False), attn_impl="kernel")
+    rules, plain, shard = keep["rules"], keep["plain"], keep["shard"]
+    b, s = TP_PROMPT
+    g = torch.Generator(device="cuda").manual_seed(11)
+    batch = torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                          device="cuda")
+    key = prng.PRNGKey(21)
+    for f in _launches():
+        f.launches = 0
+    for k in col.COUNTS:
+        col.COUNTS[k] = 0
+    staged0 = pipeline.HOST_STAGED
+    logits, tokens, ms = _greedy(cfg, shard, rules, batch, key, TP_NEW, b,
+                                 True)
+    out = {"launches": {f.__name__: f.launches for f in _launches()},
+           "collectives": dict(col.COUNTS),
+           "host_staged": pipeline.HOST_STAGED - staged0,
+           "tp_step_ms": float(np.mean(ms)), "tokens": tokens,
+           "finite": bool(all(torch.isfinite(x).all() for x in logits))}
+    def plane_bytes(node):
+        if not isinstance(node, dict):
+            return 0
+        return sum(plane_bytes(v) if isinstance(v, dict) else
+                   v.to_local().numel() * v.to_local().element_size()
+                   if k.startswith(("wq", "ws")) else 0
+                   for k, v in node.items())
+
+    out["plane_bytes_rank"] = plane_bytes(shard)
+    if rank == 0:
+        one, one_tokens, one_ms = _greedy(cfg, plain, None, batch, key,
+                                          TP_NEW, b, True)
+        out["one_step_ms"] = float(np.mean(one_ms))
+        out["one_tokens"] = one_tokens
+        out["logit_err"] = max(
+            float(((a - c).abs().amax(-1) / c.abs().amax(-1)).max())
+            for a, c in zip(logits, one))
+        out["logits_bit_equal"] = [bool(torch.equal(a, c))
+                                   for a, c in zip(logits, one)]
+    # row 1 on layer 0's shards, noise on
+    lm = col.live_mesh(rules)
+    pol = get_policy(cfg.cim.policy)
+    eq = {}
+    for blk, name, role in (("attn", "q", "attn_qkv"), ("mlp", "gate",
+                                                        "mlp_in"),
+                            ("attn", "o", "attn_out"), ("mlp", "down",
+                                                        "mlp_out")):
+        spec = pol.spec_for_role(role)
+        bits = spec.w_bits
+        whole = plain["blocks"][blk][name][f"wq{bits}"][0]
+        ws = plain["blocks"][blk][name][f"ws{bits}"][0]
+        part = shard["blocks"][blk][name][f"wq{bits}"].to_local()[0]
+        k_dim, n_dim = whole.shape
+        for m in TP_ROWS:
+            gx = torch.Generator(device="cuda").manual_seed(m + k_dim)
+            x = torch.randn((m, k_dim), generator=gx,
+                            device="cuda").bfloat16()
+            xs = 4.0 * torch.sqrt(torch.mean(x.float() ** 2)) / \
+                quant.qmax(spec.in_bits)
+            want = ops.cim_matmul_deployed(x, whole, ws, spec,
+                                           prng.PRNGKey(3), x_scale=xs)
+            if part.shape[1] < n_dim:          # column shard
+                n = part.shape[1]
+                got = ops.cim_matmul_deployed(
+                    x, part.contiguous(), ws, spec, prng.PRNGKey(3),
+                    x_scale=xs, col0=rank * n)
+                ok = torch.equal(got, want[:, rank * n:(rank + 1) * n])
+            else:                              # row shard
+                kl = part.shape[0]
+                got = ops.cim_matmul_deployed_rows(
+                    x[:, rank * kl:(rank + 1) * kl], part.contiguous(), ws,
+                    spec, prng.PRNGKey(3), xs, rank * kl, k_dim,
+                    lambda t: col.all_reduce(t, "model", lm))
+                ok = torch.equal(got, want)
+            eq[f"{name}_m{m}"] = bool(ok)
+    out["row1_shards_bit_equal"] = eq
     return out
 
 
@@ -6042,9 +6197,11 @@ def _dist_rank(rank, world, run_dir):
     try:
         out = {"rank": rank, "world": dist.get_world_size(),
                "up_s": time.perf_counter() - T0}
+        keep = {}
         for name, fn in (("compress", _dist_compress),
                          ("pipeline", _dist_pipeline),
-                         ("deploy", _dist_deploy)):
+                         ("deploy", lambda r, w: _dist_deploy(r, w, keep)),
+                         ("tp", lambda r, w: _dist_tp(r, w, keep))):
             t0 = time.perf_counter()
             out[name] = fn(rank, world)
             out[name]["s"] = time.perf_counter() - t0
@@ -6055,26 +6212,22 @@ def _dist_rank(rank, world, run_dir):
         json.dump(out, f)
 
 
-def phase_distributed():
-    """A7.1 on the card: two ranks spawned on the one H100 over a gloo
-    process group with CUDA tensors (NCCL refuses two ranks on one
-    device; gloo's point-to-point send and receive take no CUDA tensor, so
-    the pipeline stages those hand-offs through host memory and counts
-    them). This shows the code runs on the card; it measures no
-    scale-out. The kernels are built by this process first, so the ranks
-    load the library and never build. Fails unless both ranks come up and
-    every check holds. Returns the seconds."""
+def _spawn(target, world, name):
+    """Spawn ``world`` ranks of ``target(rank, world, run_dir)`` on the one
+    card (the kernels built by this process first, so the ranks load the
+    library and never build) and return their results, rank order. A rank
+    that raises, dies, hangs past twice ``DIST_TIMEOUT_S`` or writes no
+    result fails the phase ``name``."""
     import shutil
     import torch.multiprocessing as mp
     from repro_torch.kernels import _build
     _build.library()
-    t0 = time.perf_counter()
-    run_dir = os.path.join(ROOT, "build", "chip_smoke_dist")
+    run_dir = os.path.join(ROOT, "build", f"chip_smoke_{name}")
     shutil.rmtree(run_dir, ignore_errors=True)
     os.makedirs(run_dir)
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
-    ctx = mp.start_processes(_dist_rank, args=(DIST_WORLD, run_dir),
-                             nprocs=DIST_WORLD, join=False,
+    ctx = mp.start_processes(target, args=(world, run_dir),
+                             nprocs=world, join=False,
                              start_method="spawn")
     deadline = time.perf_counter() + 2 * DIST_TIMEOUT_S
     try:
@@ -6086,15 +6239,30 @@ def phase_distributed():
         for proc in ctx.processes:
             if proc.is_alive():
                 proc.kill()
-        fail(f"distributed: a rank failed: {e}")
+        fail(f"{name}: a rank failed: {e}")
     res = []
-    for r in range(DIST_WORLD):
+    for r in range(world):
         path = os.path.join(run_dir, f"rank{r}.json")
         if not os.path.exists(path):
-            fail(f"distributed: rank {r} of {DIST_WORLD} wrote no result")
+            fail(f"{name}: rank {r} of {world} wrote no result")
         with open(path) as f:
             res.append(json.load(f))
     shutil.rmtree(run_dir, ignore_errors=True)
+    return res
+
+
+def phase_distributed():
+    """A7.1 on the card: two ranks spawned on the one H100 over a gloo
+    process group with CUDA tensors (NCCL refuses two ranks on one
+    device; gloo's point-to-point send and receive take no CUDA tensor, so
+    the pipeline stages those hand-offs through host memory and counts
+    them). This shows the code runs on the card; it measures no
+    scale-out. The same pair then runs (a) of ``tensor_parallel``
+    (``_dist_tp``), whose results it returns for that phase. Fails unless
+    both ranks come up and every check holds. Returns the seconds and the
+    ranks' results."""
+    t0 = time.perf_counter()
+    res = _spawn(_dist_rank, DIST_WORLD, "distributed")
     problems = []
     for r in res:
         c, p, d = r["compress"], r["pipeline"], r["deploy"]
@@ -6111,7 +6279,8 @@ def phase_distributed():
             problems.append(f"rank {r['rank']} deploy {d}")
     if problems:
         fail("distributed: " + "; ".join(problems))
-    seconds = time.perf_counter() - t0
+    # the pair's tensor-parallel step is phase tensor_parallel's time
+    seconds = time.perf_counter() - t0 - max(r["tp"]["s"] for r in res)
     emit("distributed", ranks=DIST_WORLD, backend="gloo", device="cuda:0",
          scale_out_measured=False,
          compress={"bit_equal_one_process": True,
@@ -6142,7 +6311,339 @@ def phase_distributed():
          part_s={k: [r[k]["s"] for r in res]
                  for k in ("compress", "pipeline", "deploy")},
          seconds=seconds)
-    return seconds
+    return seconds, res
+
+
+ROW_PAR = (("o", "attn_out", 896, 896), ("down", "mlp_out", 4864, 896))
+
+
+def phase_tile_kernels():
+    """Row 1's row-parallel pair (``cim_tile_partials``, ``cim_tile_merge``)
+    at qwen2-0.5b's o and down planes split over two ranks' rows (down's
+    cut at 2432 inside macro tile 2), at M 4 (a decode step) and M 128 (a
+    4 x 32 prefill): each rank's partials against their plain version
+    (exact integers), the merge of their sum against its plain version
+    (the noise's ulps) and bit-equal to one ``cim_matmul_fused`` launch on
+    the whole plane (else the phase fails). Times (device ms, the
+    profiler) of rank 0's partials and of the merge over the 24 layers'
+    o and down, beside the whole plane's launch at the same shape; bounds
+    from the bytes and the int8 operations (partials) or the noise's
+    integer operations (merge); the yardstick of the partials at M 128
+    ``torch._int_mm`` of the same int8 shard product (no tiles, no
+    quantization). Returns the errors, the kernels line's times (M 4) and
+    the seconds."""
+    import torch
+    from repro_torch.core import quant
+    from repro_torch.core.cim import output_noise_std_int_per_tile
+    from repro_torch.core.sac import paper_sac
+    from repro_torch.kernels import cim_matmul as cm
+    t_start = time.perf_counter()
+    pol = paper_sac()
+    dev = torch.device("cuda")
+    layers, seed = 24, (5, 6)
+    errs = {"cim_tile_partials": 0.0, "cim_tile_merge": 0.0}
+    times = {}
+    for m in (4, 128):
+        calls = []
+        for name, role, k, n in ROW_PAR:
+            spec = pol.spec_for_role(role)
+            bits = spec.in_bits
+            g = torch.Generator(device=dev).manual_seed(m + k)
+            x = torch.randn((m, k), generator=g, device=dev).bfloat16()
+            wq = torch.randint(-31, 32, (k, n), generator=g, device=dev,
+                               dtype=torch.int8)
+            xs = 4.0 * torch.sqrt(torch.mean(x.float() ** 2)) / \
+                quant.qmax(bits)
+            qp = torch.stack([xs, xs * 0.0125])
+            sigma = output_noise_std_int_per_tile(spec, k)
+            h = k // 2
+            total = None
+            for r in range(2):
+                xr = x[:, r * h:(r + 1) * h].contiguous()
+                wr = wq[r * h:(r + 1) * h].contiguous()
+                part = cm.cim_tile_partials(xr, wr, qp, bits, r * h, k)
+                ref = cm.cim_tile_partials_plain(xr, wr, qp, bits, r * h, k)
+                errs["cim_tile_partials"] = max(
+                    errs["cim_tile_partials"],
+                    float((part - ref).abs().max()))
+                total = part if total is None else total + part
+                if r == 0:
+                    x0, w0 = xr, wr
+            y = cm.cim_tile_merge(total, qp, seed, sigma)
+            yp = cm.cim_tile_merge_plain(total, qp, seed, sigma)
+            errs["cim_tile_merge"] = max(errs["cim_tile_merge"],
+                                         float((y - yp).abs().max()))
+            if not torch.equal(y, cm.cim_matmul_fused(x, wq, qp, seed, sigma,
+                                                      bits)):
+                fail(f"tile_kernels: {name} M={m}: partials + merge != the "
+                     f"whole plane's launch")
+            calls.append((x, wq, x0, w0, qp, total, sigma, bits, k, n))
+
+        def run_part():
+            for _, _, x0, w0, qp, _, _, bits, k, _ in calls:
+                for _ in range(layers):
+                    cm.cim_tile_partials(x0, w0, qp, bits, 0, k)
+
+        def run_merge():
+            for *_, qp, total, sigma, _, _, _ in calls:
+                for _ in range(layers):
+                    cm.cim_tile_merge(total, qp, seed, sigma)
+
+        def run_whole():
+            for x, wq, _, _, qp, _, sigma, bits, _, _ in calls:
+                for _ in range(layers):
+                    cm.cim_matmul_fused(x, wq, qp, seed, sigma, bits)
+
+        def run_part_plain():
+            for _, _, x0, w0, qp, _, _, bits, k, _ in calls:
+                for _ in range(layers):
+                    cm.cim_tile_partials_plain(x0, w0, qp, bits, 0, k)
+
+        def run_merge_plain():
+            for *_, qp, total, sigma, _, _, _ in calls:
+                for _ in range(layers):
+                    cm.cim_tile_merge_plain(total, qp, seed, sigma)
+
+        part_ms, merge_ms = device_ms(run_part, 3), device_ms(run_merge, 3)
+        whole_ms = device_ms(run_whole, 3)
+        # the plain versions at the kernels line's unit (M 4) only
+        part_plain = merge_plain = None
+        if m == 4:
+            part_plain, merge_plain = (device_ms(run_part_plain, 1),
+                                       device_ms(run_merge_plain, 1))
+        pb = po = mb = mn = 0
+        for _, _, x0, w0, _, total, _, _, k, n in calls:
+            touched = cm.tile_span(0, k // 2)[1]
+            pb += x0.numel() * 2 + w0.numel() + touched * m * n * 4
+            po += 2 * m * (k // 2) * n
+            mb += total.numel() * 4 + m * n * 4
+            mn += total.numel() * NOISE_INT_OPS
+        pb, po, mb, mn = (layers * v for v in (pb, po, mb, mn))
+        lib_ms = None
+        if m > 16:
+            lib = [(x0.float().round().clamp(-31, 31).to(torch.int8),
+                    w0.t().contiguous().t()) for _, _, x0, w0, *_ in calls]
+
+            def run_lib():
+                for xq, wcol in lib:
+                    for _ in range(layers):
+                        torch._int_mm(xq, wcol)
+
+            lib_ms = device_ms(run_lib, 3)
+        unit = (f"rank 0's shards of one {'decode step' if m == 4 else
+                'prefill chunk'}: o and down x 24 layers, M={m}")
+        entry = {
+            "cim_tile_partials": dict(
+                ms=part_ms, plain_ms=part_plain,
+                bound_ms=1e3 * max(pb / HBM_BPS, po / INT8_OPS),
+                bound_by="bytes" if pb / HBM_BPS >= po / INT8_OPS
+                else "operations", library_ms=lib_ms, unit=unit),
+            "cim_tile_merge": dict(
+                ms=merge_ms, plain_ms=merge_plain,
+                bound_ms=1e3 * max(mb / HBM_BPS, mn / INT32_OPS),
+                bound_by="bytes" if mb / HBM_BPS >= mn / INT32_OPS
+                else "operations", library_ms=None, unit=unit)}
+        emit("time", kernel="row_parallel", m=m, partials=entry[
+            "cim_tile_partials"], merge=entry["cim_tile_merge"],
+             partials_plus_merge_ms=part_ms + merge_ms,
+             whole_plane_fused_ms=whole_ms,
+             library="torch._int_mm(xq, wq) of rank 0's int8 shard "
+                     "product" if lib_ms is not None else None)
+        if m == 4:
+            times.update(entry)
+    emit("tile_kernels", errs=errs, seconds=time.perf_counter() - t_start)
+    return errs, times, time.perf_counter() - t_start
+
+
+EP_WORLD = 4
+EP_MESH = (2, 2)       # (data, model)
+EP_LAYERS = 2          # olmoe-1b-7b's 16 layers cut for the script's time
+EP_PROMPT = (4, 128)   # 2 data groups of 256 tokens: the grouped dispatch
+EP_TOL = 1e-5          # EP logits vs the grouped one rank, of a row's max
+
+
+def _ep_rank(rank, world, run_dir):
+    """(b) of phase ``tensor_parallel``, one of four spawned ranks: full-
+    width float32 olmoe-1b-7b at 2 of its 16 layers in sim on the CIM
+    kernel and the attention kernels, expert-parallel on a (data 2,
+    model 2) mesh: a 4 x 128 prefill (2 data groups of 256 tokens, 32 of
+    the 64 experts a rank) and one greedy decode step (one group over the
+    all-gathered batch); rank 0 also runs the grouped forward in one
+    process (rules on a ``VirtualMesh`` of the same shape: no
+    collective) on the whole planes."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import prng
+    from repro_torch.core.deploy import deploy, init_params
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed.sharding import VirtualMesh, default_rules
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import moe
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{os.path.join(run_dir, 'store')}",
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    try:
+        out = {"rank": rank, "up_s": time.perf_counter() - T0}
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(arch_config("olmoe-1b-7b"),
+                                  n_layers=EP_LAYERS, dtype="float32")
+        params = init_params(cfg, torch.Generator(
+            device="cuda").manual_seed(0), "cuda")
+        rules = default_rules(make_debug_mesh(*EP_MESH))
+        placed = deploy(cfg, params, rules=rules)
+        bank = next(k for k in placed["blocks"]["moe"]
+                    if k.startswith("w_gate_q"))
+        out["local_experts"] = placed["blocks"]["moe"][bank].to_local(
+            ).shape[1]
+        b, s = EP_PROMPT
+        g = torch.Generator(device="cuda").manual_seed(12)
+        batch = torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                              device="cuda")
+        key = prng.PRNGKey(22)
+        for f in _launches():
+            f.launches = 0
+        for k in col.COUNTS:
+            col.COUNTS[k] = 0
+        dispatch = []
+        orig = moe.moe_block
+
+        def spy(*a, **kw):
+            y = orig(*a, **kw)
+            dispatch.append(dict(moe.last_dispatch))
+            return y
+
+        moe.moe_block = spy
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits, tokens, _ = _greedy(cfg, placed, rules, batch, key, 1, b,
+                                    False)
+        out["ep_s"] = time.perf_counter() - t1
+        moe.moe_block = orig
+        out["dispatch"] = dispatch
+        out["launches"] = {f.__name__: f.launches for f in _launches()}
+        out["collectives"] = dict(col.COUNTS)
+        out["tokens"] = tokens
+        out["finite"] = bool(all(torch.isfinite(x).all() for x in logits))
+        del placed
+        if rank == 0:
+            whole = deploy(cfg, params)
+            t1 = time.perf_counter()
+            one, one_tokens, _ = _greedy(
+                cfg, whole, default_rules(VirtualMesh.make(
+                    data=EP_MESH[0], model=EP_MESH[1])), batch, key, 1, b,
+                False)
+            out["grouped_s"] = time.perf_counter() - t1
+            out["one_tokens"] = one_tokens
+            out["logit_err"] = max(
+                float(((a - c).abs().amax(-1) / c.abs().amax(-1)).max())
+                for a, c in zip(logits, one))
+            out["logits_bit_equal"] = [bool(torch.equal(a, c))
+                                       for a, c in zip(logits, one)]
+            out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out["s"] = time.perf_counter() - t0
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(run_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase_tensor_parallel(dist_res):
+    """A7.2 on the card, on ranks of the one H100 over gloo with CUDA
+    tensors: (a) full-width qwen2-0.5b tensor-parallel on the distributed
+    phase's pair (``_dist_tp``), (b) full-width olmoe-1b-7b (2 of 16
+    layers) expert-parallel on four spawned ranks (``_ep_rank``). Ranks
+    that share one card and a gloo group measure no scale-out. Fails
+    unless every rank comes up and: the TP greedy tokens equal the one-
+    rank tokens, its logits within ``TP_TOL`` of the one rank's; row 1's
+    shards bit-equal with the noise on; rows 1-3 and the row-parallel
+    entries launched on every rank; the EP prefill dispatched in 2 groups
+    with 32 of 64 experts a rank (the expert-parallel path), the decode
+    in one gathered group; the EP logits within ``EP_TOL`` of the grouped
+    one-rank forward and its tokens equal. Returns the seconds and the
+    launches of the main-path runs (both ranks' sums; the EP ranks'
+    rows 1-3 and the row-parallel pair too)."""
+    t0 = time.perf_counter()
+    tp = [r["tp"] for r in dist_res]
+    ep = _spawn(_ep_rank, EP_WORLD, "ep")
+    problems = []
+    a0 = tp[0]
+    if a0["tokens"] != a0["one_tokens"]:
+        problems.append(f"TP tokens {a0['tokens']} != one rank "
+                        f"{a0['one_tokens']}")
+    if not a0["logit_err"] <= TP_TOL:
+        problems.append(f"TP logits {a0['logit_err']} > {TP_TOL}")
+    for r, a in enumerate(tp):
+        if not a["finite"] or a["tokens"] != a0["tokens"]:
+            problems.append(f"TP rank {r} tokens or finiteness")
+        bad = [k for k, v in a["row1_shards_bit_equal"].items() if not v]
+        if bad:
+            problems.append(f"TP rank {r} row 1 shards not bit-equal: {bad}")
+        zero = [k for k, v in a["launches"].items() if not v]
+        if zero:
+            problems.append(f"TP rank {r} launched no {zero}")
+    e0 = ep[0]
+    for r, e in enumerate(ep):
+        d = e["dispatch"]
+        if e["local_experts"] != 32:
+            problems.append(f"EP rank {r} holds {e['local_experts']} experts")
+        pre = d[:EP_LAYERS]
+        if len(d) != 2 * EP_LAYERS or any(
+                x["groups"] != 2 or x["g_local"] != 1 or x["e_local"] != 32
+                or x["gathered"] for x in pre) or any(
+                x["groups"] != 1 or not x["gathered"] or x["e_local"] != 32
+                for x in d[EP_LAYERS:]):
+            problems.append(f"EP rank {r} dispatch {d}")
+        if not e["finite"] or e["tokens"] != e0["tokens"]:
+            problems.append(f"EP rank {r} tokens or finiteness")
+        zero = [k for k, v in e["launches"].items() if not v]
+        if zero:
+            problems.append(f"EP rank {r} launched no {zero}")
+    if e0["tokens"] != e0["one_tokens"] or not e0["logit_err"] <= EP_TOL:
+        problems.append(f"EP vs grouped one rank: tokens {e0['tokens']} / "
+                        f"{e0['one_tokens']}, logits {e0['logit_err']}")
+    if problems:
+        fail("tensor_parallel: " + "; ".join(problems))
+    tp_s = max(a["s"] for a in tp)
+    seconds = time.perf_counter() - t0 + tp_s
+    launches = {k: sum(a["launches"][k] for a in tp)
+                + sum(e["launches"][k] for e in ep) for k in TP_KERNELS}
+    emit("tensor_parallel", scale_out_measured=False, backend="gloo",
+         device="cuda:0",
+         a={"arch": "qwen2-0.5b", "dtype": "bfloat16",
+            "mesh": {"data": 1, "model": 2}, "ranks": DIST_WORLD,
+            "traffic": f"{TP_PROMPT[0]} x {TP_PROMPT[1]} prefill, "
+                       f"{TP_NEW} greedy decode steps",
+            "tokens_equal_one_rank": True, "logit_err": a0["logit_err"],
+            "tol": TP_TOL, "logits_bit_equal": a0["logits_bit_equal"],
+            "row1_shards_bit_equal": a0["row1_shards_bit_equal"],
+            "launches": [a["launches"] for a in tp],
+            "collectives": [a["collectives"] for a in tp],
+            "host_staged": [a["host_staged"] for a in tp],
+            "tp_decode_step_host_ms": [a["tp_step_ms"] for a in tp],
+            "one_rank_decode_step_host_ms": a0["one_step_ms"],
+            "plane_bytes_rank": [a["plane_bytes_rank"] for a in tp],
+            "s": [a["s"] for a in tp]},
+         b={"arch": "olmoe-1b-7b", "dtype": "float32",
+            "reduced": {"n_layers": [16, EP_LAYERS]},
+            "mesh": {"data": EP_MESH[0], "model": EP_MESH[1]},
+            "ranks": EP_WORLD,
+            "traffic": f"{EP_PROMPT[0]} x {EP_PROMPT[1]} prefill, "
+                       f"1 greedy decode step",
+            "experts_rank": e0["local_experts"],
+            "dispatch_rank0": e0["dispatch"],
+            "tokens_equal_grouped": True, "logit_err": e0["logit_err"],
+            "tol": EP_TOL, "logits_bit_equal": e0["logits_bit_equal"],
+            "launches": [e["launches"] for e in ep],
+            "collectives": [e["collectives"] for e in ep],
+            "ep_s": [e["ep_s"] for e in ep], "grouped_s": e0["grouped_s"],
+            "peak_gib_rank0": e0["peak_gib"],
+            "rank_up_s": [e["up_s"] for e in ep], "s": [e["s"] for e in ep]},
+         seconds=seconds)
+    return seconds, launches
 
 
 def main() -> int:
@@ -6155,6 +6656,8 @@ def main() -> int:
     from repro_torch.core.deploy import init_params
     from repro_torch.kernels.cim_matmul import cim_matmul_fused
     from repro_torch.kernels.cim_matmul import cim_matmul_int8
+    from repro_torch.kernels.cim_matmul import (cim_tile_merge,
+                                                cim_tile_partials)
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_gqa_attention)
@@ -6272,10 +6775,17 @@ def main() -> int:
          new_phases_s=new_s, new_phases_limit_s=110)
     torch.cuda.empty_cache()
     runs["examples"], examples_s = phase_examples()
-    dist_s = phase_distributed()
+    dist_s, dist_res = phase_distributed()
     emit("qat_examples_distributed", new_phases_s=qat_s + examples_s + dist_s,
          new_phases_limit_s=90, serve_qat_s=qat_s, examples_s=examples_s,
          distributed_s=dist_s)
+    tile_errs, tile_times, tile_s = phase_tile_kernels()
+    errs.update(tile_errs)
+    times.update(tile_times)
+    tp_s, runs["tp"] = phase_tensor_parallel(dist_res)
+    emit("distribution_a72", new_phases_s=tile_s + tp_s,
+         new_phases_limit_s=90, tile_kernels_s=tile_s,
+         tensor_parallel_s=tp_s)
     src = {"cim_matmul_fused": ("src/repro_torch/csrc/cim_matmul.cu",
                                 "src/repro/kernels/cim_matmul.py:340",
                                 cim_matmul_fused, "cim_matmul_fused"),
@@ -6316,6 +6826,12 @@ def main() -> int:
            "mla_decode_attention": ("src/repro_torch/csrc/mla_decode.cu",
                                     "src/repro/kernels/mla_decode.py:144",
                                     mla_decode_attention, "mla"),
+           "cim_tile_partials": ("src/repro_torch/csrc/cim_matmul.cu",
+                                 "src/repro/kernels/cim_matmul.py:340",
+                                 cim_tile_partials, "tp"),
+           "cim_tile_merge": ("src/repro_torch/csrc/cim_matmul.cu",
+                              "src/repro/kernels/cim_matmul.py:340",
+                              cim_tile_merge, "tp"),
            "cim_matmul_int8": ("src/repro_torch/csrc/cim_matmul.cu",
                                "src/repro/kernels/cim_matmul.py:275",
                                cim_matmul_int8, "cim_matmul_int8"),
@@ -6342,6 +6858,7 @@ def main() -> int:
              + runs["ssm"][fn.__name__] + runs["mla"][fn.__name__]
              + runs["vit"][fn.__name__]
              if ekey == "cim_matmul_fused" else
+             runs["tp"][fn.__name__] if ekey == "tp" else
              runs["ste"][name] if ekey == "cim_matmul_int8" else
              runs["mha"][name] if ekey in ("mha", "mha[f32]") else
              runs[ekey][fn.__name__] if ekey in ("ssm", "mla")
@@ -6363,6 +6880,10 @@ def main() -> int:
             n += runs["qat"][fn.__name__]
         if name == "cim_matmul_fused":
             n += runs["examples"]
+        # the tensor- and expert-parallel runs (phase tensor_parallel, every
+        # rank) run rows 1-3 too
+        if name in ("cim_matmul_fused", "decode_attention", "flash_gqa"):
+            n += runs["tp"][fn.__name__]
         line.append({"name": name, "route": "cuda", "source": path,
                      "replaces": tpu, "launches": n,
                      "max_abs_err": errs[name if name in errs else ekey],

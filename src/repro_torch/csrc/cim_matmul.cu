@@ -108,7 +108,7 @@ cim_gemv(const XT* __restrict__ x, const int8_t* __restrict__ wq,
          int N, int klen, int qmax, float sigma,
          const uint32_t* __restrict__ seeds, int noise,
          int* __restrict__ part, float* __restrict__ nz,
-         int* __restrict__ counters) {
+         int* __restrict__ counters, int row0, int col0) {
   __shared__ __align__(16) int8_t xs[MB * rt::MACRO_ROWS];   // [M][klen]
   // the partial's reduction, then the merge's group sums
   constexpr int RED_WORDS = MB * NSPAN > 4 * rt::GV_THREADS
@@ -147,7 +147,8 @@ cim_gemv(const XT* __restrict__ x, const int8_t* __restrict__ wq,
         nz_unit[(size_t)tile * P + p] =
             n < N ? __fmul_rn(sigma, rt::tile_gaussian(
                                          seed0, seed1, (uint32_t)tile,
-                                         (uint32_t)m, (uint32_t)n))
+                                         (uint32_t)(row0 + m),
+                                         (uint32_t)(col0 + n)))
                   : 0.0f;
       }
     GV_STAMP(1);
@@ -224,6 +225,8 @@ struct SplitArgs {
   float* nz;               // [units][tiles][TM * 128] noise, or null
   int* counters;           // [units], zero; left at zero
   const uint32_t* seeds;   // device (seed0, seed1), read when noise
+  int row0, col0;          // the noise counter's offsets: the first global
+                           // row and column of this product (a shard)
 };
 
 // One TM x 128 output tile, warps of WTM x WTN (MI m16 by NI n8
@@ -362,8 +365,10 @@ cim_int8_mma(const XT* __restrict__ x, const int8_t* __restrict__ wq,
       const int n = ncol(ni, e);
       ns[idx * NTHREADS + t] =
           m < M && n < N
-              ? __fmul_rn(sigma, rt::tile_gaussian(seed0, seed1, tile,
-                                                   (uint32_t)m, (uint32_t)n))
+              ? __fmul_rn(sigma, rt::tile_gaussian(
+                                     seed0, seed1, tile,
+                                     (uint32_t)(sa.row0 + m),
+                                     (uint32_t)(sa.col0 + n)))
               : 0.0f;
     }
   };
@@ -490,9 +495,10 @@ cim_int8_mma(const XT* __restrict__ x, const int8_t* __restrict__ wq,
         const int m = m0 + p / MN, n = n0 + p % MN;
         nz_unit[(size_t)tile * P + p] =
             m < M && n < N
-                ? __fmul_rn(sigma, rt::tile_gaussian(seed0, seed1,
-                                                     (uint32_t)tile,
-                                                     (uint32_t)m, (uint32_t)n))
+                ? __fmul_rn(sigma, rt::tile_gaussian(
+                                       seed0, seed1, (uint32_t)tile,
+                                       (uint32_t)(sa.row0 + m),
+                                       (uint32_t)(sa.col0 + n)))
                 : 0.0f;
       }
     }
@@ -566,7 +572,7 @@ int launch_gemv(const XT* x, const int8_t* w, float* o, int M, int K, int N,
   const dim3 grid((N + NSPAN - 1) / NSPAN, sp.n_split);
   cim_gemv<XT, MB, VB, NSPAN><<<grid, rt::GV_THREADS, 0, s>>>(
       x, w, sa.qp, o, M, K, N, sa.klen, sa.qmax, sigma, sa.seeds, noise,
-      sa.part, sa.nz, sa.counters);
+      sa.part, sa.nz, sa.counters, sa.row0, sa.col0);
   return (int)cudaGetLastError();
 }
 
@@ -613,6 +619,115 @@ int launch_fused(const XT* x, const int8_t* w, float* o, int M, int K, int N,
   return (int)cudaErrorInvalidValue;
 }
 
+// ----------------------------- row-parallel entries (a K-sharded plane)
+// A rank that holds rows [koff, koff + K) of a plane whose K axis is split
+// over ranks cannot draw a macro tile's noise alone: the shard boundary
+// may fall inside a 1024-row tile (qwen2's d_ff 4864 over two ranks cuts
+// tile 2 at row 2432). So the product runs in two launches around an
+// all-reduce of exact integers. cim_tile_partials writes, for every global
+// tile t the shard's rows touch, the int32 dot of those rows:
+// parts[t][m][n] += sum_{k in tile t, k in shard} xq[m, k] * wq[k, n]
+// (parts zeroed by the caller; blocks add their K chunks with atomicAdd,
+// exact in any order). After the ranks sum their parts (an int32
+// all-reduce: exact in any order), cim_tile_merge runs the fused entry's
+// epilogue on the summed tiles: sum_t (float(S_t) + sigma * N_t(row0 + m,
+// col0 + n)) in tile order, f32, times out_scale. That is the whole
+// plane's arithmetic, so the result is bit-equal to one cim_matmul_fused
+// call on the unsharded plane.
+constexpr int PT_THREADS = 64;       // a block: 64 threads x 4 columns
+constexpr int PT_ROWS = 8;           // activation rows a block
+constexpr int PT_CHUNK = 64;         // K rows a block (a sixteenth of a tile)
+constexpr int PT_BATCH = 16;         // plane rows a thread has in flight
+
+// grid: (column groups of 256, row blocks of PT_ROWS, touched tiles x 16
+// chunks); tile_first: the first global tile the shard touches. A thread
+// issues the loads of PT_BATCH plane rows before it uses any, so a chunk
+// costs a few round trips, not one a row.
+template <typename XT>
+__global__ void __launch_bounds__(PT_THREADS)
+cim_tile_partials_k(const XT* __restrict__ x, const int8_t* __restrict__ wq,
+                    const float* __restrict__ qp, int* __restrict__ parts,
+                    int M, int K, int N, int koff, int qmax, int tile_first) {
+  __shared__ int8_t xs[PT_ROWS][PT_CHUNK];
+  const int t = threadIdx.x, m0 = blockIdx.y * PT_ROWS;
+  const int tile = tile_first + blockIdx.z / (TILE / PT_CHUNK);
+  const int g0 = tile * TILE + (blockIdx.z % (TILE / PT_CHUNK)) * PT_CHUNK;
+  const int k0 = max(g0 - koff, 0), k1 = min(g0 + PT_CHUNK - koff, K);
+  if (k0 >= k1) return;                        // a chunk outside the shard
+  const int len = k1 - k0;
+  const float xsc = qp[0], fq = (float)qmax;
+  for (int e = t; e < PT_ROWS * len; e += PT_THREADS) {
+    const int r = e / len, kk = e - r * len, m = m0 + r;
+    float q = 0.0f;
+    if (m < M)
+      q = fminf(fmaxf(rintf(__fdiv_rn(rt::to_float(x[(size_t)m * K + k0 + kk]),
+                                      xsc)), -fq), fq);
+    xs[r][kk] = (int8_t)q;
+  }
+  __syncthreads();
+  const int col = (blockIdx.x * PT_THREADS + t) * 4;
+  if (col >= N) return;
+  int acc[PT_ROWS][4];
+#pragma unroll
+  for (int r = 0; r < PT_ROWS; ++r)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[r][j] = 0;
+  const int8_t* wp = wq + (size_t)k0 * N + col;
+  for (int b0 = 0; b0 < len; b0 += PT_BATCH) {
+    uint32_t w4[PT_BATCH];
+#pragma unroll
+    for (int i = 0; i < PT_BATCH; ++i)
+      w4[i] = b0 + i < len ? __ldg(reinterpret_cast<const uint32_t*>(
+                                 wp + (size_t)(b0 + i) * N))
+                           : 0u;
+#pragma unroll
+    for (int i = 0; i < PT_BATCH; ++i) {
+      int wj[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wj[j] = (int)(int8_t)(w4[i] >> (8 * j));
+      const int kk = min(b0 + i, PT_CHUNK - 1);   // rows past len: w = 0
+#pragma unroll
+      for (int r = 0; r < PT_ROWS; ++r) {
+        const int xv = xs[r][kk];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[r][j] += xv * wj[j];
+      }
+    }
+  }
+  int* out = parts + (size_t)tile * M * N;
+#pragma unroll
+  for (int r = 0; r < PT_ROWS; ++r) {
+    if (m0 + r >= M) break;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      atomicAdd(&out[(size_t)(m0 + r) * N + col + j], acc[r][j]);
+  }
+}
+
+// One output a thread: the fused entry's tile epilogue on summed parts.
+__global__ void __launch_bounds__(256)
+cim_tile_merge_k(const int* __restrict__ parts, const float* __restrict__ qp,
+                 float* __restrict__ out, int M, int N, int tiles,
+                 float sigma, const uint32_t* __restrict__ seeds, int noise,
+                 int row0, int col0) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)M * N) return;
+  const int m = (int)(i / N), n = (int)(i % N);
+  const uint32_t seed0 = noise ? __ldg(seeds) : 0u,
+                 seed1 = noise ? __ldg(seeds + 1) : 0u;
+  float acc = 0.0f;
+  for (int t = 0; t < tiles; ++t) {
+    float sf = __int2float_rn(__ldg(parts + (size_t)t * M * N + i));
+    if (noise)
+      sf = __fadd_rn(sf, __fmul_rn(sigma, rt::tile_gaussian(
+                                              seed0, seed1, (uint32_t)t,
+                                              (uint32_t)(row0 + m),
+                                              (uint32_t)(col0 + n))));
+    acc = __fadd_rn(acc, sf);
+  }
+  out[i] = __fmul_rn(acc, qp[1]);
+}
+
 }  // namespace
 
 #ifdef CIM_GEMV_CLOCK
@@ -631,6 +746,8 @@ extern "C" int cim_gemv_clock_set(void* p) {
 // device words (seed0, seed1), read only with noise. part: int32 scratch
 // of units x splits x (rows x columns of a unit); nz: f32 scratch of units
 // x tiles x the same (noise only); counters: units ints, zero (left zero).
+// row0, col0: the global row and column of out[0, 0] in the readout-noise
+// counter (a shard of a larger product; 0 for a whole one).
 // Requires K % 4 == 0, N % 4 == 0 (checked by the Python wrapper). Returns
 // cudaGetLastError() after the launch.
 extern "C" int cim_matmul_fused(const void* x, int x_dtype, const void* wq,
@@ -639,14 +756,14 @@ extern "C" int cim_matmul_fused(const void* x, int x_dtype, const void* wq,
                                 const void* seeds, int noise, void* part,
                                 void* nz, void* counters, int block_m,
                                 int vec, int nspan, int klen, int aligned,
-                                void* stream) {
+                                int row0, int col0, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int8_t* w = static_cast<const int8_t*>(wq);
   float* o = static_cast<float*>(out);
   const SplitArgs sa{static_cast<const float*>(qp), qmax, klen,
                      static_cast<int*>(part), static_cast<float*>(nz),
                      static_cast<int*>(counters),
-                     static_cast<const uint32_t*>(seeds)};
+                     static_cast<const uint32_t*>(seeds), row0, col0};
   if (klen <= 0 || klen % 16 || (block_m > 16 && klen % KS) ||
       M > (block_m > 16 ? 1 << 30 : block_m) || (noise && seeds == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -690,4 +807,51 @@ extern "C" int cim_matmul_int8(const void* xq, const void* wq,
                    : launch_int8<32, false>(I8_ARGS);
 #undef I8_ARGS
   return (int)cudaErrorInvalidValue;
+}
+
+// The row-parallel pair (see cim_tile_partials_k). x: (M, K) float32
+// (x_dtype 0) or bfloat16 (1), the shard's rows [koff, koff + K) of the
+// activation's K axis; wq: (K, N) int8, the same rows of the plane; qp:
+// device [x_scale, out_scale]; parts: (tiles, M, N) int32, zeroed, tiles
+// the global tile count; tile_first = koff / 1024 and n_tiles the tiles
+// the shard touches. N % 4 == 0 and wq on 4 bytes.
+extern "C" int cim_tile_partials(const void* x, int x_dtype, const void* wq,
+                                 const void* qp, void* parts, int M, int K,
+                                 int N, int koff, int qmax, int tile_first,
+                                 int n_tiles, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N % 4 || reinterpret_cast<uintptr_t>(wq) % 4 || n_tiles <= 0)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + 4 * PT_THREADS - 1) / (4 * PT_THREADS),
+                  (M + PT_ROWS - 1) / PT_ROWS, n_tiles * (TILE / PT_CHUNK));
+  const int8_t* w = static_cast<const int8_t*>(wq);
+  const float* q = static_cast<const float*>(qp);
+  int* p = static_cast<int*>(parts);
+  if (x_dtype == 0)
+    cim_tile_partials_k<float><<<grid, PT_THREADS, 0, s>>>(
+        static_cast<const float*>(x), w, q, p, M, K, N, koff, qmax,
+        tile_first);
+  else
+    cim_tile_partials_k<__nv_bfloat16><<<grid, PT_THREADS, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), w, q, p, M, K, N, koff, qmax,
+        tile_first);
+  return (int)cudaGetLastError();
+}
+
+// parts: (tiles, M, N) int32, every rank's summed; out: (M, N) float32;
+// seeds: device (seed0, seed1), read only with noise; row0, col0 the
+// noise counter's offsets.
+extern "C" int cim_tile_merge(const void* parts, const void* qp, void* out,
+                              int M, int N, int tiles, float sigma,
+                              const void* seeds, int noise, int row0,
+                              int col0, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (noise && seeds == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t n = (size_t)M * N;
+  if (n == 0) return 0;
+  cim_tile_merge_k<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
+      static_cast<const int*>(parts), static_cast<const float*>(qp),
+      static_cast<float*>(out), M, N, tiles, sigma,
+      static_cast<const uint32_t*>(seeds), noise, row0, col0);
+  return (int)cudaGetLastError();
 }

@@ -23,9 +23,26 @@ axis is used at most once in a spec. ``_resolve`` reads only
 live mesh of the same shape resolve alike; ``mesh_axis_sizes`` gives
 that mapping for a ``DeviceMesh``, which has no such attribute.
 
-``shard(x, *names)`` is the activation constraint of the models; it is
-the identity until the models' tensor-parallel forward is ported
-(ROADMAP A7.2).
+``shard(x, *names)`` is the activation constraint of the models, at the
+reference's call sites. Under rules over a live mesh of more than one
+rank (``collectives.live_mesh``) activations are local tensors, each
+rank holding its block of the spec the port computes (``port_spec``):
+the resolved activation spec, except that the port computes the
+sequence axes ``seq``, ``qseq`` and ``frames`` whole on every rank. The
+reference shards ``qseq`` over ``model`` where the heads do not divide
+it (qwen2's 14 heads on a 4-way axis: context-parallel attention) and
+``seq`` over ``data`` with ``seq_sharded=True``; the port computes those
+replicated, which gives the same numbers. A dimension the rules
+replicate because it does not divide is computed whole as well.
+``shard(x, *names, held=spec)`` moves a block held under ``spec`` to
+the port spec: an all-gather where ``held`` splits a dimension the
+target keeps whole, a slice where the target splits one ``held`` keeps
+whole (``collectives.all_gather`` / ``block``). Without ``held`` the
+models assert that the computation already left ``x`` in the target
+layout (the column- and row-parallel linears, the vocab-sharded head and
+the local attention heads do), and ``shard`` returns it as it is. With
+no rules, rules over a ``VirtualMesh`` or a one-rank group it is the
+identity.
 """
 
 from __future__ import annotations
@@ -241,7 +258,26 @@ class use_rules:
         set_rules(self.prev)
 
 
-def shard(x: torch.Tensor, *names: Optional[str]) -> torch.Tensor:
-    """The activation constraint by logical dim names: the identity until
-    the models' tensor-parallel forward (ROADMAP A7.2)."""
-    return x
+# logical axes the port computes whole on every rank (see module doc)
+WHOLE_AXES = ("seq", "qseq", "frames")
+
+
+def port_spec(rules: ShardingRules, names, shape) -> Spec:
+    """The activation spec the port computes: ``activation_spec`` with the
+    ``WHOLE_AXES`` dimensions replicated."""
+    spec = rules.activation_spec(names, shape)
+    return tuple(None if n in WHOLE_AXES else s for n, s in zip(names, spec))
+
+
+def shard(x: torch.Tensor, *names: Optional[str],
+          held: Optional[Spec] = None) -> torch.Tensor:
+    """The activation constraint by logical dim names (see module doc):
+    ``x`` held under spec ``held`` (None: already in the target layout)
+    brought to this rank's block of ``port_spec(names)``."""
+    from repro_torch.distributed import collectives as col
+    rules = get_rules()
+    lm = col.live_mesh(rules)
+    if lm is None or held is None:
+        return x
+    gshape = tuple(d * lm.size(h) for d, h in zip(x.shape, held))
+    return col.relayout(x, held, port_spec(rules, names, gshape), lm)

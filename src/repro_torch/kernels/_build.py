@@ -36,7 +36,9 @@ _F = ctypes.c_float
 _U = ctypes.c_uint
 _SIGNATURES = {
     "cim_matmul_fused": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _P, _I,
-                         _P, _P, _P, _I, _I, _I, _I, _I, _P],
+                         _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "cim_tile_partials": [_P, _I, _P, _P, _P] + [_I] * 7 + [_P],
+    "cim_tile_merge": [_P, _P, _P, _I, _I, _I, _F, _P, _I, _I, _I, _P],
     "cim_matmul_int8": [_P, _P, _P, _F, _P, _I, _I, _I, _F, _U, _U, _I, _I, _I,
                         _P],
     "decode_attention": [_P] * 10 + [_I] * 9 + [_F, _P],

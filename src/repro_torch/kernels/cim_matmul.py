@@ -26,9 +26,20 @@ out_scale]`` so the host never waits for them, and so do the seed words:
 kernel reads the two words where they lie (a CUDA graph of a forward
 replays with its table staged anew).
 
+A shard of a larger product keeps the whole product's noise: the
+counter of output (m, n) is the global (row0 + m, col0 + n), as the JAX
+kernel counts on the global (row, col). A column shard (a plane split
+over N, or a batch split over rows) passes its first column and row to
+``cim_matmul_fused``; a row shard (a plane split over K, whose boundary
+may cut a macro tile) runs ``cim_tile_partials`` (the int32 dot of each
+global tile its rows touch), the caller's int32 all-reduce, then
+``cim_tile_merge`` (the tile epilogue, noise on the global tile index):
+each is bit-equal to the whole plane's ``cim_matmul_fused``.
+
 CPU tensors take ``cim_matmul_fused_plain`` (twin of
-``ref.cim_matmul_fused_ref``) and ``cim_matmul_int8_plain`` (twin of
-``ref.cim_matmul_prng_ref``); CUDA tensors launch the kernel or raise.
+``ref.cim_matmul_fused_ref``), ``cim_matmul_int8_plain`` (twin of
+``ref.cim_matmul_prng_ref``), ``cim_tile_partials_plain`` and
+``cim_tile_merge_plain``; CUDA tensors launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -171,37 +182,55 @@ def cim_int8_plan(m: int, k: int, n: int, x_ptr: int = 0,
 
 
 def _tile_sums(xq: torch.Tensor, wq: torch.Tensor,
-               seed: Optional[Tuple[int, int]], sigma: float) -> torch.Tensor:
-    """sum_t (xq[:, tile t] . wq[tile t] + sigma * noise_t), f32, in order.
+               seed: Optional[Tuple[int, int]], sigma: float,
+               row0: int = 0, col0: int = 0) -> torch.Tensor:
+    """sum_t (xq[:, tile t] . wq[tile t] + sigma * noise_t), f32, in order;
+    the noise counter of output (m, n) is (row0 + m, col0 + n).
 
     The int32 dot runs as a float64 product: every partial sum is an integer
     below 2^53, so it is exact in any order, on the CPU and on the card."""
-    m, k = xq.shape
-    n = wq.shape[1]
+    k = xq.shape[1]
+    parts = [(xq[:, t * MACRO_ROWS:(t + 1) * MACRO_ROWS].to(torch.float64)
+              @ wq[t * MACRO_ROWS:(t + 1) * MACRO_ROWS].to(torch.float64))
+             for t in range(-(-k // MACRO_ROWS))]
+    return _merge_tiles(parts, seed, sigma, row0, col0)
+
+
+def _merge_tiles(parts, seed: Optional[Tuple[int, int]], sigma: float,
+                 row0: int, col0: int) -> torch.Tensor:
+    """The tile epilogue: sum_t (float(S_t) + sigma * noise_t(row0 + m,
+    col0 + n)) in f32, tile by tile in order (``S_t`` exact integers)."""
+    m, n = parts[0].shape
+    device = parts[0].device
     noise = seed is not None and sigma > 0.0
     if noise:
-        rows = torch.arange(m, dtype=torch.int64, device=xq.device)[:, None]
-        cols = torch.arange(n, dtype=torch.int64, device=xq.device)[None, :]
-        rows, cols = rows.expand(m, n), cols.expand(m, n)
-    y = torch.zeros((m, n), dtype=torch.float32, device=xq.device)
-    for t in range(-(-k // MACRO_ROWS)):
-        sl = slice(t * MACRO_ROWS, (t + 1) * MACRO_ROWS)
-        s = (xq[:, sl].to(torch.float64) @ wq[sl].to(torch.float64)).to(torch.float32)
+        rows = torch.arange(row0, row0 + m, dtype=torch.int64,
+                            device=device)[:, None].expand(m, n)
+        cols = torch.arange(col0, col0 + n, dtype=torch.int64,
+                            device=device)[None, :].expand(m, n)
+    y = torch.zeros((m, n), dtype=torch.float32, device=device)
+    for t, part in enumerate(parts):
+        s = part.to(torch.float32)
         if noise:
             s = s + sigma * prng.tile_gaussian(seed[0], seed[1], t, rows, cols)
         y = y + s
     return y
 
 
+def _quantize(x: torch.Tensor, qp: torch.Tensor, in_bits: int) -> torch.Tensor:
+    q = quant.qmax(in_bits)
+    return torch.clamp(torch.round(x.to(torch.float32) / qp[0]), -q, q)
+
+
 def cim_matmul_fused_plain(x: torch.Tensor, wq: torch.Tensor,
                            qp: torch.Tensor, seed: Optional[prng.Seed],
-                           sigma: float, in_bits: int) -> torch.Tensor:
+                           sigma: float, in_bits: int, row0: int = 0,
+                           col0: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the fused kernel (same arithmetic, tile by
     tile)."""
-    q = quant.qmax(in_bits)
-    xq = torch.clamp(torch.round(x.to(torch.float32) / qp[0]), -q, q)
     words = None if seed is None else prng.seed_words(seed)
-    return _tile_sums(xq, wq, words, sigma) * qp[1]
+    return _tile_sums(_quantize(x, qp, in_bits), wq, words, sigma, row0,
+                      col0) * qp[1]
 
 
 _SEED_WORDS: dict = {}
@@ -233,10 +262,14 @@ def seed_operand(seed: prng.Seed, device: torch.device) -> torch.Tensor:
 
 def cim_matmul_fused(x: torch.Tensor, wq: torch.Tensor, qp: torch.Tensor,
                      seed: Optional[prng.Seed], sigma: float,
-                     in_bits: int) -> torch.Tensor:
-    """(M, K) float x, (K, N) int8 plane -> (M, N) float32. See module doc."""
+                     in_bits: int, row0: int = 0,
+                     col0: int = 0) -> torch.Tensor:
+    """(M, K) float x, (K, N) int8 plane -> (M, N) float32. See module doc.
+    ``row0``/``col0``: the global row and column of output (0, 0) in the
+    noise counter (a shard of a larger product)."""
     if x.device.type == "cpu":
-        return cim_matmul_fused_plain(x, wq, qp, seed, sigma, in_bits)
+        return cim_matmul_fused_plain(x, wq, qp, seed, sigma, in_bits, row0,
+                                      col0)
     if x.device.type != "cuda":
         raise ValueError(f"cim_matmul_fused: unsupported device {x.device}")
     m, k = x.shape
@@ -275,13 +308,119 @@ def cim_matmul_fused(x: torch.Tensor, wq: torch.Tensor, qp: torch.Tensor,
         None if seeds is None else seeds.data_ptr(), int(noise),
         scratch.data_ptr(), scratch.data_ptr() + 4 * plan["part_ints"],
         counters.data_ptr(), plan["block_m"], plan["vec"], plan["nspan"],
-        plan["klen"], int(plan["aligned"]), _build.stream_ptr(x.device))
+        plan["klen"], int(plan["aligned"]), int(row0), int(col0),
+        _build.stream_ptr(x.device))
     _build.check(rc, "cim_matmul_fused")
     cim_matmul_fused.launches += 1
     return out
 
 
 cim_matmul_fused.launches = 0
+
+
+def tile_span(k_off: int, k: int) -> Tuple[int, int]:
+    """(first global macro tile, tiles) that rows [k_off, k_off + k) of a
+    K axis touch."""
+    first = k_off // MACRO_ROWS
+    return first, (k_off + k - 1) // MACRO_ROWS - first + 1
+
+
+def cim_tile_partials_plain(x: torch.Tensor, wq: torch.Tensor,
+                            qp: torch.Tensor, in_bits: int, k_off: int,
+                            k_total: int) -> torch.Tensor:
+    """Plain PyTorch version of ``cim_tile_partials``: exact integer dots
+    (float64 products), int32."""
+    m, k = x.shape
+    parts = torch.zeros((-(-k_total // MACRO_ROWS), m, wq.shape[1]),
+                        dtype=torch.int32, device=x.device)
+    xq = _quantize(x, qp, in_bits).to(torch.float64)
+    first, n = tile_span(k_off, k)
+    for t in range(first, first + n):
+        a = max(t * MACRO_ROWS - k_off, 0)
+        b = min((t + 1) * MACRO_ROWS - k_off, k)
+        parts[t] = (xq[:, a:b] @ wq[a:b].to(torch.float64)).to(torch.int32)
+    return parts
+
+
+def cim_tile_partials(x: torch.Tensor, wq: torch.Tensor, qp: torch.Tensor,
+                      in_bits: int, k_off: int, k_total: int) -> torch.Tensor:
+    """The first half of a row-parallel CIM product (``csrc/cim_matmul.cu``
+    ``cim_tile_partials``): this shard's rows ``[k_off, k_off + K)`` of a
+    K axis of ``k_total`` rows, float (M, K) ``x`` quantized against
+    ``qp[0]`` as the fused kernel does, on its (K, N) int8 plane rows ->
+    (global tiles, M, N) int32, tile t holding the exact dot of the
+    shard's rows inside macro tile t (zero for tiles it does not touch).
+    Summed over the shards (an int32 all-reduce, exact in any order) the
+    parts are the whole product's tile sums, ``cim_tile_merge``'s input."""
+    if x.device.type == "cpu":
+        return cim_tile_partials_plain(x, wq, qp, in_bits, k_off, k_total)
+    if x.device.type != "cuda":
+        raise ValueError(f"cim_tile_partials: unsupported device {x.device}")
+    m, k = x.shape
+    n = wq.shape[1]
+    if wq.shape[0] != k or not 0 <= k_off <= k_total - k:
+        raise ValueError(f"shard rows [{k_off}, {k_off + k}) of {k_total} "
+                         f"and plane {tuple(wq.shape)} disagree")
+    if x.dtype not in (torch.float32, torch.bfloat16) or wq.dtype != torch.int8:
+        raise ValueError("x must be float32 or bfloat16 and wq int8")
+    if in_bits > 8:
+        raise ValueError(f"kernel takes in_bits <= 8, got {in_bits}")
+    x, wq, qp = x.contiguous(), wq.contiguous(), qp.contiguous()
+    if n % 4 or wq.data_ptr() % 4:
+        raise ValueError(f"kernel needs N % 4 == 0 and an aligned plane, "
+                         f"got N={n}")
+    parts = torch.zeros((-(-k_total // MACRO_ROWS), m, n), dtype=torch.int32,
+                        device=x.device)
+    first, tiles = tile_span(k_off, k)
+    rc = _build.library().cim_tile_partials(
+        x.data_ptr(), 0 if x.dtype == torch.float32 else 1, wq.data_ptr(),
+        qp.data_ptr(), parts.data_ptr(), m, k, n, k_off, quant.qmax(in_bits),
+        first, tiles, _build.stream_ptr(x.device))
+    _build.check(rc, "cim_tile_partials")
+    cim_tile_partials.launches += 1
+    return parts
+
+
+cim_tile_partials.launches = 0
+
+
+def cim_tile_merge_plain(parts: torch.Tensor, qp: torch.Tensor,
+                         seed: Optional[prng.Seed], sigma: float,
+                         row0: int = 0, col0: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of ``cim_tile_merge``."""
+    words = None if seed is None else prng.seed_words(seed)
+    return _merge_tiles(list(parts), words, sigma, row0, col0) * qp[1]
+
+
+def cim_tile_merge(parts: torch.Tensor, qp: torch.Tensor,
+                   seed: Optional[prng.Seed], sigma: float, row0: int = 0,
+                   col0: int = 0) -> torch.Tensor:
+    """The second half of a row-parallel CIM product: the fused kernel's
+    tile epilogue on (tiles, M, N) int32 tile sums -> (M, N) float32
+    ``qp[1] * sum_t (float(S_t) + sigma * noise_t(row0 + m, col0 + n))``,
+    bit-equal to ``cim_matmul_fused`` on the whole plane."""
+    if parts.device.type == "cpu":
+        return cim_tile_merge_plain(parts, qp, seed, sigma, row0, col0)
+    if parts.device.type != "cuda":
+        raise ValueError(f"cim_tile_merge: unsupported device {parts.device}")
+    if parts.dtype != torch.int32 or qp.dtype != torch.float32:
+        raise ValueError("parts must be int32 and qp float32")
+    tiles, m, n = parts.shape
+    parts, qp = parts.contiguous(), qp.contiguous()
+    out = torch.empty((m, n), dtype=torch.float32, device=parts.device)
+    noise = seed is not None and sigma > 0.0
+    seeds = seed_operand(seed, parts.device) if noise else None
+    rc = _build.library().cim_tile_merge(
+        parts.data_ptr(), qp.data_ptr(), out.data_ptr(), m, n, tiles,
+        float(sigma) if noise else 0.0,
+        None if seeds is None else seeds.data_ptr(), int(noise), int(row0),
+        int(col0), _build.stream_ptr(parts.device))
+    _build.check(rc, "cim_tile_merge")
+    cim_tile_merge.launches += 1
+    return out
+
+
+cim_tile_merge.launches = 0
 
 
 Seed = Union[None, int, Sequence[int]]

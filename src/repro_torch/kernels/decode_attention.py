@@ -69,8 +69,13 @@ def decode_attention_plain(q, k, v, lens, ks=None, vs=None) -> torch.Tensor:
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lens: torch.Tensor, ks: Optional[torch.Tensor] = None,
-                     vs: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q (B, H, D); k, v (B, T, KV, D); lens (B,) int -> (B, H, D) in q's dtype."""
+                     vs: Optional[torch.Tensor] = None,
+                     plan_kv: Optional[int] = None) -> torch.Tensor:
+    """q (B, H, D); k, v (B, T, KV, D); lens (B,) int -> (B, H, D) in q's
+    dtype. ``plan_kv``: split the keys as the plan for that many KV heads
+    (of B rows) would: the plan reads only rows x KV heads, so a rank's
+    rows and heads of a sharded model keep the whole model's splits, and
+    so its numbers."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, lens, ks, vs)
     if q.device.type != "cuda":
@@ -83,7 +88,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qd, kd, (q, k, v, ks, vs) = check_cache_operands(q, k, v, ks, vs,
                                                      "decode_attention")
     lens = lens.to(device=q.device, dtype=torch.int32).contiguous()
-    plan = decode_plan(b, t, kvh, d)
+    plan = decode_plan(b, t, max(plan_kv or kvh, kvh), d)
     out = torch.empty_like(q)
     part_acc = torch.empty(plan["part_acc"], dtype=torch.float32,
                            device=q.device)

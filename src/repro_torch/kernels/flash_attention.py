@@ -133,8 +133,11 @@ def flash_gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         start: Optional[torch.Tensor] = None,
                         ks: Optional[torch.Tensor] = None,
                         vs: Optional[torch.Tensor] = None,
-                        return_block_counts: bool = False):
-    """(B, S, H, D) queries -> (B, S, H, D) in q's dtype [, block counts]."""
+                        return_block_counts: bool = False,
+                        plan_kv: Optional[int] = None):
+    """(B, S, H, D) queries -> (B, S, H, D) in q's dtype [, block counts].
+    ``plan_kv``: split the key blocks as the plan for that many KV heads
+    (of the same group, B rows) would, as ``decode_attention``'s."""
     if q.device.type == "cpu":
         if return_block_counts:
             raise ValueError("block counts come from the kernel's own blocks; "
@@ -146,7 +149,9 @@ def flash_gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _, t, kvh, _ = k.shape
     qd, kd, (q, k, v, ks, vs) = check_cache_operands(q, k, v, ks, vs,
                                                      "flash_gqa_attention")
-    plan = flash_gqa_plan(b, s, t, h, kvh, d, q.dtype == torch.bfloat16)
+    pkv = max(plan_kv or kvh, kvh)
+    plan = flash_gqa_plan(b, s, t, h // kvh * pkv, pkv, d,
+                          q.dtype == torch.bfloat16)
     if start is None:
         start = torch.zeros((b,), dtype=torch.int32, device=q.device)
     start = start.to(device=q.device, dtype=torch.int32).contiguous()

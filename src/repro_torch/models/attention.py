@@ -16,6 +16,11 @@ Two implementations, selected by ``cfg.attn_impl``:
     prefill (S > 1) through the GQA flash kernel with per-row start
     offsets (``kernels/decode_attention.py``, ``kernels/flash_attention.py``).
 
+On a live mesh (``models/parallel.py``) q, k and v are this rank's
+heads (``split_heads``), the cache holds its rows and KV heads, rows 2
+and 3 split their keys by the whole model's plan (``plan_kv``), and
+``o`` runs row-parallel.
+
 Cross-attention (whisper's decoder, ``cross_kv`` and ``cross_attention``)
 reads the encoder memory's K/V, computed once at prefill, through the
 unmasked einsum softmax, as the reference does.
@@ -39,17 +44,22 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import shard
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_gqa_attention
 from repro_torch.kernels.mla_decode import mla_decode_attention
 from repro_torch.models.layers import Ctx, Params, apply_rope, dense
+from repro_torch.models.parallel import local_cache_dims, split_heads
 
 NEG_INF = -1e30
 
 
 def init_gqa_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                    device="cpu") -> Dict[str, Any]:
-    kv, hd = cfg.n_kv_heads, cfg.hd
+    """On a live mesh this rank's rows and KV heads
+    (``parallel.local_cache_dims``)."""
+    batch, kv = local_cache_dims(cfg, batch)
+    hd = cfg.hd
     z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=device)  # noqa: E731
     cache = {"len": z((batch,), torch.int32)}
     if cfg.kv_cache_int8:
@@ -146,12 +156,19 @@ def gqa_attention(ctx: Ctx, p: Params, x: torch.Tensor,
     cfg = ctx.cfg
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = dense(ctx, p["q"], x, "attn_qkv").reshape(b, s, h, hd)
-    k = dense(ctx, p["k"], x, "attn_qkv").reshape(b, s, kv, hd)
-    v = dense(ctx, p["v"], x, "attn_qkv").reshape(b, s, kv, hd)
+    q = split_heads(ctx, dense(ctx, p["q"], x, "attn_qkv"), b, s, h, hd,
+                    "heads")
+    k = split_heads(ctx, dense(ctx, p["k"], x, "attn_qkv"), b, s, kv, hd,
+                    "kv_heads")
+    v = split_heads(ctx, dense(ctx, p["v"], x, "attn_qkv"), b, s, kv, hd,
+                    "kv_heads")
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    # on a live mesh the rank's heads (split_heads): the port computes
+    # 'qseq' whole where the reference shards it (sharding.port_spec)
+    q = shard(q, "batch", "qseq", "heads", "head_dim")
+    k = shard(k, "batch", "seq", "kv_heads", "head_dim")
 
     impl = cfg.attn_impl
     if impl not in ("einsum", "kernel"):
@@ -173,20 +190,27 @@ def gqa_attention(ctx: Ctx, p: Params, x: torch.Tensor,
             row_update(cache["k"], k, start)
             row_update(cache["v"], v, start)
         cache["len"].copy_(start + s)
-        ck, cv = cache["k"], cache["v"]
+        ck = shard(cache["k"], "batch", "seq", "kv_heads", "head_dim")
+        cv = shard(cache["v"], "batch", "seq", "kv_heads", "head_dim")
         cks, cvs = cache.get("ks"), cache.get("vs")
         t = ck.shape[1]
+        # on a mesh a rank's rows and heads split the keys as the whole
+        # model's batch and heads do (the kernels' plans read rows x KV
+        # heads)
+        plan = ({} if ctx.tp is None
+                else {"plan_kv": kv * ctx.tp.batch_size // b})
         if impl == "kernel" and s == 1:
             # lens counts the freshly written key
             out = decode_attention(q[:, 0], ck, cv, start + 1,
-                                   ks=cks, vs=cvs)[:, None]
+                                   ks=cks, vs=cvs, **plan)[:, None]
         elif impl == "kernel":
-            out = flash_gqa_attention(q, ck, cv, start=start, ks=cks, vs=cvs)
+            out = flash_gqa_attention(q, ck, cv, start=start, ks=cks, vs=cvs,
+                                      **plan)
         elif int8_cache:
             out = _sdpa_int8(q, ck, cks, cv, cvs, _cached_mask(start, s, t))
         else:
             out = _sdpa(q, ck, cv, _cached_mask(start, s, t))
-    out = out.reshape(b, s, h * hd)
+    out = out.reshape(b, s, -1)
     return dense(ctx, p["o"], out, "attn_out"), cache
 
 

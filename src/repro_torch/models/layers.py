@@ -47,6 +47,7 @@ from repro_torch.core.cim import CIMSpec, cim_dense, \
     vote_drop_extra_std_int
 from repro_torch.core.guard import guarded_dense
 from repro_torch.core.sac import Policy, get_policy
+from repro_torch.distributed.sharding import shard
 from repro_torch.kernels import ops as kops
 
 Params = Dict[str, Any]
@@ -102,6 +103,8 @@ class Ctx:
     degrade_draws: dict = dataclasses.field(default_factory=dict)  # the
                                       # forward's ladder normals, drawn a
                                       # call position at a time
+    tp: Optional[Any] = None          # models.parallel.TP of a forward on
+                                      # a live mesh
 
     @classmethod
     def make(cls, cfg: ModelConfig, key: Optional[prng.Key] = None,
@@ -165,7 +168,11 @@ def dense(ctx: Ctx, p: Params, x: torch.Tensor, role: str) -> torch.Tensor:
     ``ctx.drift_state``. With ``ctx.guard`` a sim call on a plane with its
     checksum runs ``core.guard.guarded_dense``; otherwise the load
     ladder's noise (``_degrade_noise``) follows the matmul, before the
-    bias."""
+    bias. On a live mesh (``ctx.tp``) the column- or row-parallel product
+    of ``models.parallel.dense``."""
+    if ctx.tp is not None:
+        from repro_torch.models import parallel
+        return parallel.dense(ctx, p, x, role)
     spec = ctx.spec_for(role)
     if spec is None:
         y = x @ p["w"].to(x.dtype)
@@ -325,7 +332,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 def swiglu(ctx: Ctx, p: Params, x: torch.Tensor) -> torch.Tensor:
     g = dense(ctx, p["gate"], x, "mlp_in")
     u = dense(ctx, p["up"], x, "mlp_in")
-    return dense(ctx, p["down"], torch.nn.functional.silu(g) * u, "mlp_out")
+    h = shard(torch.nn.functional.silu(g) * u, "batch", "seq", "mlp")
+    return dense(ctx, p["down"], h, "mlp_out")
 
 
 # XLA's f32 tanh on the CPU: Eigen's rational approximation, clamped to
@@ -385,6 +393,7 @@ def gelu_mlp(ctx: Ctx, p: Params, x: torch.Tensor) -> torch.Tensor:
     evaluated in f32 and rounded back) -> down."""
     h = dense(ctx, p["up"], x, "mlp_in")
     h = gelu_tanh(h.to(torch.float32)).to(h.dtype)
+    h = shard(h, "batch", "seq", "mlp")
     return dense(ctx, p["down"], h, "mlp_out")
 
 

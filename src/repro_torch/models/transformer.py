@@ -35,6 +35,12 @@ slot's views updates the engine's cache without a copy.
 With ``cfg.fuse_layer`` a decode-shaped dense block runs as one launch of
 the per-layer megakernel (``kernels/fused_step.py``), routed exactly where
 the reference routes it (``_use_fused_layer``).
+
+Under rules over a live mesh of more than one rank the dense, vlm and
+moe-with-GQA families run tensor- and expert-parallel
+(``models/parallel.py``, ``models/moe.py``; the fused layer's route
+serves unfused there); the other families raise ``NotImplementedError``
+naming ROADMAP A7.3. ``shard`` stands at the reference's call sites.
 """
 
 from __future__ import annotations
@@ -45,10 +51,13 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.deploy import dtype_of
+from repro_torch.distributed import collectives as col
+from repro_torch.distributed.sharding import get_rules, shard
 from repro_torch.kernels.fused_step import (fused_dense_layer, kernel_takes,
                                             layer_specs)
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import parallel
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import Ctx, Params, embed, gelu_mlp, \
     layernorm, rmsnorm, sinusoidal_positions, swiglu, unembed
@@ -66,7 +75,7 @@ def _use_fused_layer(ctx: Ctx, p: Params, x, cache) -> bool:
         return False
     if ctx.guard is not None or ctx.fault is not None:
         return False
-    if not cfg.use_rope or x.dtype != torch.float32:
+    if not cfg.use_rope or x.dtype != torch.float32 or ctx.tp is not None:
         return False
     if x.device.type == "cuda" and not kernel_takes(cfg, x.shape[0],
                                                     layer_specs(ctx)):
@@ -87,13 +96,13 @@ def _dense_block(ctx: Ctx, p: Params, x, positions, cache):
         cache)
     x = x + h
     x = x + swiglu(ctx, p["mlp"], rmsnorm(p["n2"], x, ctx.cfg.norm_eps))
-    return x, new_cache
+    return shard(x, "batch", "seq", "embed"), new_cache
 
 
 def _ssm_block(ctx: Ctx, p: Params, x, positions, cache):
     h, new_cache = ssm_mod.mamba2_block(
         ctx, p["mamba"], rmsnorm(p["n"], x, ctx.cfg.norm_eps), cache)
-    return x + h, new_cache
+    return shard(x + h, "batch", "seq", "embed"), new_cache
 
 
 def _moe_block(ctx: Ctx, p: Params, x, positions, cache):
@@ -109,7 +118,7 @@ def _moe_block(ctx: Ctx, p: Params, x, positions, cache):
     x = x + moe_mod.moe_block(ctx, p["moe"],
                               rmsnorm(p["n2"], x, ctx.cfg.norm_eps),
                               dropless=cache is not None)
-    return x, new_cache
+    return shard(x, "batch", "seq", "embed"), new_cache
 
 
 _BLOCKS = {"dense": _dense_block, "vlm": _dense_block, "ssm": _ssm_block,
@@ -132,8 +141,13 @@ def hybrid_dims(cfg: ModelConfig) -> Tuple[int, int]:
 
 
 def _index(tree, i: int):
+    """Layer ``i`` of a stacked tree; a plane that ``deploy(rules=)``
+    placed as a DTensor gives layer ``i`` of this rank's block (the
+    layers axis is never split)."""
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
+    if hasattr(tree, "to_local"):
+        return tree.to_local()[i]
     return tree[i]
 
 
@@ -144,8 +158,11 @@ def _index(tree, i: int):
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 device="cpu") -> Dict[str, torch.Tensor]:
-    """Stacked per-layer decoding caches (leading 'layers' axis)."""
+    """Stacked per-layer decoding caches (leading 'layers' axis); on a live
+    mesh this rank's rows and KV heads (``parallel.local_cache_dims``)."""
     check_family(cfg)
+    if col.live_mesh(get_rules()) is not None:
+        parallel.check_family(cfg, "cache")
     dt = dtype_of(cfg)
 
     def stack(one, n):
@@ -318,13 +335,30 @@ def _hybrid_blocks(ctx: Ctx, params: Params, x, positions, caches):
     return x
 
 
-def _embed_input(cfg: ModelConfig, params: Params, batch: Dict[str, Any]):
+def _embed_input(ctx: Ctx, params: Params, batch: Dict[str, Any]):
     """Token embeddings; for vlm behind ``batch["patch_embeds"]`` (B, P, d),
-    the stub vision frontend's prefix, when the batch carries one."""
-    x = embed(params["embed"], batch["tokens"], dtype_of(cfg))
+    the stub vision frontend's prefix, when the batch carries one. On a
+    live mesh this rank's rows (``parallel.embed``)."""
+    cfg, tp = ctx.cfg, ctx.tp
+    if tp is None:
+        x = embed(params["embed"], batch["tokens"], dtype_of(cfg))
+    else:
+        x = parallel.embed(tp, params["embed"], batch["tokens"],
+                           dtype_of(cfg))
     if cfg.family == "vlm" and "patch_embeds" in batch:
-        x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
-    return x
+        pre = batch["patch_embeds"]
+        if tp is not None:
+            pre = parallel.batch_block(tp, pre)
+        x = torch.cat([pre.to(x.dtype), x], dim=1)
+    return shard(x, "batch", "seq", "embed")
+
+
+def _unembed(ctx: Ctx, params: Params, x):
+    if ctx.tp is None:
+        logits = unembed(ctx, params["embed"], x)
+    else:
+        logits = parallel.unembed(ctx.tp, params["embed"], x)
+    return shard(logits, "batch", "seq", "vocab")
 
 
 def forward(params: Params, batch: Dict[str, Any], cfg: ModelConfig,
@@ -332,12 +366,18 @@ def forward(params: Params, batch: Dict[str, Any], cfg: ModelConfig,
             ) -> Tuple[torch.Tensor, Any]:
     """Forward to logits. train: caches=None; prefill/decode: the stacked
     cache, updated in place (encdec: ``batch["frames"]`` (B, n_frames,
-    d_model) feed the encoder, on the uncached and the prefill forward)."""
+    d_model) feed the encoder, on the uncached and the prefill forward).
+    Under rules over a live mesh (``models/parallel.py``) every rank passes
+    the global batch and gets its block of the logits, vocab-sharded
+    (``parallel.gather_logits`` assembles them); the caches are the
+    rank's (``init_caches`` under the same rules)."""
     check_family(cfg)
     ctx = ctx or Ctx.make(cfg)
+    tokens = batch["tokens"]
+    ctx.tp = parallel.begin(cfg, tokens.shape[0], tokens.shape[1])
     if cfg.family == "encdec":
         return _encdec_forward(params, batch, cfg, ctx, caches)
-    x = _embed_input(cfg, params, batch)
+    x = _embed_input(ctx, params, batch)
     b, s, _ = x.shape
     steps = torch.arange(s, device=x.device)[None]
     if caches is None:
@@ -346,7 +386,7 @@ def forward(params: Params, batch: Dict[str, Any], cfg: ModelConfig,
         positions = cache_len(caches)[:, None] + steps
     x = _run_blocks(ctx, params, x, positions, caches)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return unembed(ctx, params["embed"], x), caches
+    return _unembed(ctx, params, x), caches
 
 
 def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig,
@@ -419,7 +459,10 @@ def lm_loss(params: Params, batch: Dict[str, Any], cfg: ModelConfig,
     """Next-token cross-entropy plus 1e-4 z-loss; labels < 0 are masked.
     A train forward (no cache): nothing is written in place, so autograd
     runs through it."""
+    ctx = ctx or Ctx.make(cfg)
     logits, _ = forward(params, batch, cfg, ctx)
+    if ctx.tp is not None:
+        return parallel.lm_loss(ctx.tp, cfg, logits, batch["labels"])
     labels = batch["labels"].long()
     if cfg.family == "vlm":     # the image prefix carries no labels
         logits = logits[:, -labels.shape[1]:]

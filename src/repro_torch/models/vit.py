@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import parallel
 from repro_torch.models.layers import Ctx, Params, dense, gelu_mlp, layernorm
 
 
@@ -38,7 +39,9 @@ def _layer(tree, i: int):
 
 def vit_forward(params: Params, images: torch.Tensor, cfg: ModelConfig,
                 ctx: Optional[Ctx] = None) -> torch.Tensor:
-    """images: (B, H, W, C) float in [0, 1] -> logits (B, n_classes)."""
+    """images: (B, H, W, C) float in [0, 1] -> logits (B, n_classes).
+    Raises under rules over a live mesh (ROADMAP A7.3)."""
+    parallel.begin(cfg, images.shape[0], 1)
     ctx = ctx or Ctx.make(cfg)
     x = patchify(images.to(torch.float32), cfg.patch_size)
     x = dense(ctx, params["patch"], x, "mlp_in")

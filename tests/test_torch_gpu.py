@@ -1139,3 +1139,56 @@ def test_sharded_row1_shard_equals_column_slice(cuda):
             assert torch.equal(y, full[:, r * n:(r + 1) * n])
             assert torch.equal(y, cim_matmul_fused_plain(
                 x, shard, qp, (1, 2), 0.0, spec.in_bits))
+
+
+# qwen2-0.5b's q and gate planes split over two ranks' columns, o and down
+# over two ranks' rows (down's cut at 2432 falls inside macro tile 2), at
+# a decode step's and a prefill chunk's rows
+@pytest.mark.parametrize("m", [4, 128])
+@pytest.mark.parametrize("k,n,cut", [(896, 896, "col"), (896, 4864, "col"),
+                                     (896, 896, "row"), (4864, 896, "row")])
+def test_row1_shards_with_offsets_on_card(cuda, m, k, n, cut):
+    """A column shard with its noise offsets (``col0``, and ``row0`` for a
+    row block) is bit-equal to its slice of the whole plane's launch, noise
+    on; the row shards' ``cim_tile_partials`` equal their plain version
+    exactly and, summed, ``cim_tile_merge`` is bit-equal to the whole
+    launch and within the noise tolerance of its plain version."""
+    from repro_torch.kernels.cim_matmul import (cim_tile_merge,
+                                                cim_tile_merge_plain,
+                                                cim_tile_partials,
+                                                cim_tile_partials_plain)
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=g, device=cuda).bfloat16()
+    wq = torch.randint(-31, 32, (k, n), generator=g, device=cuda,
+                       dtype=torch.int8)
+    xs = 4.0 * torch.sqrt(torch.mean(x.float() ** 2)) / quant.qmax(6)
+    qp = torch.stack([xs, xs * 0.0125])
+    sigma = cim.output_noise_std_int_per_tile(sac.paper_sac().mlp, k)
+    seed = (5, 6)
+    whole = cim_matmul_fused(x, wq, qp, seed, sigma, 6)
+    if cut == "col":
+        h = n // 2
+        for r in range(2):
+            y = cim_matmul_fused(x, wq[:, r * h:(r + 1) * h].contiguous(), qp,
+                                 seed, sigma, 6, col0=r * h)
+            assert torch.equal(y, whole[:, r * h:(r + 1) * h])
+        hm = m // 2
+        y = cim_matmul_fused(x[hm:], wq, qp, seed, sigma, 6, row0=hm)
+        assert torch.equal(y, whole[hm:])
+        return
+    h = k // 2
+    total = None
+    for r in range(2):
+        xr, wr = x[:, r * h:(r + 1) * h], wq[r * h:(r + 1) * h]
+        part = cim_tile_partials(xr, wr, qp, 6, r * h, k)
+        assert torch.equal(part, cim_tile_partials_plain(xr, wr, qp, 6,
+                                                         r * h, k))
+        total = part if total is None else total + part
+    y = cim_tile_merge(total, qp, seed, sigma)
+    assert torch.equal(y, whole)
+    assert torch.equal(cim_tile_merge(total, qp, None, 0.0),
+                       cim_matmul_fused(x, wq, qp, None, 0.0, 6))
+    yp = cim_tile_merge_plain(total, qp, seed, sigma)
+    tol = 1e-6 * -(-k // 1024) * yp.abs().max().item() + 1e-5 * sigma * \
+        float(qp[1])
+    assert (y - yp).abs().max().item() <= tol

@@ -279,9 +279,233 @@ def row1_shard_errors(cfg, plain, shard, rank, device):
     return out
 
 
+# ------------------------------------- the models' sharded forward (A7.2)
+
+
+def flat_tree(tree, pre="p"):
+    """A nested dict of arrays as {"p/a/b": array} (npz keys)."""
+    out = {}
+    for k, v in tree.items():
+        key = f"{pre}/{k}"
+        out.update(flat_tree(v, key) if isinstance(v, dict)
+                   else {key: np.asarray(v)})
+    return out
+
+
+def unflat_tree(flat, pre="p"):
+    tree = {}
+    for key, v in flat.items():
+        if not key.startswith(pre + "/"):
+            continue
+        node = tree
+        parts = key[len(pre) + 1:].split("/")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = v
+    return tree
+
+
+def model_cfg(get_config, inp, mode):
+    """The reduced config of a sharded-forward case (float32; attention
+    through the einsum reference on the JAX side, through the kernels'
+    routes (plain versions on the CPU) on the port's; the CIM kernel path
+    in sim)."""
+    import dataclasses
+    base = get_config(str(inp["arch"]))
+    return dataclasses.replace(
+        base.reduced(), dtype="float32",
+        cim=dataclasses.replace(base.cim, mode=mode, use_kernel=True))
+
+
+def runs_of(inp):
+    """The case's runs as (name, mode, data, model): ``inp["runs"]`` holds
+    strings ``"<mode>:<data>x<model>"``."""
+    out = []
+    for r in inp["runs"]:
+        mode, mesh = str(r).split(":")
+        data, model = (int(v) for v in mesh.split("x"))
+        out.append((str(r).replace(":", "_"), mode, data, model))
+    return out
+
+
+def _steps(inp):
+    """The batch of each forward: the prefill, then one token a row for
+    each decode step (forward i keyed ``fold_in(key, i)``)."""
+    out = [inp["tokens"]]
+    for i in range(inp["decode"].shape[0]):
+        out.append(inp["decode"][i][:, None])
+    return out
+
+
+def jax_forward(n, inp):
+    """The reference's forward of a case, each run on a (data, model)
+    mesh of Auto axis types (over the first data x model of the ``n``
+    forced devices) under ``use_rules(default_rules(mesh))`` (sim: the
+    planes of ``deploy(rules=)``): per run the prefill's and the decode
+    steps' logits, or with labels the loss; and the parameters it drew
+    (``p/...``, from ``PRNGKey(0)``)."""
+    import dataclasses
+    import jax
+    from repro.configs.registry import get_config
+    from repro.core.deploy import deploy
+    from repro.distributed.sharding import default_rules, use_rules
+    from repro.models import transformer as jtf
+    from repro.models.model import build
+    key = jax.random.PRNGKey(int(inp["key"]))
+    out = {}
+    for name, mode, data, model in runs_of(inp):
+        cfg = dataclasses.replace(model_cfg(get_config, inp, mode),
+                                  attn_impl="einsum")
+        api = build(cfg)
+        params, _ = api.init(jax.random.PRNGKey(0))
+        out.update(flat_tree(jax.tree.map(np.asarray, params)))
+        mesh = jax.make_mesh((data, model), ("data", "model"),
+                             axis_types=(jax.sharding.AxisType.Auto,) * 2,
+                             devices=jax.devices()[:data * model])
+        rules = default_rules(mesh)
+        dp = deploy(cfg, params, rules=rules) if mode == "sim" else params
+        with use_rules(rules):
+            if "labels" in inp:
+                loss = jax.jit(lambda p, b: api.loss(p, b, key))(
+                    dp, {"tokens": inp["tokens"], "labels": inp["labels"]})
+                out[f"{name}/loss"] = np.asarray(loss)
+                continue
+            fwd = jax.jit(lambda p, b, c, k: api.forward(p, b, k, c))
+            caches = jtf.init_caches(cfg, inp["tokens"].shape[0],
+                                     int(inp["max_len"]))
+            for i, toks in enumerate(_steps(inp)):
+                logits, caches = fwd(dp, {"tokens": toks}, caches,
+                                     jax.random.fold_in(key, i))
+                out[f"{name}/logits{i}"] = np.asarray(logits)
+    return out
+
+
+def torch_forward(rank, world, inp):
+    """The port's forward of a case on this rank, each run on a (data,
+    model) gloo mesh of the ``world`` ranks, the JAX parameters carried
+    over (``params_from_jax``; sim: ``deploy(rules=)``): per run the
+    global logits of the prefill and the decode steps
+    (``parallel.gather_logits``) or the loss, the collectives' counts and
+    (moe) the experts of this rank's bank block. Rank 0 also runs the same
+    forwards with no rules (``one/...``) and, for moe, under rules on a
+    ``VirtualMesh`` of the run's shape (``grouped/...``: the grouped
+    dispatch in one process)."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import deploy as dep
+    from repro_torch.core import prng
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed.sharding import (VirtualMesh, default_rules,
+                                                  use_rules)
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model import build
+    from repro_torch.models.parallel import gather_logits
+    params = dep.params_from_jax(unflat_tree(inp))
+    b = inp["tokens"].shape[0]
+    key = prng.PRNGKey(int(inp["key"]))
+    out = {}
+
+    def run(cfg, rules, placed):
+        api = build(cfg)
+        got = {}
+        with use_rules(rules):
+            if "labels" in inp:
+                got["loss"] = api.loss(placed, {
+                    "tokens": torch.from_numpy(inp["tokens"]),
+                    "labels": torch.from_numpy(inp["labels"])},
+                    key).detach().numpy()
+                return got
+            caches = tf.init_caches(cfg, b, int(inp["max_len"]))
+            for i, toks in enumerate(_steps(inp)):
+                logits, _ = api.forward(placed, {
+                    "tokens": torch.from_numpy(np.ascontiguousarray(toks))},
+                    prng.fold_in(key, i), caches)
+                got[f"logits{i}"] = gather_logits(cfg, logits, b).numpy()
+        return got
+
+    for name, mode, data, model in runs_of(inp):
+        cfg = model_cfg(get_config, inp, mode)
+        sim = mode == "sim"
+        rules = default_rules(make_debug_mesh(data, model, device_type="cpu"))
+        placed = dep.deploy(cfg, params, rules=rules) if sim else params
+        for k in col.COUNTS:
+            col.COUNTS[k] = 0
+        out.update({f"{name}/{k}": v
+                    for k, v in run(cfg, rules, placed).items()})
+        out.update({f"{name}/coll_{k}": np.array(v)
+                    for k, v in col.COUNTS.items()})
+        if cfg.moe is not None and sim:
+            bank = [k for k in placed["blocks"]["moe"]
+                    if k.startswith("w_gate_q")][0]
+            out[f"{name}/local_experts"] = np.array(
+                placed["blocks"]["moe"][bank].to_local().shape[1])
+        if rank == 0:
+            whole = dep.deploy(cfg, params) if sim else params
+            out.update({f"{name}/one/{k}": v
+                        for k, v in run(cfg, None, whole).items()})
+            if cfg.moe is not None:
+                vm = VirtualMesh.make(data=data, model=model)
+                out.update({f"{name}/grouped/{k}": v for k, v in
+                            run(cfg, default_rules(vm), whole).items()})
+    return out
+
+
+def torch_outside(rank, world, inp):
+    """Under a live mesh every family and mode outside A7.2's slice must
+    raise ``NotImplementedError`` naming ROADMAP A7.3 (never run
+    unsharded numbers): 1 a case that raised so, else 0."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import deploy as dep
+    from repro_torch.core import prng
+    from repro_torch.distributed.sharding import default_rules, use_rules
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model import build
+    rules = default_rules(make_debug_mesh(1, world, device_type="cpu"))
+    out = {}
+    cases = [(a, "off", True) for a in
+             ("mamba2-130m", "zamba2-7b", "deepseek-v2-236b",
+              "whisper-medium", "vit-small-cifar")]
+    cases += [("qwen2-0.5b", "sim", False), ("qwen2-0.5b", "qat", True)]
+    for arch, mode, kernel in cases:
+        base = get_config(arch)
+        cfg = dataclasses.replace(
+            base.reduced(), cim=dataclasses.replace(base.cim, mode=mode,
+                                                    use_kernel=kernel))
+        params = dep.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        if mode == "sim":
+            params = dep.deploy(cfg, params)
+        if cfg.family == "vit":
+            batch = {"images": torch.zeros((2, cfg.image_size,
+                                            cfg.image_size, 3))}
+        else:
+            batch = {"tokens": torch.zeros((2, 4), dtype=torch.int64)}
+            if cfg.family == "encdec":
+                batch["frames"] = torch.zeros((2, cfg.n_frames, cfg.d_model))
+        try:
+            with use_rules(rules):
+                build(cfg).forward(params, batch, prng.PRNGKey(0))
+            out[f"{arch}_{mode}"] = np.array(0)
+        except NotImplementedError as e:
+            out[f"{arch}_{mode}"] = np.array(int("A7.3" in str(e)))
+    with use_rules(rules):
+        try:
+            tf.init_caches(get_config("mamba2-130m").reduced(), 2, 8)
+            out["mamba2_cache"] = np.array(0)
+        except NotImplementedError as e:
+            out["mamba2_cache"] = np.array(int("A7.3" in str(e)))
+    return out
+
+
 TORCH_CASES = {"compress": torch_compress, "pipeline": torch_pipeline,
-               "deploy": torch_deploy}
-JAX_CASES = {"compress": jax_compress, "pipeline": jax_pipeline}
+               "deploy": torch_deploy, "forward": torch_forward,
+               "outside": torch_outside}
+JAX_CASES = {"compress": jax_compress, "pipeline": jax_pipeline,
+             "forward": jax_forward}
 
 
 def _main(argv):
